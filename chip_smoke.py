@@ -25,8 +25,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              on non-finite outputs, on any rejected frame, or on an ATE
              (align=False) outside 1.976 +- 0.05 m. Also checks that the CUDA
              path agrees with the CPU path on a 16-frame x 256-point input.
+5. s2m     — the scan-to-map bench cell of `bench.py` (the first 256 frames
+             of the same sequence) through run_scan_to_map_blocked(block=8,
+             use_const_velocity_rot=True): warm-up, then one timed run with
+             the VGICP sweep launch count reset just before and read just
+             after. It must equal the sum of the warm-up frames' GN sweeps
+             plus, per block, the largest sweep count of its 8 frames (no
+             block may fall back to the sequential re-track). Fails on
+             non-finite outputs, on a lost frame (fitness 1e6) or on an ATE
+             (align=False) outside 0.034 +- 0.01 m. A third run prints the
+             host-clock phase split (REVE, sorts, sector query, GN loop,
+             insert). Also checks CUDA against CPU on a 24 x 256 input.
+6. vgicp   — the VGICP sweep kernel against its plain PyTorch version on
+             the card: the bench block (8 frames x 2048 points against a
+             real 16,384-row submap of the warm map of phase 5), a fully
+             live 16,384-row submap, a ragged masked case, exact ties within
+             and across target tiles, and an empty submap; tolerance rtol
+             1e-5 / atol 1e-4 on every output. Times both at the bench block
+             (CUDA events, median of 10, in turns plain / kernel / kernel /
+             plain), and the kernel's launch alone on inputs packed once.
+7. profile — one torch.profiler run of each slice: device kernel time,
+             kernel launches, the top kernels, and the device's idle share
+             against the unprofiled run time.
 
-The second-to-last line is a JSON record of the kernels; the last line is
+The kernels' bounds come from the shapes and this run's data (bytes over
+3.35 TB/s, FP32 operations over 67 TFLOP/s, the H100 SXM data sheet). The
+line before the last two is a JSON record of the kernels, the next one the
+card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -46,6 +71,24 @@ MOMENT_GROUPS = {"sw": slice(0, 1), "swp": slice(1, 4), "swq": slice(4, 7),
                  "ungated": slice(17, 19)}
 KERNEL_SOURCE = "icp4dradar_tpu_torch/csrc/icp_moments.cu"
 KERNEL_REPLACES = "icp4dradar_tpu/ops/icp_fused.py:36"
+VGICP_SOURCE = "icp4dradar_tpu_torch/csrc/vgicp_sweep.cu"
+VGICP_REPLACES = "icp4dradar_tpu/ops/vgicp_fused.py:98"
+VG_RTOL, VG_ATOL = 1e-5, 1e-4
+S2M_FRAMES, S2M_BLOCK = 256, 8
+S2M_ATE_EXPECTED, S2M_ATE_BAND = 0.034, 0.01
+LOST_FITNESS = 1e6
+# NVIDIA's H100 SXM data sheet: HBM rate and FP32 peak (at 700 W)
+PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
+ICP_FLOPS_PER_PAIR = 9       # 3 sub, 3 mul, 3 add (the compare not counted)
+VGICP_FLOPS_PER_PAIR = 9
+VGICP_FLOPS_PER_SOURCE = 300  # p = R s + t and the GN epilogue, about
+
+
+def roofline(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    FP32 operations over the FP32 peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def log(msg):
@@ -175,11 +218,17 @@ def phase_kernel(torch, scans):
 
     p1, k1, k2, p2 = (time_cuda(torch, f) for f in (plain, kernel, kernel, plain))
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    pairs = src.shape[0] * src.shape[1] * tgt.shape[1]
-    log(f"[kernel] time at B={src.shape[0]} x {src.shape[1]} x {tgt.shape[1]}: "
+    B, N, M = src.shape[0], src.shape[1], tgt.shape[1]
+    pairs = B * N * M
+    # each input read once (T, xyz and masks of both clouds), (B, 19) out
+    bound_ms, bound_by = roofline(4 * (16 * B + 4 * B * N + 4 * B * M + 19 * B),
+                                  ICP_FLOPS_PER_PAIR * pairs)
+    log(f"[kernel] time at B={B} x {N} x {M}: "
         f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; "
-        f"kernel {pairs / (ms * 1e-3) / 1e9:.1f} G point pairs/s")
-    return max_err, ms, plain_ms
+        f"kernel {pairs / (ms * 1e-3) / 1e9:.1f} G point pairs/s; bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def phase_slice(torch, seq, scans):
@@ -254,6 +303,317 @@ def phase_slice(torch, seq, scans):
     return launches, F / dt, ate
 
 
+def phase_s2m(torch, seq, scans):
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io import SyntheticSequence
+    from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.models import scan_to_map
+    from icp4dradar_tpu_torch.ops import vgicp_fused
+    from icp4dradar_tpu_torch.preprocess import draw_reve_uniforms
+    from icp4dradar_tpu_torch.utils import ate_rmse
+
+    cfg = PipelineConfig()
+    F, B = S2M_FRAMES, S2M_BLOCK
+    s2m = scans[:F]
+
+    def run(phase_times=None):
+        out = scan_to_map.run_scan_to_map_blocked(
+            s2m, cfg, block=B, use_const_velocity_rot=True, phase_times=phase_times)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    run()
+    log(f"[s2m] warm-up run {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS = 0
+    vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, out = run()
+    dt = time.perf_counter() - t0
+    launches = vgicp_fused.VGICP_SWEEP_LAUNCHES
+    fallbacks = scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    repeats = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        run()
+        repeats.append(time.perf_counter() - t1)
+    log(f"[s2m] {F} frames in {dt * 1e3:.2f} ms = {F / dt:.1f} scans/s (repeats: "
+        f"{', '.join(f'{F / r:.1f}' for r in repeats)} scans/s); peak device "
+        f"memory {peak:.2f} GiB")
+    its = out.iterations.cpu().numpy()
+    expected = int(its[:B].sum() + its[B:].reshape(-1, B).max(axis=1).sum())
+    log(f"[s2m] vgicp_sweep launches {launches}, expected {expected} (warm-up "
+        f"sweeps {int(its[:B].sum())} + per-block max {int(expected - its[:B].sum())}); "
+        f"GN sweeps per frame mean {its.mean():.2f}; fallback blocks {fallbacks}")
+    if launches <= 0 or launches != expected or fallbacks != 0:
+        raise RuntimeError(f"[s2m] launch count {launches} != {expected} or "
+                           f"{fallbacks} blocks fell back")
+    for f in ("world_T", "correction", "velocity", "velocity_sigma", "fitness"):
+        x = getattr(out, f)
+        if x.shape[0] != F or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"[s2m] {f}: shape {tuple(x.shape)} or non-finite")
+    lost = int((out.fitness >= LOST_FITNESS).sum().item())
+    poses = out.world_T.cpu().numpy()
+    ate = ate_rmse(poses[:, :3, 3], seq.poses[:F, :3, 3], align=False)
+    log(f"[s2m] lost frames {lost}, fitness max {out.fitness.max().item():.4f}, map "
+        f"voxels {int(state.vmap.num_voxels.item())}, live submap rows max "
+        f"{int(out.submap_points.max().item())}, ATE (align=False) {ate:.4f} m")
+    if lost:
+        raise RuntimeError(f"[s2m] {lost} lost frames")
+    if not abs(ate - S2M_ATE_EXPECTED) <= S2M_ATE_BAND:
+        raise RuntimeError(f"[s2m] ATE {ate:.4f} m outside "
+                           f"{S2M_ATE_EXPECTED} +- {S2M_ATE_BAND} m")
+    phases = {}
+    t0 = time.perf_counter()
+    run(phase_times=phases)
+    total = time.perf_counter() - t0
+    log(f"[s2m] phase split (host clock, a synchronize around each phase; "
+        f"{total * 1e3:.2f} ms in all): " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" for k, v in sorted(phases.items(), key=lambda kv: -kv[1])))
+
+    # small input: the CUDA path against the CPU path on the same draws
+    # (a scene small enough that 256 points per scan track without a fallback:
+    # at the bench scene's density 256 points walk off, and a walk-off
+    # amplifies the last bit of any difference)
+    small = SyntheticSequence(num_frames=24, max_points=256, num_landmarks=400,
+                              world_extent=50.0, max_range=50.0, dynamic_fraction=0.05,
+                              speed=1.0, turn_rate=0.02, seed=0)
+    s_cpu = stack_scans([small.scan(k) for k in range(24)])
+    u = draw_reve_uniforms((24,), cfg.reve, torch.Generator().manual_seed(0))
+    kw = dict(block=B, use_const_velocity_rot=True)
+    scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS = 0
+    _, o_cpu = scan_to_map.run_scan_to_map_blocked(s_cpu, cfg, uniforms=u, **kw)
+    fb_cpu = scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS
+    _, o_gpu = scan_to_map.run_scan_to_map_blocked(s_cpu.to("cuda"), cfg,
+                                                   uniforms=u.cuda(), **kw)
+    fb_gpu = scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS - fb_cpu
+    d = (o_gpu.world_T.cpu() - o_cpu.world_T).abs().max().item()
+    same_its = bool((o_gpu.iterations.cpu() == o_cpu.iterations).all())
+    log(f"[s2m] 24x256 CUDA vs CPU: max |world_T| diff {d:.3e}, GN sweeps equal "
+        f"{same_its}, fallback blocks {fb_gpu} / {fb_cpu}")
+    if d > 1e-3 or fb_gpu != 0 or fb_cpu != 0:
+        raise RuntimeError("[s2m] CUDA and CPU paths disagree on 24x256")
+    return launches, state, out, s2m
+
+
+def phase_vgicp(torch, state, out, s2m):
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.geom import matrix_to_rpy
+    from icp4dradar_tpu_torch.mapping import voxel_map_sector_search_with_stats
+    from icp4dradar_tpu_torch.models.scan_to_map import (
+        _sort_scans_by_sensor_x, _sort_submap_by_axis,
+    )
+    from icp4dradar_tpu_torch.ops import vgicp_fused as vf
+    from icp4dradar_tpu_torch.ops.vgicp_fused import (
+        radar_point_covariances_packed, vgicp_iteration, vgicp_iteration_batch,
+        vgicp_iteration_plain,
+    )
+
+    cfg = PipelineConfig()
+    vm, g = cfg.voxel_map, cfg.gicp
+    dev = s2m.xyz.device
+    rng = np.random.default_rng(1)
+    names = ("H", "g", "cost", "wsum", "d2sum", "best")
+    max_err = 0.0
+
+    def both(name, *args, batch=False, **kw):
+        kw = dict(kw, max_correspondence_dist=g.max_correspondence_dist,
+                  cov_eps=g.cov_epsilon, return_best=True)
+        if batch:
+            Bn, Nn = args[1].shape[:2]
+            kw["ts"] = min(kw.get("ts", 2048), max(8, Nn))    # one block per frame
+            k = vgicp_iteration_batch(*args, **kw)
+            flat = (args[0], args[1].reshape(Bn * Nn, 3), args[2].reshape(Bn * Nn),
+                    args[3].reshape(Bn * Nn, 6)) + args[4:]
+            torch.cuda.synchronize()
+            p = vgicp_iteration_plain(*flat, _acc_groups=Bn, **kw)
+        else:
+            k = vgicp_iteration(*args, **kw)
+            torch.cuda.synchronize()
+            p = vgicp_iteration_plain(*args, **kw)
+        errs = []
+        for n, a, b in zip(names, k, p):
+            a, b = a.double().cpu(), b.double().cpu()
+            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+                raise RuntimeError(f"[vgicp] {name}: non-finite {n}")
+            bad = (a - b).abs() > VG_ATOL + VG_RTOL * b.abs()
+            errs.append((n, (a - b).abs().max().item(), int(bad.sum())))
+        log(f"[vgicp] {name}: " + "; ".join(f"{n} abs {e:.3e}" for n, e, _ in errs))
+        if any(nb for _, _, nb in errs):
+            raise RuntimeError(f"[vgicp] {name}: beyond rtol {VG_RTOL} / atol {VG_ATOL}: "
+                               + ", ".join(f"{n} {nb}" for n, _, nb in errs if nb))
+        return max(e for n, e, _ in errs if n != "best"), k
+
+    # the bench block: the last 8 frames, sorted as the tracker sorts them,
+    # at their tracked poses, against the warm map's sector submap
+    B = S2M_BLOCK
+    scans_b = _sort_scans_by_sensor_x(s2m[-B:])
+    T = out.world_T[-B:].contiguous()
+    pose0 = state.world_T
+    heading = matrix_to_rpy(pose0[:3, :3])[2]
+    _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
+        state.vmap, pose0[:3, 3], vm.sector_radius, heading, vm.sector_half_angle_deg,
+        vm.submap_max_points, min_count=vm.stats_min_count,
+        fallback_var=vm.stats_fallback_var)
+    hrad = heading * (np.pi / 180.0)
+    axis2 = torch.stack([torch.cos(hrad), torch.sin(hrad)])
+    sub_mean, sub_cov, submask = _sort_submap_by_axis(sub_mean, sub_cov, submask, axis2)
+    center = T[0, :3, 3].clone()
+    Tc = T.clone()
+    Tc[:, :3, 3] -= center
+    src, sm = scans_b.xyz.contiguous(), scans_b.mask.contiguous()
+    scov = radar_point_covariances_packed(src, g.sigma_range, g.sigma_azimuth,
+                                          g.sigma_elevation).contiguous()
+    tgt = (sub_mean - center).contiguous()
+    count = int(sub_n.item())
+    P = tgt.shape[0]
+    bench = (Tc, src, sm, scov, tgt, sub_cov.contiguous(), submask.contiguous())
+    err, _ = both(f"bench B={B} 2048 x {P} rows ({count} live)", *bench, batch=True,
+                  tgt_count=sub_n, gate_axis=axis2)
+    max_err = max(max_err, err)
+
+    # every row of a 16,384-row submap live: the live rows jittered over the
+    # whole table, and voxel-like covariances
+    reps = -(-P // max(count, 1))
+    full = torch.cat([sub_mean[:count]] * reps)[:P] - center
+    full = full + torch.from_numpy(rng.normal(0, 0.3, (P, 3)).astype(np.float32)).to(dev)
+    fcov = torch.cat([sub_cov[:count]] * reps)[:P].contiguous()
+    ones = torch.ones(P, device=dev)
+    err, _ = both(f"fully live B={B} 2048 x {P}", Tc, src, sm, scov, full.contiguous(),
+                  fcov, ones, batch=True, tgt_count=torch.tensor(P, device=dev))
+    max_err = max(max_err, err)
+
+    # ragged: one frame of 1000 points with random masks against 5000 rows
+    # of which 70% are masked in at random (no live count: every tile swept)
+    n, m = 1000, 5000
+    rsrc = torch.from_numpy(rng.uniform(-40, 40, (n, 3)).astype(np.float32)).to(dev)
+    rsm = torch.from_numpy((rng.uniform(size=n) > 0.2).astype(np.float32)).to(dev)
+    rtgt = torch.from_numpy(rng.uniform(-40, 40, (m, 3)).astype(np.float32)).to(dev)
+    rtm = torch.from_numpy((rng.uniform(size=m) > 0.3).astype(np.float32)).to(dev)
+    rcov = fcov[:m]
+    err, _ = both("ragged 1000 x 5000 masked", Tc[0], rsrc, rsm,
+                  radar_point_covariances_packed(rsrc), rtgt, rcov, rtm)
+    max_err = max(max_err, err)
+
+    # exact ties: rows 3 and 700 of tile 0 at d2 = 5 average to (1, 0, 0);
+    # row 1500 of tile 1 at the same d2 does not replace them; rows 1100
+    # and 1800 of tile 1 at d2 = 2 replace tile 0's d2 = 9 and average
+    tt = torch.full((2048, 3), 90.0, device=dev)
+    for row, v in ((3, (1., 2., 0.)), (700, (1., -2., 0.)), (1500, (-1., 2., 0.)),
+                   (5, (20., 3., 0.)), (1100, (21., 0., 1.)), (1800, (19., 0., -1.))):
+        tt[row] = torch.tensor(v, device=dev)
+    tsrc = torch.tensor([[0.0, 0.0, 0.0], [20.0, 0.0, 0.0]], device=dev)
+    _, k = both("exact ties", torch.eye(4, device=dev), tsrc, torch.ones(2, device=dev),
+                radar_point_covariances_packed(tsrc), tt, fcov[:2048],
+                torch.ones(2048, device=dev), ts=8)
+    best = k[5][0].cpu()
+    if best[:4, 0].tolist() != [5.0, 1.0, 0.0, 0.0] or \
+            best[:4, 1].tolist() != [2.0, 20.0, 0.0, 0.0]:
+        raise RuntimeError(f"[vgicp] exact ties: payloads {best[:4, :2].T.tolist()}")
+
+    # an empty submap: nothing matches, every sum is zero
+    _, k = both("empty submap", Tc, src, sm, scov, tgt, sub_cov.contiguous(),
+                torch.zeros(P, device=dev), batch=True,
+                tgt_count=torch.tensor(0, device=dev))
+    if float(k[3].abs().sum()) != 0.0:
+        raise RuntimeError("[vgicp] empty submap matched something")
+
+    # time the bench block in turns; 20 calls per event window (one call
+    # is a few microseconds of device work, below the events' resolution)
+    kw = dict(max_correspondence_dist=g.max_correspondence_dist, cov_eps=g.cov_epsilon,
+              tgt_count=sub_n, gate_axis=axis2)
+    flat = (Tc, src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6)) + bench[4:]
+    calls = 20
+
+    def kernel():
+        for _ in range(calls):
+            vgicp_iteration_batch(*bench, **kw)
+
+    def plain():
+        for _ in range(calls):
+            vgicp_iteration_plain(*flat, _acc_groups=B, ts=min(2048, src.shape[1]), **kw)
+
+    p1, k1, k2, p2 = (time_cuda(torch, f) / calls for f in (plain, kernel, kernel, plain))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+
+    # the kernel alone: launches on buffers packed once, without the
+    # wrapper's packing, per-frame sum and unpack
+    Tk, srcp, tgt10, cnt, ts, Bk, Nf = vf._prepare(*flat, min(2048, src.shape[1]),
+                                                    sub_n, axis2)
+    lib = vf._lib()
+    part = torch.empty((Bk, -(-Nf // lib.vgicp_sweep_threads()), vf.NUM_ACC),
+                       dtype=torch.float64, device=dev)
+    launch_args = (Tk.data_ptr(), srcp.data_ptr(), tgt10.data_ptr(), cnt.data_ptr(), Bk, Nf,
+                   0, P, vf.target_tile_rows(P), ts, vf.sweep_gate(g.max_correspondence_dist),
+                   float(np.float32(g.cov_epsilon)), part.data_ptr(), None,
+                   torch.cuda.current_stream().cuda_stream)
+
+    def launch_only():
+        for _ in range(calls):
+            rc = lib.vgicp_sweep_launch(*launch_args)
+            if rc != 0:
+                raise RuntimeError(f"[vgicp] launch failed: CUDA error {rc}")
+
+    alone = time_cuda(torch, launch_only) / calls
+    N = src.shape[1]
+    live_rows = min(P, count)
+    # inputs read once: T, the sources (xyz, mask, cov6), the live target
+    # rows (mean, cov6, mask), the count; (B, 30) sums out
+    nbytes = 4 * (16 * B + 10 * B * N + 10 * live_rows + 1 + 30 * B)
+    flops = VGICP_FLOPS_PER_PAIR * B * N * live_rows + VGICP_FLOPS_PER_SOURCE * B * N
+    bound_ms, bound_by = roofline(nbytes, flops)
+    log(f"[vgicp] time at B={B} x {N} x {P} rows ({count} live), per call of the "
+        f"wrapper: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; the "
+        f"kernel alone {alone:.4f} ms per launch; bound {bound_ms:.5f} ms ({bound_by})")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def phase_profile(torch, scans, s2m):
+    """One profiled run of each slice: device kernel time and launches from
+    torch.profiler, the idle share against the median unprofiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.models import run_scan_to_map_blocked, run_scan_to_scan
+
+    cfg = PipelineConfig()
+    runs = {
+        "s2s": lambda: run_scan_to_scan(scans, cfg, use_doppler_prior=True),
+        "s2m": lambda: run_scan_to_map_blocked(s2m, cfg, block=S2M_BLOCK,
+                                               use_const_velocity_rot=True),
+    }
+    cuda_type = torch.autograd.DeviceType.CUDA
+    for name, fn in runs.items():
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages() if e.device_type == cuda_type]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3     # ms
+        launches = sum(e.count for e in kern)
+        if busy <= 0.0:
+            log(f"[profile] {name}: the profiler saw no device time (not measured)")
+            continue
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+        log(f"[profile] {name}: run {wall * 1e3:.2f} ms unprofiled (median of 3), "
+            f"{pwall * 1e3:.2f} ms profiled; device kernel time {busy:.2f} ms in "
+            f"{launches} kernel launches; idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+        for e in top:
+            log(f"[profile] {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
+                f"x{e.count:<6d} {e.key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -275,14 +635,18 @@ def main() -> int:
     log(f"[data] bench sequence {BENCH_FRAMES} x {BENCH_POINTS} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    max_err, ms, plain_ms = phase_kernel(torch, scans)
-    launches, scans_per_s, ate = phase_slice(torch, seq, scans)
+    icp = phase_kernel(torch, scans)
+    icp_launches, scans_per_s, ate = phase_slice(torch, seq, scans)
+    vg_launches, state, out, s2m = phase_s2m(torch, seq, scans)
+    vg = phase_vgicp(torch, state, out, s2m)
+    phase_profile(torch, scans, s2m)
 
-    log(json.dumps({"kernels": [{
-        "name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    log(json.dumps({"kernels": [
+        {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": KERNEL_REPLACES, "launches": icp_launches, **icp},
+        {"name": "vgicp_sweep", "route": "cuda", "source": VGICP_SOURCE,
+         "replaces": VGICP_REPLACES, "launches": vg_launches, **vg},
+    ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Core geometry on torch tensors: SO(3)/SE(3), Horn alignment, 3x3 solves.
-Batched over leading dimensions throughout."""
+"""Core geometry on torch tensors: SO(3)/SE(3), Horn alignment, closed-form
+3x3 and 6x6 solves. Batched over leading dimensions throughout."""
 
 from icp4dradar_tpu_torch.geom.so3 import (  # noqa: F401
     quat_normalize,
@@ -7,6 +7,8 @@ from icp4dradar_tpu_torch.geom.so3 import (  # noqa: F401
     so3_exp,
     so3_log,
     so3_hat,
+    so3_project,
+    matrix_to_rpy,
 )
 from icp4dradar_tpu_torch.geom.se3 import (  # noqa: F401
     se3_identity,
@@ -17,4 +19,10 @@ from icp4dradar_tpu_torch.geom.se3 import (  # noqa: F401
     se3_log,
 )
 from icp4dradar_tpu_torch.geom.kabsch import kabsch_umeyama  # noqa: F401
-from icp4dradar_tpu_torch.geom.linalg import inv3x3, solve3x3  # noqa: F401
+from icp4dradar_tpu_torch.geom.linalg import (  # noqa: F401
+    condition_number,
+    inv3x3,
+    solve3x3,
+    solve_spd6,
+    sym3x3_eigvals,
+)

@@ -1,5 +1,5 @@
-"""SO(3): quaternions, rotation matrices, exp/log maps (PyTorch port of
-`icp4dradar_tpu/geom/so3.py`).
+"""SO(3): quaternions, rotation matrices, exp/log maps, projection onto
+SO(3) and roll/pitch/yaw (PyTorch port of `icp4dradar_tpu/geom/so3.py`).
 
 Quaternions use xyzw layout, matching the reference's Eigen/Ceres parameter
 blocks `para_q[4] = {0,0,0,1}` (src/radar_odometry.cpp:80).
@@ -11,6 +11,8 @@ would otherwise poison gradients and finite-value checks.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -116,3 +118,27 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     axis_signed = torch.where(flip, -axis_signed, axis_signed)
     w_pi = theta[..., None] * axis_signed
     return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def so3_project(R: torch.Tensor, iters: int = 2) -> torch.Tensor:
+    """Project a near-rotation (...,3,3) onto SO(3) by the Newton polar
+    iteration R <- R (3I - R^T R)/2. Needed wherever an extracted rotation
+    is re-multiplied into a pose chain frame after frame: without it the
+    constant-velocity rotation prior drove the chain to NaN within 10
+    frames in the JAX package."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    for _ in range(iters):
+        R = R @ (1.5 * eye - 0.5 * (R.transpose(-1, -2) @ R))
+    return R
+
+
+def matrix_to_rpy(R: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) -> (roll, pitch, yaw) in DEGREES, the reference's `R2rpy`
+    (src/radar_odometry.cpp:120-135) that feeds the sector-search
+    heading."""
+    n, o, a = R[..., :, 0], R[..., :, 1], R[..., :, 2]
+    y = torch.atan2(n[..., 1], n[..., 0])
+    p = torch.atan2(-n[..., 2], n[..., 0] * torch.cos(y) + n[..., 1] * torch.sin(y))
+    r = torch.atan2(a[..., 0] * torch.sin(y) - a[..., 1] * torch.cos(y),
+                    -o[..., 0] * torch.sin(y) + o[..., 1] * torch.cos(y))
+    return torch.stack([r, p, y], dim=-1) / math.pi * 180.0

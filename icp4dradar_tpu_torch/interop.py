@@ -1,11 +1,18 @@
 """Carry state from the JAX package across as numpy.
 
 The port never imports jax, so anything coming from `icp4dradar_tpu` (a
-config, a scan, a stacked sequence) crosses as plain dicts of numpy arrays:
+config, a scan, a stacked sequence, a voxel map) crosses as plain dicts of
+numpy arrays:
 
     cfg = config_from_dict(jax_cfg.to_dict())
     scans = scans_from_numpy({k: np.asarray(getattr(jax_scans, k))
-                              for k in SCAN_FIELDS}, device="cuda")
+                              for k in SCAN_FIELDS})
+    vmap = voxel_map_from_numpy({k: np.asarray(getattr(jax_map, k))
+                                 for k in VOXEL_MAP_FIELDS},
+                                voxel_size=jax_map.voxel_size,
+                                max_probes=jax_map.max_probes)
+
+Tensors land on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -17,8 +24,11 @@ import torch
 
 from icp4dradar_tpu_torch.config import PipelineConfig
 from icp4dradar_tpu_torch.io.scan import RadarScan
+from icp4dradar_tpu_torch.mapping.voxel_hash import VoxelHashMap
 
 SCAN_FIELDS = ("xyz", "doppler", "intensity", "mask", "time")
+VOXEL_MAP_FIELDS = ("keys", "points", "intensity", "occupied", "stat_n",
+                    "stat_sum", "stat_sq")
 
 
 def config_from_dict(d: Mapping) -> PipelineConfig:
@@ -27,7 +37,7 @@ def config_from_dict(d: Mapping) -> PipelineConfig:
     return PipelineConfig.from_dict(dict(d))
 
 
-def scan_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> RadarScan:
+def scan_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> RadarScan:
     """RadarScan from {xyz, doppler, intensity, mask, time} numpy arrays
     (float32), placed on `device`. Leading batch axes are kept, so a stacked
     (F, ...) sequence converts the same way."""
@@ -40,10 +50,29 @@ def scan_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> RadarScan:
     })
 
 
-def scans_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> RadarScan:
+def scans_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> RadarScan:
     """Stacked (F, ...) RadarScan from stacked numpy arrays."""
     if np.ndim(arrays["xyz"]) != 3:
         raise ValueError(f"stacked xyz must be (F, N, 3), got "
                          f"{np.shape(arrays['xyz'])}")
     return scan_from_numpy(arrays, device)
 
+
+def voxel_map_from_numpy(arrays: Mapping[str, np.ndarray], voxel_size: float = 0.5,
+                         max_probes: int = 8, device="cuda") -> VoxelHashMap:
+    """VoxelHashMap from {keys (C,3) int32, points, intensity, occupied,
+    stat_n, stat_sum, stat_sq (float32)} numpy arrays, placed on `device`."""
+    missing = [k for k in VOXEL_MAP_FIELDS if k not in arrays]
+    if missing:
+        raise KeyError(f"voxel map arrays lack fields {missing}")
+    return VoxelHashMap(
+        **{k: torch.tensor(np.asarray(arrays[k],
+                                      dtype=np.int32 if k == "keys" else np.float32),
+                           device=device)
+           for k in VOXEL_MAP_FIELDS},
+        voxel_size=float(voxel_size), max_probes=int(max_probes))
+
+
+def voxel_map_to_numpy(vmap: VoxelHashMap) -> dict:
+    """{field: numpy array} of a VoxelHashMap (its tables), host copies."""
+    return {k: getattr(vmap, k).detach().cpu().numpy() for k in VOXEL_MAP_FIELDS}

@@ -1,0 +1,10 @@
+"""Device-resident voxel-hash map (replaces ikd-Tree): insert with
+keep-nearest-center downsampling and per-voxel Gaussians, sector query."""
+
+from icp4dradar_tpu_torch.mapping.voxel_hash import (  # noqa: F401
+    VoxelHashMap,
+    voxel_map_create,
+    voxel_map_insert,
+    voxel_map_sector_search,
+    voxel_map_sector_search_with_stats,
+)

@@ -1,0 +1,343 @@
+"""Voxel-hash incremental map: flat tensors + scatter arbitration, no
+pointers (PyTorch port of `icp4dradar_tpu/mapping/voxel_hash.py`).
+
+Replaces the reference's pthread ikd-Tree (third_party/ikd-Tree/
+ikd_Tree.{h,cpp}) with an open-addressing hash grid:
+
+- on-insert voxel downsampling keeping the point nearest the voxel center
+  (`Add_Points` downsample path, ikd_Tree.cpp:422-497; 0.5 m leaf,
+  src/radar_odometry.cpp:348), plus an incremental Gaussian per voxel over
+  every point ever routed to it (the VGICP distribution map);
+- the heading-sector search (ikd_Tree.cpp:1114-1117; 80 m, +-60 deg,
+  src/radar_odometry.cpp:392-396) that also emits each voxel's Gaussian.
+
+Insertion dedupes the batch per voxel with one lexicographic sort (hash,
+voxel coords, center distance), segment-sums the batch's moments onto each
+run's leader, then resolves each leader to a slot in probe rounds that look
+at a window of W=4 slots at once; claims on an empty slot arbitrate by a
+scatter-min on the row index. Payload writes and moment deposits happen
+once after the rounds. The JAX package's `lax.while_loop` over rounds is a
+Python loop here with one host sync per round (`any(alive)`); typical
+batches resolve in 1-2 rounds.
+
+Tables carry two extra rows internally while inserting: row C reads as
+empty (the JAX gathers' `mode="fill"`), row C+1 absorbs dropped writes
+(`mode="drop"`).
+
+Forgetting, rehash, point/box deletes and the stencil/exact kNN are not
+ported yet (`ROADMAP.md` queue 1 items 16 and 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from icp4dradar_tpu_torch.ops.compaction import mask_compact
+
+_P1, _P2, _P3 = 73856093, 19349669, 83492791  # classic spatial-hash primes
+_EMPTY = 0x7FFFFFFF
+
+
+@dataclass(frozen=True)
+class VoxelHashMap:
+    """One point per voxel, open-addressed. All tensors lead with C
+    (capacity).
+
+    Besides the representative point (keep-nearest-center, ikd-Tree
+    semantics), every voxel keeps an incremental Gaussian over ALL points
+    ever routed to it (count / sum / packed second moment)."""
+
+    keys: torch.Tensor        # (C, 3) int32 voxel coords of occupant
+    points: torch.Tensor      # (C, 3) f32 stored point (nearest voxel center)
+    intensity: torch.Tensor   # (C,) f32
+    occupied: torch.Tensor    # (C,) f32 {0, 1}
+    stat_n: torch.Tensor      # (C,) f32 point count
+    stat_sum: torch.Tensor    # (C, 3) f32 sum of points
+    stat_sq: torch.Tensor     # (C, 6) f32 sum of [xx,yy,zz,xy,xz,yz]
+    voxel_size: float = 0.5
+    max_probes: int = 8
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def num_voxels(self) -> torch.Tensor:
+        return torch.sum(self.occupied)
+
+    def replace(self, **fields) -> "VoxelHashMap":
+        return dataclasses.replace(self, **fields)
+
+
+def voxel_map_create(
+    capacity: int = 1 << 18, voxel_size: float = 0.5, max_probes: int = 8,
+    dtype=torch.float32, device="cuda",
+) -> VoxelHashMap:
+    if capacity & (capacity - 1):
+        raise ValueError("capacity must be a power of two")
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return VoxelHashMap(
+        keys=torch.full((capacity, 3), _EMPTY, dtype=torch.int32, device=device),
+        points=zeros(capacity, 3), intensity=zeros(capacity),
+        occupied=zeros(capacity), stat_n=zeros(capacity),
+        stat_sum=zeros(capacity, 3), stat_sq=zeros(capacity, 6),
+        voxel_size=voxel_size, max_probes=max_probes,
+    )
+
+
+def _voxel_coords(xyz: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    return torch.floor(xyz / voxel_size).to(torch.int32)
+
+
+def _hash(coords: torch.Tensor, capacity: int) -> torch.Tensor:
+    """(x*P1) ^ (y*P2) ^ (z*P3) & (C-1) on the int32 coords. JAX multiplies
+    in wrapping int32; the products here are int64, whose low 32 bits are
+    the wrapped ones, and the mask keeps only low bits."""
+    c = coords.to(torch.int64)
+    h = (c[..., 0] * _P1) ^ (c[..., 1] * _P2) ^ (c[..., 2] * _P3)
+    return (h & (capacity - 1)).to(torch.int32)
+
+
+def _center_dist2(xyz: torch.Tensor, coords: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    d = xyz - (coords.to(xyz.dtype) + 0.5) * voxel_size
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def _lexsort_perm(keys) -> torch.Tensor:
+    """Permutation that sorts rows lexicographically by `keys` (first key
+    most significant), ties in original order: stable sorts from the last
+    key to the first (torch has no multi-key sort)."""
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in reversed(keys):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm
+
+
+def _reverse_segment_sum(values: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Inclusive right-to-left segmented sum of (n, k) `values` over runs of
+    equal `seg` ids (consecutive): each row gets the sum of its run from
+    itself to the run's end, so the run total lands on its first row.
+    Hillis-Steele doubling, ceil(log2 n) steps, no atomics: deterministic on
+    every device. Never a difference of cumsums, which cancels in f32 at
+    world-scale second moments."""
+    n = values.shape[0]
+    out = values
+    shift = 1
+    while shift < n:
+        same = (seg[shift:] == seg[:-shift]).to(values.dtype)[:, None]
+        tail = out[shift:] * same
+        out = torch.cat([out[:-shift] + tail, out[-shift:]])
+        shift *= 2
+    return out
+
+
+def voxel_map_insert(
+    vmap: VoxelHashMap,
+    xyz: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    intensity: Optional[torch.Tensor] = None,
+    leader_budget: Optional[int] = None,
+) -> VoxelHashMap:
+    """Insert a padded batch of points (N, 3) with keep-nearest-center
+    downsampling; returns the new map (the input map is not modified).
+
+    Per voxel, the stored point afterwards is the one nearest the voxel
+    center among {previous occupant} U {batch points in that voxel}
+    (ikd_Tree.cpp:442-455); every routed point adds to the voxel's
+    Gaussian. Points that cannot be placed within max_probes probes are
+    dropped. `leader_budget`: cap on distinct voxels per batch; overflow
+    leaders (in hash order) are dropped for this batch."""
+    n = xyz.shape[0]
+    dev, ft = xyz.device, xyz.dtype
+    if mask is None:
+        mask = torch.ones(n, dtype=ft, device=dev)
+    if intensity is None:
+        intensity = torch.zeros(n, dtype=ft, device=dev)
+    C = vmap.capacity
+    L = vmap.voxel_size
+    big = 1e30
+
+    valid = mask > 0.5
+    xyz = torch.where(valid[:, None], xyz, 0.0)      # padded rows may be junk
+    intensity = torch.where(valid, intensity, 0.0)
+    coords = _voxel_coords(xyz, L)
+    h0 = _hash(coords, C)
+    d2c = _center_dist2(xyz, coords, L)
+
+    # ---- phase 1: one lexicographic sort dedupes the batch per voxel.
+    # (hash, voxel coords, center distance), original index breaking ties;
+    # invalid rows carry the out-of-range hash C and sort last.
+    h_key = torch.where(valid, h0, C)
+    c_key = torch.where(valid[:, None], coords, _EMPTY)
+    d_key = torch.where(valid, d2c, big)
+    perm = _lexsort_perm([h_key, c_key[:, 0], c_key[:, 1], c_key[:, 2], d_key])
+    h_s, c_s, d_s = h_key[perm], c_key[perm], d_key[perm]
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    payload = torch.stack(
+        [x, y, z, intensity, valid.to(ft), x * x, y * y, z * z, x * y, x * z, y * z],
+        dim=-1)[perm]                                  # (N, 11)
+    xyz_s, int_s = payload[:, :3], payload[:, 3]
+
+    # run leaders: first row of each (hash, coords) run = the per-voxel
+    # winner (min center distance, then lowest original index)
+    prev_differs = (h_s[1:] != h_s[:-1]) | torch.any(c_s[1:] != c_s[:-1], dim=-1)
+    leader = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), prev_differs])
+    # moments [count, sum3, sq6] summed over each run onto its leader
+    moments = torch.cat([payload[:, 4:5], payload[:, :3], payload[:, 5:]], dim=-1)
+    seg = _reverse_segment_sum(moments, torch.cumsum(leader.to(torch.int32), 0))
+    alive0 = leader & (h_s < C)
+
+    if leader_budget is not None and leader_budget < n:
+        # compact the leaders to the budget: every later scatter and gather
+        # pays O(budget) rows; coordinates stay int, so bit-exact
+        Lb = int(leader_budget)
+        fpay = torch.cat([xyz_s, int_s[:, None], d_s[:, None], seg], dim=-1)
+        fcomp, cmask, _ = mask_compact(fpay, alive0.to(ft), Lb)
+        icomp, _, _ = mask_compact(torch.cat([c_s, h_s[:, None]], dim=-1),
+                                   alive0.to(torch.int32), Lb)
+        xyz_s, int_s, d_s, seg = fcomp[:, :3], fcomp[:, 3], fcomp[:, 4], fcomp[:, 5:]
+        c_s, h_s = icomp[:, :3], icomp[:, 3]
+        alive0 = cmask > 0.5
+        n = Lb
+
+    # ---- phase 2: probe rounds resolve each leader to its final slot:
+    # its voxel's slot, or the first empty slot of its chain (claims race
+    # by a scatter-min on the row index; losers re-probe from there).
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    W = min(4, vmap.max_probes)
+    w_iota = torch.arange(W, dtype=torch.int32, device=dev)
+    mp = vmap.max_probes
+    keysT = torch.cat([vmap.keys, torch.full((2, 3), _EMPTY, dtype=torch.int32,
+                                             device=dev)])
+    r_slot = torch.full((n,), C, dtype=torch.int32, device=dev)
+    same = torch.zeros(n, dtype=torch.bool, device=dev)
+    offset = torch.zeros(n, dtype=torch.int32, device=dev)
+    alive = alive0
+    rnd = 0
+    while True:
+        base = h_s + offset
+        slots = (base[:, None] + w_iota[None, :]) & (C - 1)        # (n, W)
+        gk = keysT[torch.where(alive[:, None], slots, C).long()]  # (n, W, 3)
+        valid_w = (offset[:, None] + w_iota[None, :]) < mp
+        used = gk[..., 0] != _EMPTY
+        match = torch.all(gk == c_s[:, None, :], dim=-1) & used & valid_w
+        empty = ~used & valid_w
+        matchpos = torch.amin(torch.where(match, w_iota, W), dim=1)
+        emptypos = torch.amin(torch.where(empty, w_iota, W), dim=1)
+        # a match anywhere in the window wins (an empty slot never precedes
+        # a voxel's slot in its chain)
+        same_r = alive & (matchpos < W)
+        wants_claim = alive & ~same_r & (emptypos < W)
+        e_slot = (base + emptypos) & (C - 1)
+        claim_idx = torch.where(wants_claim, e_slot, C).long()
+        cbuf = torch.full((C + 1,), n, dtype=torch.int32, device=dev)
+        cbuf.scatter_reduce_(0, claim_idx, torch.where(wants_claim, iota, n),
+                             reduce="amin")
+        claim_win = wants_claim & (cbuf[claim_idx] == iota)
+        keysT[torch.where(claim_win, e_slot, C + 1).long()] = c_s
+        slot_res = torch.where(same_r, (base + matchpos) & (C - 1), e_slot)
+        resolved = same_r | claim_win
+        r_slot = torch.where(resolved, slot_res, r_slot)
+        same = same | same_r
+        offset = offset + torch.where(wants_claim & ~claim_win, emptypos, W)
+        alive = alive & ~resolved & (offset < mp)
+        rnd += 1
+        # backstop only: claim losers progress every round
+        if rnd >= 2 * mp or not bool(alive.any()):
+            break
+
+    # ---- phase 3: payload writes and moment deposits, once.
+    # Same-voxel competition: nearest-to-center wins against the incumbent;
+    # claims always win. Every resolved leader deposits its run's moments.
+    placed = r_slot < C
+    r_idx = r_slot.long()
+    repT = torch.cat([vmap.points, vmap.intensity[:, None], vmap.occupied[:, None]],
+                     dim=-1)
+    repT = torch.cat([repT, torch.zeros((1, 5), dtype=ft, device=dev)])
+    grep = repT[r_idx]                                 # row C reads zeros
+    incumbent = (grep[:, 4] > 0.5) & same
+    inc_d2c = torch.where(incumbent, _center_dist2(grep[:, :3], c_s, L), big)
+    win = (d_s < inc_d2c) & placed
+    rep_new = torch.cat([xyz_s, int_s[:, None], torch.ones((n, 1), dtype=ft, device=dev)],
+                        dim=-1)
+    repT[torch.where(win, r_slot, C).long()] = rep_new
+    statsT = torch.cat([vmap.stat_n[:, None], vmap.stat_sum, vmap.stat_sq,
+                        ], dim=-1)
+    statsT = torch.cat([statsT, torch.zeros((1, 10), dtype=ft, device=dev)])
+    # resolved leaders hold distinct slots, so no two rows add to one slot
+    # (unresolved rows all add into the dropped row C): deterministic
+    statsT.index_add_(0, r_idx, seg)
+    return vmap.replace(
+        keys=keysT[:C].contiguous(), points=repT[:C, :3].contiguous(),
+        intensity=repT[:C, 3].contiguous(), occupied=repT[:C, 4].contiguous(),
+        stat_n=statsT[:C, 0].contiguous(), stat_sum=statsT[:C, 1:4].contiguous(),
+        stat_sq=statsT[:C, 4:].contiguous(),
+    )
+
+
+def _sector_select(vmap: VoxelHashMap, center, radius, heading_deg, half_angle_deg):
+    delta = vmap.points - center
+    d2 = delta[:, 0] * delta[:, 0] + delta[:, 1] * delta[:, 1] + delta[:, 2] * delta[:, 2]
+    bearing = torch.atan2(delta[:, 1], delta[:, 0]) * 180.0 / math.pi
+    diff = torch.abs(torch.remainder(bearing - heading_deg + 180.0, 360.0) - 180.0)
+    return (vmap.occupied > 0.5) & (d2 < radius * radius) & (diff < half_angle_deg)
+
+
+def voxel_map_sector_search(
+    vmap: VoxelHashMap,
+    center: torch.Tensor,
+    radius: float,
+    heading_deg: torch.Tensor,
+    half_angle_deg: float,
+    out_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Heading sector query: stored points within `radius` of `center` (3,)
+    whose bearing is within +-half_angle of `heading_deg` (wrap-aware),
+    compacted to (out_size, 3) + mask + count (ikd-Tree `Sector_Search`,
+    ikd_Tree.cpp:1114-1117, 1434-1448)."""
+    sel = _sector_select(vmap, center, radius, heading_deg, half_angle_deg)
+    return mask_compact(vmap.points, sel.to(vmap.points.dtype), out_size)
+
+
+def voxel_map_sector_search_with_stats(
+    vmap: VoxelHashMap,
+    center: torch.Tensor,
+    radius: float,
+    heading_deg: torch.Tensor,
+    half_angle_deg: float,
+    out_size: int,
+    min_count: float = 3.0,
+    fallback_var: float = 0.01,
+):
+    """Sector query that also emits each voxel's Gaussian: returns
+    (points (P,3), mask (P,), count (), means (P,3), covs_packed (P,6)).
+    Voxels with fewer than `min_count` points get the isotropic
+    `fallback_var` covariance. The raw accumulators are compacted first and
+    the mean/cov math runs on the (out_size, ...) result."""
+    sel = _sector_select(vmap, center, radius, heading_deg, half_angle_deg)
+    payload = torch.cat([vmap.points, vmap.stat_n[:, None], vmap.stat_sum,
+                         vmap.stat_sq], dim=-1)                       # (C, 13)
+    out, mask, count = mask_compact(payload, sel.to(vmap.points.dtype), out_size)
+    n = torch.clamp(out[:, 3:4], min=1.0)
+    mu = out[:, 4:7] / n
+    ex2 = out[:, 7:13] / n
+    cov = torch.stack([
+        ex2[:, 0] - mu[:, 0] * mu[:, 0],
+        ex2[:, 1] - mu[:, 1] * mu[:, 1],
+        ex2[:, 2] - mu[:, 2] * mu[:, 2],
+        ex2[:, 3] - mu[:, 0] * mu[:, 1],
+        ex2[:, 4] - mu[:, 0] * mu[:, 2],
+        ex2[:, 5] - mu[:, 1] * mu[:, 2],
+    ], dim=-1)
+    iso = torch.tensor([fallback_var, fallback_var, fallback_var, 0.0, 0.0, 0.0],
+                       dtype=cov.dtype, device=cov.device)
+    cov = torch.where(out[:, 3:4] < min_count, iso, cov)
+    return out[:, :3], mask, count, mu, cov

@@ -1,13 +1,17 @@
-"""CLI entry point: run scan-to-scan odometry over a .bin sequence directory
-(or a built-in synthetic sequence) and write reference-compatible outputs
-(PyTorch port of `icp4dradar_tpu/models/run_odometry.py`, scan-to-scan mode).
+"""CLI entry point: run odometry over a .bin sequence directory (or a
+built-in synthetic sequence) and write reference-compatible outputs
+(PyTorch port of `icp4dradar_tpu/models/run_odometry.py`, scan-to-scan and
+scan-to-map modes).
 
     python -m icp4dradar_tpu_torch.models.run_odometry --mode scan_to_scan \
         --synthetic 200 --doppler-prior --device cuda --out /tmp/radar
+    python -m icp4dradar_tpu_torch.models.run_odometry --mode scan_to_map \
+        --synthetic 256 --map-interval 8 --cv-rot --device cuda --out /tmp/radar
 
-Outputs (reference formats): velocity.txt, icp.txt, output_result.csv. The
-last stdout line is one JSON record with frames, elapsed seconds, scans/s
-and, for synthetic sequences, the ATE.
+Outputs (reference formats): scan_to_scan writes velocity.txt, icp.txt and
+output_result.csv; scan_to_map writes velocity.txt and radar_odometry.txt.
+The last stdout line is one JSON record with frames, elapsed seconds,
+scans/s and, for synthetic sequences, the ATE.
 
 `--device cuda` (the default) needs a CUDA device and never falls back to
 the CPU; `--device cpu` runs the plain PyTorch versions of the kernels.
@@ -23,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-PORTED_MODES = ("scan_to_scan",)
+PORTED_MODES = ("scan_to_scan", "scan_to_map")
 
 
 def build_scans(args, device):
@@ -61,6 +65,16 @@ def main(argv=None) -> int:
     p.add_argument("--doppler-prior", action="store_true")
     p.add_argument("--static-only", action="store_true",
                    help="register on static points only (ref USE_STATIC_POINTS)")
+    p.add_argument("--cv-rot", action="store_true",
+                   help="scan_to_map: constant-velocity rotation prior (the "
+                        "previous frame's refined body rotation seeds the "
+                        "next prediction)")
+    p.add_argument("--map-interval", type=int, default=1,
+                   help="scan_to_map: amortize sector query + insert over "
+                        "this many frames (run_scan_to_map_blocked)")
+    p.add_argument("--sequential-blocks", action="store_true",
+                   help="blocked scan_to_map: register the frames of a block "
+                        "one after another instead of the joint GN")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
 
@@ -75,6 +89,9 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
 
     from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.models.scan_to_map import (
+        run_scan_to_map, run_scan_to_map_blocked,
+    )
     from icp4dradar_tpu_torch.models.scan_to_scan import run_scan_to_scan
     from icp4dradar_tpu_torch.utils import (
         ate_rmse, write_result_csv, write_rt_txt, write_velocity_txt,
@@ -97,20 +114,34 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
 
     t0 = time.perf_counter()
-    outs = run_scan_to_scan(scans, cfg, use_doppler_prior=args.doppler_prior,
-                            use_static_points_only=args.static_only)
-    poses = outs.world_T.cpu().numpy()
-    elapsed = time.perf_counter() - t0
-
+    if args.mode == "scan_to_scan":
+        outs = run_scan_to_scan(scans, cfg, use_doppler_prior=args.doppler_prior,
+                                use_static_points_only=args.static_only)
+        poses = outs.world_T.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        write_rt_txt(os.path.join(args.out, "icp.txt"),
+                     outs.icp_transform.cpu().numpy())
+        write_result_csv(
+            os.path.join(args.out, "output_result.csv"),
+            outs.icp_transform.cpu().numpy(), outs.fitness.cpu().numpy(),
+            outs.sine_A.cpu().numpy(), outs.sine_b.cpu().numpy(),
+        )
+    else:
+        # as the JAX CLI: the Doppler prior is on unless --static-only
+        use_prior = not args.static_only or args.doppler_prior
+        if args.map_interval > 1:
+            _, outs = run_scan_to_map_blocked(
+                scans, cfg, block=args.map_interval, use_doppler_prior=use_prior,
+                use_const_velocity_rot=args.cv_rot,
+                parallel_frames=not args.sequential_blocks)
+        else:
+            _, outs = run_scan_to_map(scans, cfg, use_doppler_prior=use_prior,
+                                      use_const_velocity_rot=args.cv_rot)
+        poses = outs.world_T.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        write_rt_txt(os.path.join(args.out, "radar_odometry.txt"), poses)
     write_velocity_txt(os.path.join(args.out, "velocity.txt"),
                        outs.velocity.cpu().numpy())
-    write_rt_txt(os.path.join(args.out, "icp.txt"),
-                 outs.icp_transform.cpu().numpy())
-    write_result_csv(
-        os.path.join(args.out, "output_result.csv"),
-        outs.icp_transform.cpu().numpy(), outs.fitness.cpu().numpy(),
-        outs.sine_A.cpu().numpy(), outs.sine_b.cpu().numpy(),
-    )
     rec = {"mode": args.mode, "device": str(device), "frames": F,
            "elapsed_s": elapsed, "scans_per_sec": F / elapsed}
     if gt_poses is not None:

@@ -64,7 +64,7 @@ class ScanToScanOutput:
     iterations: torch.Tensor     # () int32 ICP iterations taken
 
 
-def scan_to_scan_init(dtype=torch.float32, device=None) -> ScanToScanState:
+def scan_to_scan_init(dtype=torch.float32, device="cuda") -> ScanToScanState:
     eye = torch.eye(4, dtype=dtype, device=device)
     return ScanToScanState(world_T=eye, frame=0, last_delta=eye)
 

@@ -1,8 +1,11 @@
 """Build the port's CUDA sources (`icp4dradar_tpu_torch/csrc/*.cu`) with nvcc
 into one shared library with a plain C interface, and load it with ctypes.
+Every source compiles in its own nvcc process, all started together, then
+one nvcc links the objects:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o build/icp4dradar_tpu_torch/lib....so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o lib....so *.o
 
 The library lands in `build/icp4dradar_tpu_torch/` at the repository root,
 named by a hash of the sources and flags, so an edited source rebuilds and
@@ -24,12 +27,13 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "icp4dradar_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3",
     # no FMA contraction: the kernels' distance ties must split exactly as
     # the plain PyTorch versions' separately rounded products and sums do
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills into the log
 )
 
@@ -63,23 +67,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libicp4dradar_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; [(cmd, returncode, output)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0]) for cmd, p in procs]
+    return [(cmd, p.returncode, text) for (cmd, text), (_, p) in zip(outs, procs)]
+
+
 def build_library() -> Path:
-    """Compile csrc/*.cu unless the hashed library already exists. Raises
-    RuntimeError carrying nvcc's output when the build fails. The compiler's
-    output (ptxas register and shared-memory report) is kept beside the
-    library as `<name>.log`."""
+    """Compile csrc/*.cu unless the hashed library already exists: one nvcc
+    per source, all at once, then one link. Raises RuntimeError carrying
+    nvcc's output when a step fails. The compiler's output (ptxas register
+    and shared-memory report) is kept beside the library as `<name>.log`."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    nvcc, tag = find_nvcc(), f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    steps = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                      for src, obj in zip(_sources(), objs)])
+    tmp = out.with_suffix(f".{tag}.so")
+    if all(rc == 0 for _, rc, _ in steps):
+        steps += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                            *map(str, objs)]])
+    log = "".join(f"$ {' '.join(cmd)}\n{text}" for cmd, _, text in steps)
     out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if any(rc != 0 for _, rc, _ in steps):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, out)
     return out
 

@@ -1,4 +1,5 @@
-"""Scan preprocessing: Doppler outlier rejection + ego-velocity estimation."""
+"""Scan preprocessing: Doppler outlier rejection + ego-velocity estimation,
+REVE ego velocity with inlier extraction."""
 
 from icp4dradar_tpu_torch.preprocess.doppler import (  # noqa: F401
     SineFit,
@@ -9,4 +10,10 @@ from icp4dradar_tpu_torch.preprocess.doppler import (  # noqa: F401
     lsq_ego_velocity,
     preprocess_scan,
     preprocess_frames,
+)
+from icp4dradar_tpu_torch.preprocess.reve import (  # noqa: F401
+    EgoVelocityEstimate,
+    draw_reve_uniforms,
+    estimate_ego_velocity,
+    reve_hypotheses,
 )

@@ -36,7 +36,8 @@ def _jax_uniforms(keys, H):
 def _inputs(seed=0, **seq_kw):
     seq = JaxSequence(num_frames=F, max_points=N, seed=seed, **seq_kw)
     js = jax_stack([seq.scan(k) for k in range(F)])
-    ps = scans_from_numpy({k: np.asarray(getattr(js, k)) for k in SCAN_FIELDS})
+    ps = scans_from_numpy({k: np.asarray(getattr(js, k)) for k in SCAN_FIELDS},
+                          device="cpu")
     keys = jax.random.split(jax.random.key(seed), F)
     return js, ps, keys
 

@@ -1,5 +1,7 @@
-"""Port geometry parity: so3/se3 exp/log, the closed-form 3x3 solve and
-Horn's rotation against the JAX package on the same numpy inputs.
+"""Port geometry parity: so3/se3 exp/log, projection onto SO(3), roll/pitch/
+yaw, the closed-form 3x3 and 6x6 solves, 3x3 symmetric eigenvalues and
+condition numbers, and Horn's rotation against the JAX package on the same
+numpy inputs.
 
 Tolerance atol 1e-5: both sides run the same f32 formulas; only f32
 round-off (transcendental implementations, 4x4 product order) differs."""
@@ -88,3 +90,37 @@ def test_kabsch_recovers_transform():
     T_jax = jg.kabsch_umeyama(jnp.asarray(src), jnp.asarray(tgt.numpy()),
                               jnp.asarray(w.numpy()))
     _close(T_fit, T_jax, 1e-4)
+
+
+def test_so3_project_and_rpy():
+    from icp4dradar_tpu.geom import so3 as js
+
+    rng = np.random.default_rng(5)
+    R = np.asarray(jg.so3_exp(jnp.asarray(_axis_angles("random", rng))))
+    # a drifted chain: scaled and sheared by ~1e-3
+    Rd = (R * 1.001 + rng.normal(0, 1e-3, R.shape)).astype(np.float32)
+    got = pg.so3_project(torch.tensor(Rd))
+    _close(got, js.so3_project(jnp.asarray(Rd)))
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), R.shape)
+    np.testing.assert_allclose((got.transpose(-1, -2) @ got).numpy(), eye, atol=1e-5)
+    # degrees, as the reference's R2rpy; 1e-3 deg is ~2e-5 rad of f32 atan2
+    _close(pg.matrix_to_rpy(torch.tensor(R)), js.matrix_to_rpy(jnp.asarray(R)), 1e-3)
+
+
+def test_solve_spd6_eigvals_and_condition():
+    from icp4dradar_tpu.geom import linalg as jl
+
+    rng = np.random.default_rng(6)
+    J = rng.normal(size=(32, 12, 6)).astype(np.float32)
+    H = (J.transpose(0, 2, 1) @ J + 0.1 * np.eye(6, dtype=np.float32)).astype(np.float32)
+    b = rng.normal(size=(32, 6)).astype(np.float32)
+    x = pg.solve_spd6(torch.tensor(H), torch.tensor(b))
+    _close(x, jl.solve_spd6(jnp.asarray(H), jnp.asarray(b)), 1e-4)
+    np.testing.assert_allclose(np.einsum("nij,nj->ni", H, x.numpy()), b, atol=1e-3)
+    A = (J[:, :3, :3].transpose(0, 2, 1) @ J[:, :3, :3]).astype(np.float32)
+    A[0] = np.diag([2.0, 2.0, 2.0])               # the near-diagonal branch
+    _close(pg.sym3x3_eigvals(torch.tensor(A)), jl.sym3x3_eigvals(jnp.asarray(A)), 1e-4)
+    np.testing.assert_allclose(pg.condition_number(torch.tensor(A)).numpy(),
+                               np.asarray(jl.condition_number(jnp.asarray(A))), rtol=1e-3)
+    np.testing.assert_allclose(pg.condition_number(torch.tensor(H)).numpy(),
+                               np.asarray(jl.condition_number(jnp.asarray(H))), rtol=1e-3)

@@ -1,5 +1,5 @@
-"""Card tests of the port's CUDA ICP-moments kernel against its plain
-PyTorch version. Marked `gpu`: they skip where torch.cuda.is_available() is
+"""Card tests of the port's CUDA kernels (ICP moments, VGICP sweep) against
+their plain PyTorch versions. Marked `gpu`: they skip where torch.cuda.is_available() is
 False. This file imports neither jax nor the JAX package, so on a machine
 with a card and no jax it runs without the suite's conftest:
 
@@ -83,3 +83,94 @@ def test_rejects_what_the_kernel_does_not_take(cuda):
                               sm, tgt, tm)
     with pytest.raises(ValueError):
         icp_iteration_moments(T, src, sm.cpu(), tgt, tm)
+
+
+# ---- the fused VGICP sweep (csrc/vgicp_sweep.cu) against its plain version.
+# Same selections and per-point f32 terms on both sides (-fmad=false and the
+# plain version's separately rounded ops); only the order of the float64
+# sums differs, so the f32 results agree to a few ulps.
+from icp4dradar_tpu_torch.ops import vgicp_fused  # noqa: E402
+from icp4dradar_tpu_torch.ops.vgicp_fused import (  # noqa: E402
+    radar_point_covariances_packed,
+    vgicp_iteration,
+    vgicp_iteration_batch,
+    vgicp_iteration_plain,
+)
+
+VG_RTOL, VG_ATOL = 1e-5, 1e-4
+
+
+def _vgicp_case(rng, B, N, P, count, device, scale=20.0):
+    xi = rng.normal(0.0, [0.3, 0.3, 0.05, 0.01, 0.01, 0.05], (B, 6)).astype(np.float32)
+    T = se3_exp(torch.from_numpy(xi)).contiguous()
+    src = torch.from_numpy(rng.uniform(-scale, scale, (B, N, 3)).astype(np.float32))
+    sm = torch.from_numpy((rng.uniform(size=(B, N)) > 0.1).astype(np.float32))
+    scov = radar_point_covariances_packed(src)
+    tgt = torch.from_numpy(rng.uniform(-scale, scale, (P, 3)).astype(np.float32))
+    tcov = np.zeros((P, 6), np.float32)
+    tcov[:, :3] = np.abs(rng.normal(0.05, 0.02, (P, 3))) + 0.01
+    tcov[:, 3:] = rng.normal(0.0, 0.003, (P, 3))
+    tmask = torch.from_numpy((np.arange(P) < count).astype(np.float32))
+    cnt = torch.tensor(count, dtype=torch.int32)
+    return [x.to(device) for x in (T, src, sm, scov, tgt, torch.from_numpy(tcov),
+                                   tmask, cnt)]
+
+
+def _assert_vgicp_close(k, p):
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=VG_RTOL, atol=VG_ATOL)
+
+
+@pytest.mark.parametrize("B,N,P,count", [
+    (1, 1, 1, 1), (1, 700, 2100, 2100), (3, 256, 2100, 1100), (8, 512, 5000, 900),
+    (2, 384, 500, 0)])
+def test_vgicp_kernel_matches_plain(cuda, B, N, P, count):
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _vgicp_case(
+        np.random.default_rng(B + N + P), B, N, P, count, cuda)
+    kw = dict(tgt_count=cnt, ts=min(128, N), return_best=True)
+    before = vgicp_fused.VGICP_SWEEP_LAUNCHES
+    if B == 1:
+        args = (T[0], src[0], sm[0], scov[0], tgt, tcov, tmask)
+        k = vgicp_iteration(*args, **kw)
+        p = vgicp_iteration_plain(*args, **kw)
+    else:
+        k = vgicp_iteration_batch(T, src, sm, scov, tgt, tcov, tmask, **kw)
+        p = vgicp_iteration_plain(T, src.reshape(B * N, 3), sm.reshape(B * N),
+                                  scov.reshape(B * N, 6), tgt, tcov, tmask,
+                                  _acc_groups=B, **kw)
+    torch.cuda.synchronize()
+    assert vgicp_fused.VGICP_SWEEP_LAUNCHES == before + 1
+    _assert_vgicp_close(k, p)
+    if count == 0:
+        assert float(k[3].sum()) == 0.0
+
+
+def test_vgicp_kernel_exact_ties(cuda):
+    """Ties average inside a tile; a later tile must be strictly closer."""
+    P = 2048
+    tgt = torch.full((P, 3), 90.0)
+    tgt[3], tgt[700], tgt[1500] = (torch.tensor(v) for v in
+                                   ((1., 2., 0.), (1., -2., 0.), (-1., 2., 0.)))
+    tgt[5], tgt[1100], tgt[1800] = (torch.tensor(v) for v in
+                                    ((20., 3., 0.), (21., 0., 1.), (19., 0., -1.)))
+    tcov = torch.zeros((P, 6))
+    tcov[:, :3] = 0.05
+    src = torch.tensor([[0.0, 0.0, 0.0], [20.0, 0.0, 0.0]])
+    args = [x.to(cuda) for x in (torch.eye(4), src, torch.ones(2),
+                                 radar_point_covariances_packed(src), tgt, tcov,
+                                 torch.ones(P))]
+    k = vgicp_iteration(*args, max_correspondence_dist=3.0, ts=8, return_best=True)
+    best = k[5][0].cpu()
+    assert best[:4, 0].tolist() == [5.0, 1.0, 0.0, 0.0]
+    assert best[:4, 1].tolist() == [2.0, 20.0, 0.0, 0.0]
+    p = vgicp_iteration_plain(*args, max_correspondence_dist=3.0, ts=8, return_best=True)
+    _assert_vgicp_close(k, p)
+
+
+def test_vgicp_kernel_rejects_what_it_does_not_take(cuda):
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _vgicp_case(
+        np.random.default_rng(3), 1, 64, 64, 64, cuda)
+    with pytest.raises(ValueError):
+        vgicp_iteration(T[0], src[0].double(), sm[0], scov[0], tgt, tcov, tmask)
+    with pytest.raises(ValueError):
+        vgicp_iteration(T[0], src[0], sm[0].cpu(), scov[0], tgt, tcov, tmask)

@@ -34,14 +34,23 @@ def test_slice_runs_without_jax_in_a_fresh_process():
 import sys
 import torch
 import icp4dradar_tpu_torch
-from icp4dradar_tpu_torch import geom, interop, io, ops, preprocess, registration, utils
-from icp4dradar_tpu_torch.models import run_odometry, run_scan_to_scan
+from icp4dradar_tpu_torch import (geom, interop, io, mapping, ops, preprocess,
+                                  registration, utils)
+from icp4dradar_tpu_torch.registration import vgicp
+from icp4dradar_tpu_torch.models import (run_odometry, run_scan_to_scan,
+                                         run_scan_to_map_blocked, scan_to_map)
 from icp4dradar_tpu_torch.io import SyntheticSequence, stack_scans
 seq = SyntheticSequence(num_frames=3, max_points=64, num_landmarks=2000, seed=1)
 scans = stack_scans([seq.scan(k) for k in range(3)])
 out = run_scan_to_scan(scans, icp4dradar_tpu_torch.PipelineConfig(),
                        use_doppler_prior=True)
 assert torch.isfinite(out.world_T).all()
+seq = SyntheticSequence(num_frames=8, max_points=128, num_landmarks=2000, seed=1)
+scans = stack_scans([seq.scan(k) for k in range(8)])
+cfg = icp4dradar_tpu_torch.PipelineConfig().override(
+    **{"voxel_map.capacity": 1 << 12, "voxel_map.submap_max_points": 1 << 10})
+_, out = run_scan_to_map_blocked(scans, cfg, block=4, use_const_velocity_rot=True)
+assert torch.isfinite(out.world_T).all() and out.world_T.shape == (8, 4, 4)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'icp4dradar_tpu'))
 print('LOADED', bad)

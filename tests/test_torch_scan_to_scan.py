@@ -42,7 +42,8 @@ def _uniforms_of(key, H):
 def sequence():
     seq = JaxSequence(num_frames=F, max_points=N, seed=0)
     js = jax_stack([seq.scan(k) for k in range(F)])
-    ps = scans_from_numpy({k: np.asarray(getattr(js, k)) for k in SCAN_FIELDS})
+    ps = scans_from_numpy({k: np.asarray(getattr(js, k)) for k in SCAN_FIELDS},
+                          device="cpu")
     cfg = jax_pkg.PipelineConfig()
     keys = jax.random.split(jax.random.key(cfg.seed), F)
     U = np.stack([_uniforms_of(keys[f], cfg.doppler.num_hypotheses) for f in range(F)])
@@ -160,7 +161,7 @@ def test_cli_never_falls_back_to_cpu(tmp_path, monkeypatch):
 
 def test_cli_unported_mode_exits(tmp_path):
     with pytest.raises(SystemExit) as exc:
-        run_odometry.main(["--mode", "scan_to_map", "--synthetic", "4",
+        run_odometry.main(["--mode", "pose_graph", "--synthetic", "4",
                            "--device", "cpu", "--out", str(tmp_path / "o")])
     assert exc.value.code != 0
 

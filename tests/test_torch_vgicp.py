@@ -1,0 +1,267 @@
+"""Port VGICP parity on the CPU: the plain version of the CUDA sweep kernel
+against the Pallas kernel run in interpret mode (as tests/test_ops.py runs
+it) over several target tiles, a partial live count, a gate axis, exact
+ties within and across tiles and an empty target; the batched form against
+separate calls; the measurement-model covariances; `vgicp_align` and
+`vgicp_align_block` against the JAX package.
+
+Tolerances. Sweep sums: 1e-4 of the largest entry of each output, plus
+1e-3 (the selections and per-point terms are the same; the sums run in
+float64 here and in f32 there, where H's per-point terms of up to ~1e4
+cancel to entries of ~1e3 and carry ~0.1 of f32 rounding; XLA also
+contracts p = R s + t into FMAs, which moves d2 by ~4e-6 relative).
+Matched payloads [mean3, cov6]: exact. Aligners: 1e-3 m and 1e-4 on
+rotation entries; the JAX CPU path forms d2 as |p|^2 - 2 p.q + |q|^2, takes
+the first argmin and inverts with jnp.linalg.inv, so it agrees only to
+round-off."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icp4dradar_tpu.config import GicpConfig
+from icp4dradar_tpu.geom import se3_exp as j_se3_exp
+from icp4dradar_tpu.ops import vgicp_fused as jv
+from icp4dradar_tpu.registration import vgicp as jreg
+from icp4dradar_tpu_torch.ops import vgicp_fused as pv
+from icp4dradar_tpu_torch.registration import vgicp as preg
+
+RTOL, ATOL = 1e-4, 1e-3
+NAMES = ("H", "g", "cost", "wsum", "d2sum")
+
+
+def _pose(xi):
+    return np.asarray(j_se3_exp(jnp.asarray(xi, dtype=jnp.float32)))
+
+
+def _covs(rng, P):
+    """(P, 6) packed covariances that are positive definite: diagonal
+    0.01-0.1, small off-diagonal terms."""
+    c = np.zeros((P, 6), np.float32)
+    c[:, :3] = np.abs(rng.normal(0.05, 0.02, (P, 3))) + 0.01
+    c[:, 3:] = rng.normal(0.0, 0.003, (P, 3))
+    return c
+
+
+def _case(seed, n, P, count=None, scale=20.0):
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-scale, scale, (n, 3)).astype(np.float32)
+    sm = (rng.uniform(size=n) > 0.1).astype(np.float32)
+    scov = np.asarray(jv.radar_point_covariances_packed(jnp.asarray(src)))
+    tgt = rng.uniform(-scale, scale, (P, 3)).astype(np.float32)
+    tcov = _covs(rng, P)
+    count = P if count is None else count
+    tmask = (np.arange(P) < count).astype(np.float32)
+    T = _pose([0.1, -0.2, 0.05, 0.02, 0.0, 0.1])
+    return T, src, sm, scov, tgt, tcov, tmask, count
+
+
+def _both(T, src, sm, scov, tgt, tcov, tmask, count, ts=128, **kw):
+    j_kw = dict(kw)
+    if "gate_axis" in kw:
+        j_kw["gate_axis"] = jnp.asarray(kw["gate_axis"])
+        kw["gate_axis"] = torch.tensor(kw["gate_axis"])
+    jo = jv.vgicp_iteration(*map(jnp.asarray, (T, src, sm, scov, tgt, tcov, tmask)),
+                            tgt_count=jnp.int32(count), ts=ts, interpret=True,
+                            return_best=True, **j_kw)
+    po = pv.vgicp_iteration(*(torch.tensor(x) for x in (T, src, sm, scov, tgt, tcov, tmask)),
+                            tgt_count=torch.tensor(count, dtype=torch.int32), ts=ts,
+                            return_best=True, **kw)
+    return jo, po
+
+
+def _assert_sums(jo, po):
+    for name, j, p in zip(NAMES, jo[:5], po[:5]):
+        j = np.asarray(j)
+        np.testing.assert_allclose(p.numpy(), j, rtol=0,
+                                   atol=ATOL + RTOL * np.abs(j).max(), err_msg=name)
+
+
+def _assert_sweep(jo, po):
+    _assert_sums(jo, po)
+    jb, pb = np.asarray(jo[5]), po[5].numpy()
+    assert pb.shape == jb.shape
+    np.testing.assert_array_equal(pb[:, 1:], jb[:, 1:])       # matched payloads
+    np.testing.assert_allclose(pb[:, 0], jb[:, 0], rtol=1e-5, atol=1e-5)
+
+
+def test_radar_covariances_match_jax():
+    xyz = np.random.default_rng(3).uniform(-60, 60, (500, 3)).astype(np.float32)
+    want = np.asarray(jv.radar_point_covariances_packed(jnp.asarray(xyz), 0.2, 0.02, 0.03))
+    got = pv.radar_point_covariances_packed(torch.tensor(xyz), 0.2, 0.02, 0.03)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("n,P,count", [
+    (300, 2100, 2100),    # three target tiles, all live
+    (300, 2100, 1100),    # partial live count: tile 2 is skipped
+    (257, 700, 650),      # one tile, padded sources (ts=128)
+    (200, 500, 0),        # empty target: nothing matches
+])
+def test_plain_matches_pallas_interpret(n, P, count):
+    jo, po = _both(*_case(n + P, n, P, count))
+    _assert_sweep(jo, po)
+    if count == 0:
+        assert float(po[3]) == 0.0 and float(np.asarray(jo[3])) == 0.0
+
+
+def test_gate_axis_changes_nothing():
+    """The Pallas kernel skips (block, tile) pairs outside the band gate;
+    the port sweeps every live tile. A skipped tile holds no voxel within
+    the gate, so the sums agree with the gated Pallas sweep and with the
+    port's own ungated call."""
+    T, src, sm, scov, tgt, tcov, tmask, count = _case(5, 512, 3000, 2900, scale=40.0)
+    # sorted along x, as the blocked tracker sorts scans and submaps
+    o = np.argsort(src[:, 0])
+    src, scov = src[o], scov[o]
+    o = np.argsort(tgt[:, 0])
+    tgt, tcov = tgt[o], tcov[o]
+    T = np.eye(4, dtype=np.float32)
+    jo, po = _both(T, src, sm, scov, tgt, tcov, tmask, count,
+                   gate_axis=np.asarray([1.0, 0.0], np.float32))
+    _assert_sums(jo, po)
+    plain = pv.vgicp_iteration(*(torch.tensor(x) for x in (T, src, sm, scov, tgt, tcov, tmask)),
+                               tgt_count=torch.tensor(count), ts=128)
+    for p, q in zip(po[:5], plain):
+        torch.testing.assert_close(p, q, rtol=0, atol=0)
+
+
+def test_exact_ties_within_and_across_tiles():
+    """Source 0 at the origin: rows 3 and 700 (tile 0) both lie at d2 = 5
+    and average to (1, 0, 0); row 1500 (tile 1) at the same d2 = 5 is not
+    strictly closer and does not replace them. Source 1 at (20, 0, 0):
+    tile 0's best is d2 = 9; rows 1100 and 1800 of tile 1 lie at d2 = 2,
+    replace it and average to (20, 0, 0)."""
+    rng = np.random.default_rng(11)
+    P = 2048
+    far = rng.uniform(60, 100, (P, 3)) * rng.choice([-1.0, 1.0], (P, 3))
+    tgt = far.astype(np.float32)
+    tgt[3], tgt[700], tgt[1500] = (1, 2, 0), (1, -2, 0), (-1, 2, 0)
+    tgt[5], tgt[1100], tgt[1800] = (20, 3, 0), (21, 0, 1), (19, 0, -1)
+    tcov = _covs(rng, P)
+    src = np.asarray([[0, 0, 0], [20, 0, 0], [0, 30, 0]], np.float32)
+    sm = np.ones(3, np.float32)
+    scov = np.asarray(jv.radar_point_covariances_packed(jnp.asarray(src)))
+    T = np.eye(4, dtype=np.float32)
+    jo, po = _both(T, src, sm, scov, tgt, tcov, np.ones(P, np.float32), P, ts=8,
+                   max_correspondence_dist=3.0)
+    _assert_sweep(jo, po)
+    best = po[5].numpy()[0]                                    # (10, ts)
+    np.testing.assert_array_equal(best[:4, 0], [5.0, 1.0, 0.0, 0.0])
+    np.testing.assert_array_equal(best[4:, 0], (tcov[3] + tcov[700]) / 2)
+    np.testing.assert_array_equal(best[:4, 1], [2.0, 20.0, 0.0, 0.0])
+    np.testing.assert_array_equal(best[4:, 1], (tcov[1100] + tcov[1800]) / 2)
+
+
+def test_batch_matches_separate_calls():
+    rng = np.random.default_rng(2)
+    B, N, P = 3, 256, 1500
+    src = rng.uniform(-20, 20, (B, N, 3)).astype(np.float32)
+    sm = (rng.uniform(size=(B, N)) > 0.2).astype(np.float32)
+    scov = pv.radar_point_covariances_packed(torch.tensor(src))
+    tgt = torch.tensor(rng.uniform(-20, 20, (P, 3)).astype(np.float32))
+    tcov = torch.tensor(_covs(rng, P))
+    tmask = torch.ones(P)
+    T = torch.tensor(np.stack([_pose([0.1 * b, -0.2, 0.05, 0.02, 0.0, 0.1 * b])
+                               for b in range(B)]))
+    src, sm = torch.tensor(src), torch.tensor(sm)
+    batched = pv.vgicp_iteration_batch(T, src, sm, scov, tgt, tcov, tmask, ts=128)
+    # the plain version one frame per chunk (the chunking the card takes
+    # for large batches) gives the same sums
+    chunked = pv.vgicp_iteration_plain(T, src.reshape(-1, 3), sm.reshape(-1),
+                                       scov.reshape(-1, 6), tgt, tcov, tmask, ts=128,
+                                       _acc_groups=B, max_tile_elems=N * 1024)
+    for b in range(B):
+        one = pv.vgicp_iteration(T[b], src[b], sm[b], scov[b], tgt, tcov, tmask, ts=128)
+        for name, x, y, z in zip(NAMES, batched, one, chunked):
+            torch.testing.assert_close(x[b], y, rtol=1e-6, atol=1e-6, msg=name)
+            torch.testing.assert_close(z[b], x[b], rtol=0, atol=0, msg=name)
+    with pytest.raises(ValueError):
+        pv.vgicp_iteration_batch(T, src[:, :200], sm[:, :200], scov[:, :200],
+                                 tgt, tcov, tmask, ts=128)
+
+
+def _scene(seed, B=1, N=400, M=600):
+    """Voxel-like means and covariances of a random scene, and B scans of
+    it in the sensor frame with their true poses."""
+    rng = np.random.default_rng(seed)
+    world = rng.uniform(-25, 25, (M, 3)).astype(np.float32)
+    world[:, 2] *= 0.1
+    tcov = np.zeros((M, 6), np.float32)
+    tcov[:, :3] = np.abs(rng.normal(0.02, 0.005, (M, 3)))
+    poses = np.stack([_pose([0.5 * b + 0.2, 0.1, 0.0, 0.0, 0.0, 0.03 * b])
+                      for b in range(B)])
+    scans = []
+    for b in range(B):
+        pick = rng.choice(M, N, replace=False)
+        pts = world[pick] + rng.normal(0, 0.02, (N, 3))
+        R, t = poses[b, :3, :3], poses[b, :3, 3]
+        scans.append(((pts - t) @ R).astype(np.float32))
+    return world, tcov, np.stack(scans), poses
+
+
+def _assert_pose(got, want):
+    got, want = got.numpy(), np.asarray(want)
+    np.testing.assert_allclose(got[..., :3, 3], want[..., :3, 3], atol=1e-3)
+    np.testing.assert_allclose(got[..., :3, :3], want[..., :3, :3], atol=1e-4)
+
+
+def test_vgicp_align_matches_jax():
+    world, tcov, scans, poses = _scene(0)
+    src = scans[0]
+    sm = np.ones(src.shape[0], np.float32)
+    tmask = np.ones(world.shape[0], np.float32)
+    init = _pose([0.35, 0.2, 0.0, 0.0, 0.0, 0.01])          # off by ~0.2 m
+    cfg = GicpConfig(max_iterations=15)
+    jr = jreg.vgicp_align(jnp.asarray(src), jnp.asarray(world), jnp.asarray(tcov),
+                          jnp.asarray(sm), jnp.asarray(tmask),
+                          init_transform=jnp.asarray(init), cfg=cfg)
+    pr = preg.vgicp_align(torch.tensor(src), torch.tensor(world), torch.tensor(tcov),
+                          torch.tensor(sm), torch.tensor(tmask),
+                          init_transform=torch.tensor(init), cfg=cfg)
+    _assert_pose(pr.transform, jr.transform)
+    np.testing.assert_allclose(pr.transform.numpy()[:3, 3], poses[0, :3, 3], atol=1e-2)
+    assert int(pr.iterations) == int(jr.iterations)
+    assert bool(pr.converged) == bool(jr.converged)
+    np.testing.assert_allclose(float(pr.fitness), float(jr.fitness), rtol=1e-3, atol=1e-5)
+
+
+def test_vgicp_align_block_matches_jax():
+    B = 4
+    world, tcov, scans, poses = _scene(1, B=B)
+    N = scans.shape[1]
+    rng = np.random.default_rng(4)
+    sm = (rng.uniform(size=(B, N)) > 0.05).astype(np.float32)
+    scov = np.asarray(jv.radar_point_covariances_packed(
+        jnp.asarray(scans.reshape(-1, 3)))).reshape(B, N, 6)
+    tmask = np.ones(world.shape[0], np.float32)
+    init = poses.copy()
+    init[:, :3, 3] += rng.normal(0, 0.1, (B, 3)).astype(np.float32)
+    cfg = GicpConfig(max_iterations=15)
+    jr, jw = jreg.vgicp_align_block(*map(jnp.asarray, (scans, world, tcov, sm, tmask,
+                                                       scov, init)), cfg=cfg)
+    pr, pw = preg.vgicp_align_block(*(torch.tensor(x) for x in (scans, world, tcov, sm,
+                                                               tmask, scov, init)),
+                                    cfg=cfg)
+    _assert_pose(pr.transform, jr.transform)
+    np.testing.assert_allclose(pr.transform.numpy()[:, :3, 3], poses[:, :3, 3], atol=1e-2)
+    np.testing.assert_array_equal(pr.iterations.numpy(), np.asarray(jr.iterations))
+    np.testing.assert_array_equal(pr.converged.numpy(), np.asarray(jr.converged))
+    np.testing.assert_allclose(pw.numpy(), np.asarray(jw), rtol=1e-5)
+    np.testing.assert_allclose(pr.fitness.numpy(), np.asarray(jr.fitness),
+                               rtol=1e-3, atol=1e-5)
+
+
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    """On the CPU the wrapper runs the plain version only because its
+    tensors lie on the CPU; mixed devices raise."""
+    T, src, sm, scov, tgt, tcov, tmask, count = _case(1, 64, 64)
+    args = [torch.tensor(x) for x in (T, src, sm, scov, tgt, tcov, tmask)]
+    calls = []
+    monkeypatch.setattr(pv, "_vgicp_sweep_cuda", lambda *a, **k: calls.append(1))
+    pv.vgicp_iteration(*args)
+    assert calls == []
+    with pytest.raises(ValueError):
+        pv.vgicp_iteration(*args[:6], args[6].to("meta"))

@@ -1,0 +1,164 @@
+"""Port voxel-hash map parity on the CPU: `mask_compact`, the spatial hash,
+`voxel_map_insert` (sort-dedupe, windowed probe rounds with claim races,
+deferred deposits, `leader_budget`) and the sector query with voxel
+statistics, against the JAX package from the same starting map.
+
+Tolerance: keys, occupied flags, stored points and intensities must be
+identical, and so must the sector query's counts, masks and rows. The
+Gaussian accumulators (count, sum, second moment) agree within rtol 1e-5:
+the JAX package sums each voxel's batch run with an associative scan, the
+port with a doubling scan, so the f32 sums of a run may round differently;
+the means and covariances derived from them get the same budget, plus atol
+1e-5 for covariance entries that cancel to about zero."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icp4dradar_tpu.mapping import voxel_hash as jvh
+from icp4dradar_tpu.ops.compaction import mask_compact as j_mask_compact
+from icp4dradar_tpu_torch.interop import (
+    VOXEL_MAP_FIELDS,
+    voxel_map_from_numpy,
+    voxel_map_to_numpy,
+)
+from icp4dradar_tpu_torch.mapping import voxel_hash as pvh
+from icp4dradar_tpu_torch.ops.compaction import mask_compact
+
+EXACT = ("keys", "occupied", "points", "intensity")
+STATS = ("stat_n", "stat_sum", "stat_sq")
+RTOL = 1e-5
+B = 512                      # points per inserted batch
+# one compile per map capacity instead of an eager trace per call
+_jinsert = jax.jit(jvh.voxel_map_insert, static_argnames="leader_budget")
+
+
+def _to_port(jmap):
+    return voxel_map_from_numpy({k: np.asarray(getattr(jmap, k)) for k in VOXEL_MAP_FIELDS},
+                                voxel_size=jmap.voxel_size, max_probes=jmap.max_probes,
+                                device="cpu")
+
+
+def _assert_same_map(pmap, jmap):
+    got = voxel_map_to_numpy(pmap)
+    for k in EXACT:
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(jmap, k)), err_msg=k)
+    for k in STATS:
+        want = np.asarray(getattr(jmap, k))
+        np.testing.assert_allclose(got[k], want, rtol=RTOL,
+                                   atol=RTOL * np.abs(want).max(), err_msg=k)
+
+
+@pytest.mark.parametrize("out_size", [5, 40, 300])
+@pytest.mark.parametrize("int_values", [False, True])
+def test_mask_compact_matches_jax(out_size, int_values):
+    rng = np.random.default_rng(out_size)
+    vals = rng.normal(size=(200, 4)).astype(np.float32)
+    if int_values:
+        vals = (vals * 1000).astype(np.int32)
+    mask = (rng.uniform(size=200) > 0.6).astype(np.float32)
+    want = j_mask_compact(jnp.asarray(vals), jnp.asarray(mask), out_size)
+    got = mask_compact(torch.tensor(vals), torch.tensor(mask), out_size)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_hash_wraps_like_int32():
+    rng = np.random.default_rng(0)
+    coords = rng.integers(-2_000_000, 2_000_000, (1000, 3)).astype(np.int32)
+    for C in (256, 1 << 18):
+        np.testing.assert_array_equal(
+            pvh._hash(torch.tensor(coords), C).numpy(),
+            np.asarray(jvh._hash(jnp.asarray(coords), C)))
+    xyz = rng.uniform(-500, 500, (1000, 3)).astype(np.float32)
+    np.testing.assert_array_equal(pvh._voxel_coords(torch.tensor(xyz), 0.5).numpy(),
+                                  np.asarray(jvh._voxel_coords(jnp.asarray(xyz), 0.5)))
+
+
+def _batch(rng, n, extent, center=(0.0, 0.0, 0.0), dup=0):
+    """n points in a cube, the last `dup` of them exact copies of earlier
+    ones (equal center distances: the lowest original index must win)."""
+    pts = (rng.uniform(-extent, extent, (n, 3)) + center).astype(np.float32)
+    if dup:
+        pts[-dup:] = pts[rng.choice(n - dup, dup)]
+    inten = rng.uniform(0, 30, n).astype(np.float32)
+    mask = (rng.uniform(size=n) > 0.1).astype(np.float32)
+    return pts, mask, inten
+
+
+@pytest.mark.parametrize("capacity,extent,budget", [
+    (256, 2.0, None),     # ~100 voxels in 256 slots: probe chains, claim races
+    (256, 4.0, None),     # more voxels than the probe budget can place: drops
+    (1024, 3.0, 64),      # a binding leader budget
+    (1024, 3.0, 4096),    # a budget above the batch: no compaction
+])
+def test_insert_matches_jax(capacity, extent, budget):
+    rng = np.random.default_rng(capacity + int(extent))
+    jmap = jvh.voxel_map_create(capacity=capacity, voxel_size=0.5, max_probes=8)
+    pts, mask, inten = _batch(rng, B, extent, dup=40)
+    jmap = _jinsert(jmap, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(inten))
+    pmap = _to_port(jmap)
+    # a second batch overlapping the first: incumbents compete, new voxels claim
+    pts, mask, inten = _batch(rng, B, extent, center=(1.0, 0.5, 0.0), dup=30)
+    jmap = _jinsert(jmap, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(inten),
+                    leader_budget=budget)
+    pmap = pvh.voxel_map_insert(pmap, torch.tensor(pts), torch.tensor(mask),
+                                torch.tensor(inten), leader_budget=budget)
+    _assert_same_map(pmap, jmap)
+    assert float(pmap.num_voxels) == float(jmap.num_voxels) > 0
+
+
+def test_insert_into_empty_map_matches_jax():
+    rng = np.random.default_rng(5)
+    pts, mask, inten = _batch(rng, B, 10.0, dup=100)
+    jmap = _jinsert(jvh.voxel_map_create(capacity=1 << 12), jnp.asarray(pts),
+                    jnp.asarray(mask), jnp.asarray(inten))
+    pmap = pvh.voxel_map_insert(pvh.voxel_map_create(capacity=1 << 12, device="cpu"),
+                                torch.tensor(pts), torch.tensor(mask), torch.tensor(inten))
+    _assert_same_map(pmap, jmap)
+
+
+def test_sector_search_with_stats_matches_jax():
+    rng = np.random.default_rng(9)
+    jmap = jvh.voxel_map_create(capacity=1 << 12, voxel_size=0.5)
+    for k in range(3):
+        pts, mask, inten = _batch(rng, B, 30.0, center=(k * 2.0, 0.0, 0.0))
+        pts[:, 2] *= 0.1
+        jmap = _jinsert(jmap, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(inten))
+    pmap = _to_port(jmap)
+    for heading, out_size in ((30.0, 2048), (-170.0, 2048), (30.0, 100)):
+        center = np.asarray([1.0, -2.0, 0.0], np.float32)
+        want = jvh.voxel_map_sector_search_with_stats(
+            jmap, jnp.asarray(center), 25.0, jnp.float32(heading), 60.0, out_size,
+            min_count=3.0, fallback_var=0.01)
+        got = pvh.voxel_map_sector_search_with_stats(
+            pmap, torch.tensor(center), 25.0, torch.tensor(heading), 60.0, out_size,
+            min_count=3.0, fallback_var=0.01)
+        names = ("points", "mask", "count", "mean", "cov")
+        for name, g, w in zip(names[:3], got[:3], want[:3]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        for name, g, w in zip(names[3:], got[3:], want[3:]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=1e-5,
+                                       err_msg=name)
+        assert 0 < int(got[2]) <= out_size
+        pts, mask, count = pvh.voxel_map_sector_search(
+            pmap, torch.tensor(center), 25.0, torch.tensor(heading), 60.0, out_size)
+        torch.testing.assert_close(pts, got[0])
+        assert int(count) == int(got[2])
+
+
+def test_map_round_trips_through_numpy():
+    rng = np.random.default_rng(2)
+    pts, mask, inten = _batch(rng, 300, 5.0)
+    pmap = pvh.voxel_map_insert(pvh.voxel_map_create(capacity=512, device="cpu"),
+                                torch.tensor(pts), torch.tensor(mask), torch.tensor(inten))
+    back = voxel_map_from_numpy(voxel_map_to_numpy(pmap), voxel_size=0.5, max_probes=8,
+                                device="cpu")
+    for k in VOXEL_MAP_FIELDS:
+        assert torch.equal(getattr(back, k), getattr(pmap, k)), k
+    with pytest.raises(KeyError):
+        voxel_map_from_numpy({"keys": np.zeros((4, 3), np.int32)}, device="cpu")
+    with pytest.raises(ValueError):
+        pvh.voxel_map_create(capacity=300, device="cpu")
