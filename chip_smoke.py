@@ -44,7 +44,38 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              1e-5 / atol 1e-4 on every output. Times both at the bench block
              (CUDA events, median of 10, in turns plain / kernel / kernel /
              plain), and the kernel's launch alone on inputs packed once.
-7. profile — one torch.profiler run of each slice: device kernel time,
+7. gicp    — the kNN-GICP tracker: the first 64 frames of the bench
+             sequence through run_scan_to_map(gicp.use_vgicp=False,
+             use_const_velocity_rot=True): warm-up, then one timed run with
+             the 1-NN launch count reset just before and read just after (it
+             must equal the GN iterations plus one fitness search per
+             frame). Fails on non-finite outputs, on a lost frame (fitness
+             1e6, or nothing matched after the first frame) or on an ATE
+             (align=False) above 0.09 m. A third run prints the host-clock
+             phase split. Also checks CUDA against CPU on a 12 x 256 scene
+             whose frames converge below the iteration cap: the tracks'
+             ATE within 0.01 m, and the registration alone on identical
+             inputs within 5e-3 (its float32 round-off, measured against
+             float64 on the CPU).
+8. knn     — the 1-NN kernels (index and coordinate forms) against their
+             plain version on the card: a bench scan at its tracked pose
+             against the 16,384-row sector submap of phase 7's final map, a
+             fully live 16,384-row submap, a ragged masked case, exact ties
+             within and across row ranges, and all targets masked; indices,
+             distances and coordinates must be equal. Times both at the path
+             shape (CUDA events, in turns plain / kernel / kernel / plain).
+9. inner   — the per-frame VGICP tracker on the same 64 frames, with
+             gicp.inner_gn_steps 0 and then 1 (warm-up, then one timed run
+             each, counts reset before it): ATE within 0.0252 +- 0.01 m
+             without inner steps; with one, frozen-pass launches must equal
+             sweep launches, GN iterations their sum, no frame lost, and the
+             ATE at most 1.5 x the first run's + 0.005 m.
+10. frozen — the frozen-payload GN kernel against its plain version on the
+             card, on real sweep payloads of phase 9's map (one frame, and
+             8 frames in per-frame groups) under perturbed transforms, with
+             rows marked never matched and an empty payload; tolerance rtol
+             1e-5 / atol 1e-4. Times both at one 2048-point frame.
+11. profile — one torch.profiler run of each tracker: device kernel time,
              kernel launches, the top kernels, and the device's idle share
              against the unprofiled run time.
 
@@ -77,6 +108,17 @@ VG_RTOL, VG_ATOL = 1e-5, 1e-4
 S2M_FRAMES, S2M_BLOCK = 256, 8
 S2M_ATE_EXPECTED, S2M_ATE_BAND = 0.034, 0.01
 LOST_FITNESS = 1e6
+NN_SOURCE = "icp4dradar_tpu_torch/csrc/nn_search.cu"
+NN_REPLACES = "icp4dradar_tpu/ops/knn.py:75"
+NN_COORDS_REPLACES = "icp4dradar_tpu/ops/knn.py:180"
+FROZEN_REPLACES = "icp4dradar_tpu/ops/vgicp_fused.py:264"
+TRACK_FRAMES = 64
+# the JAX package's CPU run of these 64 frames, 0.0572 m, plus 0.035 m of
+# room for the port's exact distances (see PERF.md)
+GICP_ATE_MAX = 0.09
+INNER0_ATE_EXPECTED, INNER0_ATE_BAND = 0.0252, 0.01
+NN_FLOPS_PER_PAIR = 9         # 3 sub, 3 fma counted as 6 (the compare not counted)
+FROZEN_FLOPS_PER_SOURCE = 320  # p = R s + t, the fresh distance, the GN epilogue
 # NVIDIA's H100 SXM data sheet: HBM rate and FP32 peak (at 700 W)
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
 ICP_FLOPS_PER_PAIR = 9       # 3 sub, 3 mul, 3 add (the compare not counted)
@@ -571,24 +613,434 @@ def phase_vgicp(torch, state, out, s2m):
                 bound_by=bound_by, library_ms=None)
 
 
-def phase_profile(torch, scans, s2m):
-    """One profiled run of each slice: device kernel time and launches from
-    torch.profiler, the idle share against the median unprofiled run."""
+def _lost(out):
+    """Per-frame lost flags of a per-frame tracker's outputs: fitness 1e6 or
+    non-finite, or nothing matched (fitness 0) after the first frame."""
+    fit = out.fitness
+    lost = (fit >= LOST_FITNESS) | ~fit.isfinite()
+    lost[1:] |= fit[1:] == 0.0
+    return lost
+
+
+def _check_track(tag, torch, out, F):
+    for f in ("world_T", "correction", "velocity", "velocity_sigma", "fitness"):
+        x = getattr(out, f)
+        if x.shape[0] != F or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"[{tag}] {f}: shape {tuple(x.shape)} or non-finite")
+    lost = int(_lost(out).sum().item())
+    if lost:
+        raise RuntimeError(f"[{tag}] {lost} lost frames")
+
+
+def _timed_tracker(torch, tag, run, reset):
+    """One warm-up run, then one timed run with the launch counts reset
+    just before it -> (outputs, seconds, peak GiB)."""
+    t0 = time.perf_counter()
+    run()
+    log(f"[{tag}] warm-up run {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    res = run()
+    dt = time.perf_counter() - t0
+    return res, dt, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_gicp(torch, seq, scans):
+    import importlib
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io import SyntheticSequence
+    from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.models import scan_to_map
+    from icp4dradar_tpu_torch.preprocess import draw_reve_uniforms
+    from icp4dradar_tpu_torch.utils import ate_rmse
+
+    from icp4dradar_tpu_torch.geom import matrix_to_rpy, se3_apply
+    from icp4dradar_tpu_torch.mapping import voxel_map_sector_search
+    from icp4dradar_tpu_torch.registration import gicp_align
+
+    nn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
+    cfg = PipelineConfig().override(**{"gicp.use_vgicp": False})
+    F = TRACK_FRAMES
+    track = scans[:F]
+
+    def run(phase_times=None):
+        res = scan_to_map.run_scan_to_map(track, cfg, use_const_velocity_rot=True,
+                                          phase_times=phase_times)
+        torch.cuda.synchronize()
+        return res
+
+    def reset():
+        nn.NN_SEARCH_LAUNCHES = 0
+
+    (state, out), dt, peak = _timed_tracker(torch, "gicp", run, reset)
+    launches = nn.NN_SEARCH_LAUNCHES
+    its = out.iterations.cpu().numpy()
+    log(f"[gicp] {F} frames in {dt * 1e3:.2f} ms = {F / dt:.2f} scans/s; peak device "
+        f"memory {peak:.2f} GiB")
+    log(f"[gicp] nn_search launches {launches}, expected {int(its.sum()) + F} (GN "
+        f"iterations {int(its.sum())} + {F} fitness searches); GN iterations per frame "
+        f"mean {its.mean():.2f}, max {int(its.max())}")
+    if launches <= 0 or launches != int(its.sum()) + F:
+        raise RuntimeError(f"[gicp] launch count {launches} != iterations "
+                           f"{int(its.sum())} + {F}")
+    _check_track("gicp", torch, out, F)
+    poses = out.world_T.cpu().numpy()
+    ate = ate_rmse(poses[:, :3, 3], seq.poses[:F, :3, 3], align=False)
+    log(f"[gicp] fitness max {out.fitness.max().item():.4f}, map voxels "
+        f"{int(state.vmap.num_voxels.item())}, live submap rows max "
+        f"{int(out.submap_points.max().item())}, ATE (align=False) {ate:.4f} m")
+    if not ate <= GICP_ATE_MAX:
+        raise RuntimeError(f"[gicp] ATE {ate:.4f} m above {GICP_ATE_MAX} m")
+    phases = {}
+    t0 = time.perf_counter()
+    run(phase_times=phases)
+    total = time.perf_counter() - t0
+    log(f"[gicp] phase split (host clock, a synchronize around each phase; "
+        f"{total * 1e3:.2f} ms in all): " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" for k, v in sorted(phases.items(), key=lambda kv: -kv[1])))
+
+    # small input: the CUDA path against the CPU path on the same draws, on
+    # the scene of phase 5's check, whose frames converge in 3-6 iterations.
+    # World-frame kNN GICP passes a last-bit difference (cuBLAS against the
+    # CPU's BLAS, inv_ex, the Cholesky) on through the map: a stored point
+    # that moves by an ulp may change voxel, and the next frames register
+    # against a different map. So the tracks are held to the same accuracy
+    # (ATE within 0.01 m, no lost frame), and the registration alone, on
+    # identical inputs, to 5e-3 on every transform entry: the same four
+    # registrations in float32 against float64 on the CPU differ by up to
+    # 3.7e-3 (printed below: the f32 GN's own round-off at a 1e-4 stopping
+    # step).
+    small = SyntheticSequence(num_frames=12, max_points=256, num_landmarks=400,
+                              world_extent=50.0, max_range=50.0, dynamic_fraction=0.05,
+                              speed=1.0, turn_rate=0.02, seed=0)
+    s_cpu = stack_scans([small.scan(k) for k in range(12)])
+    u = draw_reve_uniforms((12,), cfg.reve, torch.Generator().manual_seed(0))
+    scfg = cfg.override(**{"voxel_map.capacity": 1 << 14,
+                           "voxel_map.submap_max_points": 1 << 12})
+    kw = dict(use_const_velocity_rot=True)
+    st_cpu, o_cpu = scan_to_map.run_scan_to_map(s_cpu, scfg, uniforms=u, **kw)
+    _, o_gpu = scan_to_map.run_scan_to_map(s_cpu.to("cuda"), scfg, uniforms=u.cuda(), **kw)
+    d = (o_gpu.world_T.cpu() - o_cpu.world_T).abs().max().item()
+    a_cpu, a_gpu = (ate_rmse(o.world_T.cpu().numpy()[:, :3, 3], small.poses[:, :3, 3],
+                             align=False) for o in (o_cpu, o_gpu))
+    log(f"[gicp] 12x256 CUDA vs CPU tracks: max |world_T| diff {d:.3e}, ATE {a_gpu:.4f} / "
+        f"{a_cpu:.4f} m, GN iterations {o_gpu.iterations.tolist()} / "
+        f"{o_cpu.iterations.tolist()}")
+    if abs(a_gpu - a_cpu) > 0.01 or bool(_lost(o_gpu).any()) or bool(_lost(o_cpu).any()):
+        raise RuntimeError("[gicp] CUDA and CPU tracks disagree on 12x256")
+    vm = scfg.voxel_map
+    reg = []
+    for k in range(8, 12):
+        pose = o_cpu.world_T[k]
+        sub, sm, _ = voxel_map_sector_search(
+            st_cpu.vmap, pose[:3, 3], vm.sector_radius, matrix_to_rpy(pose[:3, :3])[2],
+            vm.sector_half_angle_deg, vm.submap_max_points)
+        src = se3_apply(pose, s_cpu.xyz[k]) + torch.tensor([0.3, -0.2, 0.05])
+        args = (src, sub, s_cpu.mask[k], sm)
+        g_cpu = gicp_align(*args, cfg=scfg.gicp)
+        g_gpu = gicp_align(*(x.cuda() for x in args), cfg=scfg.gicp)
+        g_f64 = gicp_align(*(x.double() for x in args), cfg=scfg.gicp)
+        reg.append(((g_gpu.transform.cpu() - g_cpu.transform).abs().max().item(),
+                    int(g_gpu.iterations), int(g_cpu.iterations),
+                    (g_cpu.transform.double() - g_f64.transform).abs().max().item()))
+    log("[gicp] 12x256 registration on identical inputs (frames 8-11, shifted "
+        "0.36 m), max |T| diff CUDA vs CPU (iterations) and CPU float32 vs "
+        "float64: " + ", ".join(f"{e:.2e} ({a}/{b}) and {f:.2e}" for e, a, b, f in reg))
+    if max(e for e, _, _, _ in reg) > 5e-3:
+        raise RuntimeError("[gicp] CUDA and CPU registrations disagree")
+    return launches, state, out, track
+
+
+def phase_knn(torch, state, out, track):
+    import importlib
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.geom import matrix_to_rpy, se3_apply
+    from icp4dradar_tpu_torch.mapping import voxel_map_sector_search
+
+    nn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
+    vm = PipelineConfig().voxel_map
+    dev = track.xyz.device
+    rng = np.random.default_rng(3)
+    nn.NN_COORDS_LAUNCHES = 0
+
+    def both(name, src, tgt, mask):
+        ki, kd = nn.nearest_neighbor(src, tgt, mask)
+        kd2, kq = nn.nearest_neighbor_with_coords(src, tgt, mask)
+        torch.cuda.synchronize()
+        pi, pd = nn.nearest_neighbor_plain(src, tgt, mask)
+        pq = tgt[pi.long()]
+        eq = (torch.equal(ki, pi), torch.equal(kd, pd), torch.equal(kd2, pd),
+              torch.equal(kq, pq))
+        log(f"[knn] {name}: indices equal {eq[0]}, d2 equal {eq[1] and eq[2]}, "
+            f"coordinates equal {eq[3]}; max |d2| diff {(kd - pd).abs().max().item():.3e}")
+        if not all(eq):
+            raise RuntimeError(f"[knn] {name}: kernel and plain version differ")
+        return ki, kd
+
+    # the path shape: the last scan in the world frame at its tracked pose
+    # against the sector submap of the final map
+    pose = out.world_T[-1]
+    heading = matrix_to_rpy(pose[:3, :3])[2]
+    submap, submask, sub_n = voxel_map_sector_search(
+        state.vmap, pose[:3, 3], vm.sector_radius, heading, vm.sector_half_angle_deg,
+        vm.submap_max_points)
+    src = se3_apply(pose, track.xyz[-1]).contiguous()
+    submap, submask = submap.contiguous(), submask.contiguous()
+    N, M, live = src.shape[0], submap.shape[0], int(sub_n.item())
+    both(f"path {N} x {M} rows ({live} live)", src, submap, submask)
+
+    # every row live: the live rows jittered over the whole table
+    reps = -(-M // max(live, 1))
+    full = torch.cat([submap[:live]] * reps)[:M]
+    full = (full + torch.from_numpy(rng.normal(0, 0.3, (M, 3)).astype(np.float32))
+            .to(dev)).contiguous()
+    both(f"fully live {N} x {M}", src, full, torch.ones(M, device=dev))
+
+    # ragged: 1000 sources against 5001 rows, 30% masked at random
+    rs = torch.from_numpy(rng.uniform(-60, 60, (1000, 3)).astype(np.float32)).to(dev)
+    rt = torch.from_numpy(rng.uniform(-60, 60, (5001, 3)).astype(np.float32)).to(dev)
+    rm = torch.from_numpy((rng.uniform(size=5001) > 0.3).astype(np.float32)).to(dev)
+    both("ragged 1000 x 5001 masked", rs, rt, rm)
+
+    # exact ties: rows 3 and 9000 (different row ranges) at d2 = 5, the
+    # first wins; rows 12000 and 15000 at d2 = 2 beat row 5's d2 = 9
+    tt = torch.full((M, 3), 90.0, device=dev)
+    for row, v in ((3, (1., 2., 0.)), (9000, (1., -2., 0.)), (5, (20., 3., 0.)),
+                   (12000, (21., 0., 1.)), (15000, (19., 0., -1.))):
+        tt[row] = torch.tensor(v, device=dev)
+    ts_ = torch.tensor([[0.0, 0.0, 0.0], [20.0, 0.0, 0.0]], device=dev)
+    ki, kd = both("exact ties", ts_, tt, torch.ones(M, device=dev))
+    if ki.tolist() != [3, 12000] or kd.tolist() != [5.0, 2.0]:
+        raise RuntimeError(f"[knn] exact ties: {ki.tolist()} {kd.tolist()}")
+    ki, kd = both("all masked", src, submap, torch.zeros(M, device=dev))
+    if bool((ki != 0).any()) or not bool((kd == torch.tensor(1e30, device=dev)).all()):
+        raise RuntimeError("[knn] all masked: expected index 0 and d2 1e30")
+    coords_launches = nn.NN_COORDS_LAUNCHES
+
+    # time the path shape in turns; 20 calls per event window
+    calls = 20
+
+    def kernel():
+        for _ in range(calls):
+            nn.nearest_neighbor(src, submap, submask)
+
+    def kernel_coords():
+        for _ in range(calls):
+            nn.nearest_neighbor_with_coords(src, submap, submask)
+
+    def plain():
+        for _ in range(calls):
+            nn.nearest_neighbor_plain(src, submap, submask)
+
+    def cdist():
+        for _ in range(calls):
+            torch.cdist(src, submap[:live]).min(dim=1)
+
+    p1, k1, c1, c2, k2, p2 = (time_cuda(torch, f) / calls for f in
+                              (plain, kernel, kernel_coords, kernel_coords, kernel, plain))
+    cd = time_cuda(torch, cdist) / calls
+    # bytes: sources, every target row and mask once, (index, d2) out; work:
+    # the live rows this submap holds (masked rows cannot win)
+    nbytes = 4 * (3 * N + 4 * M + 2 * N)
+    bound_ms, bound_by = roofline(nbytes, NN_FLOPS_PER_PAIR * N * live)
+    all_rows_ms, _ = roofline(nbytes, NN_FLOPS_PER_PAIR * N * M)
+    cbound_ms, cbound_by = roofline(4 * (3 * N + 4 * M + 4 * N), NN_FLOPS_PER_PAIR * N * live)
+    log(f"[knn] time at {N} x {M} rows ({live} live), per call: nn_search "
+        f"{k1:.4f} / {k2:.4f} ms, nn_coords {c1:.4f} / {c2:.4f} ms, plain "
+        f"{p1:.4f} / {p2:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, live rows; "
+        f"{all_rows_ms:.5f} ms over all {M} rows)")
+    log(f"[knn] context, not a port path: torch.cdist(src, live rows).min(dim=1) "
+        f"{cd:.4f} ms per call")
+    plain_ms = (p1 + p2) / 2
+    return (dict(max_abs_err=0.0, ms=(k1 + k2) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=None),
+            coords_launches,
+            dict(max_abs_err=0.0, ms=(c1 + c2) / 2, plain_ms=plain_ms, bound_ms=cbound_ms,
+                 bound_by=cbound_by, library_ms=None))
+
+
+def phase_inner(torch, seq, scans):
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.models import scan_to_map
+    from icp4dradar_tpu_torch.ops import vgicp_fused
+    from icp4dradar_tpu_torch.utils import ate_rmse
+
+    F = TRACK_FRAMES
+    track = scans[:F]
+
+    def reset():
+        vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+        vgicp_fused.VGICP_FROZEN_LAUNCHES = 0
+
+    ates, res = [], None
+    for inner in (0, 1):
+        cfg = PipelineConfig().override(**{"gicp.inner_gn_steps": inner})
+
+        def run():
+            r = scan_to_map.run_scan_to_map(track, cfg, use_const_velocity_rot=True)
+            torch.cuda.synchronize()
+            return r
+
+        (state, out), dt, peak = _timed_tracker(torch, f"inner {inner}", run, reset)
+        sweeps, frozen = vgicp_fused.VGICP_SWEEP_LAUNCHES, vgicp_fused.VGICP_FROZEN_LAUNCHES
+        its = out.iterations.cpu().numpy()
+        _check_track(f"inner {inner}", torch, out, F)
+        ate = ate_rmse(out.world_T.cpu().numpy()[:, :3, 3], seq.poses[:F, :3, 3],
+                       align=False)
+        ates.append(ate)
+        log(f"[inner {inner}] {F} frames in {dt * 1e3:.2f} ms = {F / dt:.2f} scans/s; "
+            f"peak device memory {peak:.2f} GiB; vgicp_sweep launches {sweeps}, "
+            f"vgicp_frozen launches {frozen}, GN iterations {int(its.sum())} (per frame "
+            f"mean {its.mean():.2f}, max {int(its.max())}); fitness max "
+            f"{out.fitness.max().item():.4f}; ATE (align=False) {ate:.4f} m")
+        if inner == 0:
+            if sweeps != int(its.sum()) or frozen != 0:
+                raise RuntimeError(f"[inner 0] launches {sweeps} / {frozen} != "
+                                   f"{int(its.sum())} / 0")
+            if not abs(ate - INNER0_ATE_EXPECTED) <= INNER0_ATE_BAND:
+                raise RuntimeError(f"[inner 0] ATE {ate:.4f} m outside "
+                                   f"{INNER0_ATE_EXPECTED} +- {INNER0_ATE_BAND} m")
+        else:
+            if frozen <= 0 or frozen != sweeps or int(its.sum()) != sweeps + frozen:
+                raise RuntimeError(f"[inner 1] frozen launches {frozen}, sweeps {sweeps}, "
+                                   f"GN iterations {int(its.sum())}")
+            if not ate <= 1.5 * ates[0] + 0.005:
+                raise RuntimeError(f"[inner 1] ATE {ate:.4f} m above 1.5 x {ates[0]:.4f} "
+                                   f"+ 0.005 m")
+            res = (frozen, state, out, track)
+    return res
+
+
+def phase_frozen(torch, state, out, track):
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.geom import matrix_to_rpy, se3_exp
+    from icp4dradar_tpu_torch.mapping import voxel_map_sector_search_with_stats
+    from icp4dradar_tpu_torch.ops.vgicp_fused import (
+        radar_point_covariances_packed, vgicp_iteration, vgicp_iteration_batch,
+        vgicp_iteration_frozen, vgicp_iteration_frozen_plain,
+    )
+
+    cfg = PipelineConfig()
+    vm, g = cfg.voxel_map, cfg.gicp
+    dev = track.xyz.device
+    rng = np.random.default_rng(4)
+    kw = dict(max_correspondence_dist=g.max_correspondence_dist, cov_eps=g.cov_epsilon)
+    names = ("H", "g", "cost", "wsum", "d2sum")
+    max_err = 0.0
+
+    def both(name, T, src, sm, scov, best, groups=1):
+        nonlocal max_err
+        k = vgicp_iteration_frozen(T, src, sm, scov, best, _acc_groups=groups, **kw)
+        torch.cuda.synchronize()
+        p = vgicp_iteration_frozen_plain(T, src, sm, scov, best, _acc_groups=groups, **kw)
+        errs = []
+        for n, a, b in zip(names, k, p):
+            a, b = a.double().cpu(), b.double().cpu()
+            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+                raise RuntimeError(f"[frozen] {name}: non-finite {n}")
+            bad = (a - b).abs() > VG_ATOL + VG_RTOL * b.abs()
+            errs.append((n, (a - b).abs().max().item(), int(bad.sum())))
+        log(f"[frozen] {name}: " + "; ".join(f"{n} abs {e:.3e}" for n, e, _ in errs))
+        if any(nb for _, _, nb in errs):
+            raise RuntimeError(f"[frozen] {name}: beyond rtol {VG_RTOL} / atol {VG_ATOL}")
+        max_err = max(max_err, max(e for _, e, _ in errs))
+        return k
+
+    # the last 8 frames at their tracked poses against the final map's
+    # sector submap, centred as vgicp_align centres it
+    B = 8
+    pose0 = out.world_T[-1]
+    heading = matrix_to_rpy(pose0[:3, :3])[2]
+    _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
+        state.vmap, pose0[:3, 3], vm.sector_radius, heading, vm.sector_half_angle_deg,
+        vm.submap_max_points, min_count=vm.stats_min_count, fallback_var=vm.stats_fallback_var)
+    T = out.world_T[-B:].clone()
+    center = T[-1, :3, 3].clone()
+    T[:, :3, 3] -= center
+    tgt = (sub_mean - center).contiguous()
+    src, sm = track.xyz[-B:].contiguous(), track.mask[-B:].contiguous()
+    scov = radar_point_covariances_packed(src, g.sigma_range, g.sigma_azimuth,
+                                          g.sigma_elevation).contiguous()
+    N = src.shape[1]
+
+    def perturbed(Tb, scale):
+        xi = rng.normal(0.0, [scale, scale, scale / 5, scale / 20, scale / 20, scale / 10],
+                        (Tb.shape[0], 6)).astype(np.float32)
+        return (se3_exp(torch.from_numpy(xi).to(dev)) @ Tb).contiguous()
+
+    best1 = vgicp_iteration(T[-1], src[-1], sm[-1], scov[-1], tgt, sub_cov, submask,
+                            tgt_count=sub_n, return_best=True, **kw)[5]
+    for scale in (0.01, 0.1):
+        both(f"one frame {N} points, step {scale} m", perturbed(T[-1:], scale)[0],
+             src[-1], sm[-1], scov[-1], best1)
+    bestB = vgicp_iteration_batch(T, src, sm, scov, tgt, sub_cov, submask, tgt_count=sub_n,
+                                  return_best=True, **kw)[5]
+    flat = (src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6))
+    TB = perturbed(T, 0.05)
+    both(f"B={B} x {N} in per-frame groups", TB, *flat, bestB, groups=B)
+    marked = bestB.clone()
+    marked[::3, 0, :] = 1e30                  # every third frame never matched
+    k = both(f"B={B}, frames 0, 3, 6 never matched", TB, *flat, marked, groups=B)
+    if float(k[3][::3].abs().sum()) != 0.0:
+        raise RuntimeError("[frozen] never-matched rows carried weight")
+    empty = vgicp_iteration(T[-1], src[-1], sm[-1], scov[-1], tgt, sub_cov,
+                            torch.zeros_like(submask), tgt_count=torch.tensor(0, device=dev),
+                            return_best=True, **kw)[5]
+    k = both("empty payload (a sweep against an empty submap)", T[-1], src[-1], sm[-1],
+             scov[-1], empty)
+    if float(k[3].abs().sum()) != 0.0:
+        raise RuntimeError("[frozen] empty payload matched something")
+
+    calls = 20
+    T1 = perturbed(T[-1:], 0.01)[0]
+
+    def kernel():
+        for _ in range(calls):
+            vgicp_iteration_frozen(T1, src[-1], sm[-1], scov[-1], best1, **kw)
+
+    def plain():
+        for _ in range(calls):
+            vgicp_iteration_frozen_plain(T1, src[-1], sm[-1], scov[-1], best1, **kw)
+
+    p1, k1, k2, p2 = (time_cuda(torch, f) / calls for f in (plain, kernel, kernel, plain))
+    # inputs read once: T, the sources (xyz, mask, cov6) and the (10, N)
+    # payload; 30 sums out
+    bound_ms, bound_by = roofline(4 * (16 + 10 * N + 10 * N + 30),
+                                  FROZEN_FLOPS_PER_SOURCE * N)
+    log(f"[frozen] time at one frame of {N} points, per call of the wrapper: kernel "
+        f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound {bound_ms:.6f} ms "
+        f"({bound_by})")
+    return dict(max_abs_err=max_err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_profile(torch, scans, s2m, track):
+    """One profiled run of each tracker: device kernel time and launches
+    from torch.profiler, the idle share against the median unprofiled run
+    (three unprofiled runs; one for the kNN-GICP tracker, whose run is the
+    longest)."""
     from torch.profiler import ProfilerActivity, profile
 
     from icp4dradar_tpu_torch.config import PipelineConfig
-    from icp4dradar_tpu_torch.models import run_scan_to_map_blocked, run_scan_to_scan
+    from icp4dradar_tpu_torch.models import (
+        run_scan_to_map, run_scan_to_map_blocked, run_scan_to_scan,
+    )
 
     cfg = PipelineConfig()
+    knn_cfg = cfg.override(**{"gicp.use_vgicp": False})
     runs = {
-        "s2s": lambda: run_scan_to_scan(scans, cfg, use_doppler_prior=True),
-        "s2m": lambda: run_scan_to_map_blocked(s2m, cfg, block=S2M_BLOCK,
-                                               use_const_velocity_rot=True),
+        "s2s": (3, lambda: run_scan_to_scan(scans, cfg, use_doppler_prior=True)),
+        "s2m": (3, lambda: run_scan_to_map_blocked(s2m, cfg, block=S2M_BLOCK,
+                                                   use_const_velocity_rot=True)),
+        "gicp": (1, lambda: run_scan_to_map(track, knn_cfg, use_const_velocity_rot=True)),
     }
     cuda_type = torch.autograd.DeviceType.CUDA
-    for name, fn in runs.items():
+    for name, (n_walls, fn) in runs.items():
         walls = []
-        for _ in range(3):
+        for _ in range(n_walls):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -606,7 +1058,7 @@ def phase_profile(torch, scans, s2m):
             log(f"[profile] {name}: the profiler saw no device time (not measured)")
             continue
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-        log(f"[profile] {name}: run {wall * 1e3:.2f} ms unprofiled (median of 3), "
+        log(f"[profile] {name}: run {wall * 1e3:.2f} ms unprofiled (median of {n_walls}), "
             f"{pwall * 1e3:.2f} ms profiled; device kernel time {busy:.2f} ms in "
             f"{launches} kernel launches; idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
         for e in top:
@@ -639,13 +1091,23 @@ def main() -> int:
     icp_launches, scans_per_s, ate = phase_slice(torch, seq, scans)
     vg_launches, state, out, s2m = phase_s2m(torch, seq, scans)
     vg = phase_vgicp(torch, state, out, s2m)
-    phase_profile(torch, scans, s2m)
+    nn_launches, state, out, track = phase_gicp(torch, seq, scans)
+    nn, coords_launches, coords = phase_knn(torch, state, out, track)
+    frozen_launches, state, out, track = phase_inner(torch, seq, scans)
+    frozen = phase_frozen(torch, state, out, track)
+    phase_profile(torch, scans, s2m, track)
 
     log(json.dumps({"kernels": [
         {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": icp_launches, **icp},
         {"name": "vgicp_sweep", "route": "cuda", "source": VGICP_SOURCE,
          "replaces": VGICP_REPLACES, "launches": vg_launches, **vg},
+        {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
+         "replaces": NN_REPLACES, "launches": nn_launches, **nn},
+        {"name": "nn_coords", "route": "cuda", "source": NN_SOURCE,
+         "replaces": NN_COORDS_REPLACES, "launches": coords_launches, **coords},
+        {"name": "vgicp_frozen", "route": "cuda", "source": VGICP_SOURCE,
+         "replaces": FROZEN_REPLACES, "launches": frozen_launches, **frozen},
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

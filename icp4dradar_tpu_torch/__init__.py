@@ -5,9 +5,13 @@ is the reference: every ported module keeps its counterpart's file name and
 public function names, and `tests/test_torch_*.py` hold each against it.
 
 Ported so far: the scan-to-scan odometry path (`models.run_scan_to_scan`)
-with Doppler preprocessing, batched point-to-point ICP on a hand-written
-CUDA ICP-moments kernel (`csrc/icp_moments.cu`), and the CLI's
-``--mode scan_to_scan``. This package never imports jax or
+with Doppler preprocessing and batched point-to-point ICP on a hand-written
+CUDA ICP-moments kernel (`csrc/icp_moments.cu`); scan-to-map tracking
+(`models.run_scan_to_map[_blocked]`) with REVE, the voxel-hash map and
+VGICP on the CUDA sweep kernel and its frozen-payload pass
+(`csrc/vgicp_sweep.cu`), or kNN GICP on the CUDA 1-NN search
+(`csrc/nn_search.cu`); the CLI's ``--mode scan_to_scan`` and
+``--mode scan_to_map``. This package never imports jax or
 `icp4dradar_tpu`.
 
 Subpackages (same names as the JAX package)
@@ -15,9 +19,10 @@ Subpackages (same names as the JAX package)
 - ``geom``          SO(3)/SE(3), Horn rotation, closed-form 3x3 solves
 - ``io``            RadarScan, .bin IO, synthetic sequences
 - ``preprocess``    Doppler sine-RANSAC, static/dynamic split, ego velocity
-- ``ops``           the ICP-moments kernel wrapper, its plain version, build
-- ``registration``  batched point-to-point ICP
-- ``models``        scan-to-scan odometry, CLI
+- ``mapping``       the voxel-hash map: insert, sector query, map k-NN
+- ``ops``           kernel wrappers and their plain versions, k-NN, build
+- ``registration``  batched point-to-point ICP, kNN GICP, VGICP
+- ``models``        scan-to-scan and scan-to-map odometry, CLI
 - ``utils``         ATE/RPE, trajectory file writers
 - ``csrc``          CUDA C++ sources, built with nvcc at first use
 """

@@ -43,6 +43,18 @@
 // with -fmad=false), so the selections and per-point terms agree with the
 // plain PyTorch version to the last bit; only the order of the float64 sums
 // differs.
+//
+// The second entry point, vgicp_frozen_launch, replaces
+// icp4dradar_tpu/ops/vgicp_fused.py::_make_vgicp_frozen_kernel (behind
+// vgicp_iteration_frozen, the inner GN steps of gicp.inner_gn_steps > 0):
+// the same 30 sums re-linearised at a new T on the payload a sweep matched,
+// gated on the fresh |q - p|^2. It lives in this file to share gn_terms and
+// the block reduction. Bound on an H100: bytes, not operations. Per source
+// it reads 10 floats of source and 10 of payload (80 B) and does ~300
+// FP32 operations; 2048 sources are 164 KB, ~0.05 us at 3.35 TB/s, so a
+// launch (a few us) bounds it in practice. Design: one thread per source,
+// the sweep's grid (N/128, B) and its float64 per-block rows, so per-frame
+// groups (`_acc_groups`) sum as after a sweep.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -163,6 +175,49 @@ __device__ void gn_terms(const float R[3][3], const float p[3], float w_src,
   acc[29] = __fmul_rn(w, d2);
 }
 
+// Sums acc over the block's threads in float64 (warp shuffles, then a
+// fixed-order sum over warps) and writes the 30 sums to out_row.
+__device__ void block_sum_store(const float acc[kAcc], double* out_row) {
+  __shared__ double red[kWarps][kAcc];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) {
+    double v = (double)acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kAcc) {
+    double v = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w][threadIdx.x];
+    out_row[threadIdx.x] = v;
+  }
+}
+
+// T_b of the launch's frame b: R (3x3) and t (3).
+__device__ void load_transform(const float* Tb, float R[3][3], float t[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) R[r][c] = Tb[4 * r + c];
+    t[r] = Tb[4 * r + 3];
+  }
+}
+
+// p = R s + t, summed left to right as the Pallas kernels do.
+__device__ void transform_point(const float R[3][3], const float t[3], const float s[3],
+                                float p[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    p[r] = __fadd_rn(sum3(__fmul_rn(R[r][0], s[0]), __fmul_rn(R[r][1], s[1]),
+                          __fmul_rn(R[r][2], s[2])),
+                     t[r]);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 vgicp_sweep_kernel(const float* __restrict__ T,        // (B, 4, 4)
                    const float* __restrict__ src,      // (B * N, 10)
@@ -173,32 +228,19 @@ vgicp_sweep_kernel(const float* __restrict__ T,        // (B, 4, 4)
                    float* __restrict__ best_out) {       // (ns, 10, ts) or null
   __shared__ float4 s_mean[kMaxTile];      // x, y, z, penalty
   __shared__ float s_cov[kMaxTile * 6];
-  __shared__ double red[kWarps][kAcc];
 
   const int b = blockIdx.y;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < N;
   const size_t row = (size_t)b * N + i;
 
-  const float* Tb = T + (size_t)b * 16;
   float R[3][3], t[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) R[r][c] = Tb[4 * r + c];
-    t[r] = Tb[4 * r + 3];
-  }
+  load_transform(T + (size_t)b * 16, R, t);
   float s[kSrcCols];
 #pragma unroll
   for (int k = 0; k < kSrcCols; ++k) s[k] = live ? src[row * kSrcCols + k] : 0.f;
-  // p = R s + t, summed left to right as the Pallas kernel does
   float p[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    p[r] = __fadd_rn(sum3(__fmul_rn(R[r][0], s[0]), __fmul_rn(R[r][1], s[1]),
-                          __fmul_rn(R[r][2], s[2])),
-                     t[r]);
-  }
+  transform_point(R, t, s, p);
 
   // live tiles: tile 0 always, then every tile that starts below the count
   const int cnt = *tgt_count;
@@ -276,24 +318,44 @@ vgicp_sweep_kernel(const float* __restrict__ T,        // (B, 4, 4)
     for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
   }
 
-  // block reduction in float64: warp shuffles, then a fixed-order sum over
-  // warps
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  block_sum_store(acc, out + ((size_t)b * gridDim.x + blockIdx.x) * kAcc);
+}
+
+// The GN terms re-linearised at T on FROZEN correspondences (K5): no
+// search; each source reads the payload [d2, mean3, cov6] that a sweep
+// matched it to, in the (ns, 10, ts) layout, and gates on the FRESH
+// distance |q - p|^2 (a row whose stale d2 is >= 2.5e29 never matched and
+// gets 1e30, above any gate).
+__global__ void __launch_bounds__(kThreads)
+vgicp_frozen_kernel(const float* __restrict__ T,     // (B, 4, 4)
+                    const float* __restrict__ src,   // (B * N, 10)
+                    const float* __restrict__ best,  // (ns, 10, ts)
+                    int N, int src_offset, int ts, float gate, float eps,
+                    double* __restrict__ out) {      // (B, nblk, 30)
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const size_t row = (size_t)b * N + i;
+  float acc[kAcc];
+  if (i < N) {
+    float R[3][3], t[3], s[kSrcCols], p[3], pay[10];
+    load_transform(T + (size_t)b * 16, R, t);
 #pragma unroll
-  for (int k = 0; k < kAcc; ++k) {
-    double v = (double)acc[k];
+    for (int k = 0; k < kSrcCols; ++k) s[k] = src[row * kSrcCols + k];
+    transform_point(R, t, s, p);
+    const size_t g = (size_t)src_offset + row;
+    const size_t blk = g / ts, lane = g % ts;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][k] = v;
+    for (int k = 0; k < 10; ++k) pay[k] = best[(blk * 10 + k) * ts + lane];
+    const float d0 = __fsub_rn(pay[1], p[0]), d1 = __fsub_rn(pay[2], p[1]),
+                d2 = __fsub_rn(pay[3], p[2]);
+    const float fresh = sum3(__fmul_rn(d0, d0), __fmul_rn(d1, d1), __fmul_rn(d2, d2));
+    const float gate_d2 = pay[0] < 2.5e29f ? fresh : kBig;
+    gn_terms(R, p, s[3], s + 4, pay + 1, pay + 4, gate_d2, gate, eps, acc);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
   }
-  __syncthreads();
-  if (threadIdx.x < kAcc) {
-    double v = 0.0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += red[w][threadIdx.x];
-    out[((size_t)b * gridDim.x + blockIdx.x) * kAcc + threadIdx.x] = v;
-  }
+  block_sum_store(acc, out + ((size_t)b * gridDim.x + blockIdx.x) * kAcc);
 }
 
 }  // namespace
@@ -316,5 +378,18 @@ extern "C" int vgicp_sweep_launch(const float* T, const float* src,
   const dim3 grid((N + kThreads - 1) / kThreads, B);
   vgicp_sweep_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       T, src, tgt, tgt_count, N, src_offset, P, tm, ts, gate, eps, out, best);
+  return (int)cudaGetLastError();
+}
+
+// Launches the frozen-payload GN pass on `stream`; returns
+// cudaGetLastError(). B frames of N sources as for vgicp_sweep_launch; best
+// is the (ns, 10, ts) payload of the sweep that matched these sources.
+extern "C" int vgicp_frozen_launch(const float* T, const float* src, const float* best,
+                                   int B, int N, int src_offset, int ts, float gate,
+                                   float eps, double* out, void* stream) {
+  if (B <= 0 || B > 65535 || N <= 0 || ts <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kThreads - 1) / kThreads, B);
+  vgicp_frozen_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      T, src, best, N, src_offset, ts, gate, eps, out);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,9 @@ from icp4dradar_tpu_torch.geom.linalg import (  # noqa: F401
     condition_number,
     inv3x3,
     solve3x3,
+    solve_psd,
     solve_spd6,
     sym3x3_eigvals,
+    sym3x3_largest_eigvec,
+    sym3x3_smallest_eigvec,
 )

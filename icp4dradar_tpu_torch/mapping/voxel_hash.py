@@ -24,8 +24,14 @@ Tables carry two extra rows internally while inserting: row C reads as
 empty (the JAX gathers' `mode="fill"`), row C+1 absorbs dropped writes
 (`mode="drop"`).
 
-Forgetting, rehash, point/box deletes and the stencil/exact kNN are not
-ported yet (`ROADMAP.md` queue 1 items 16 and 11).
+Lookups and k-NN on the map (the kNN-GICP path's exact whole-map
+neighbourhoods): `voxel_map_lookup_slots`, `voxel_map_stencil_neighbors`,
+`voxel_map_knn` and `voxel_map_knn_exact`, whose `lax.while_loop` over
+pre-sorted offset chunks is a Python loop here with one host check per
+chunk.
+
+Forgetting, rehash and point/box deletes are not ported yet (`ROADMAP.md`
+queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -35,9 +41,11 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from icp4dradar_tpu_torch.ops.compaction import mask_compact
+from icp4dradar_tpu_torch.ops.knn import k_smallest
 
 _P1, _P2, _P3 = 73856093, 19349669, 83492791  # classic spatial-hash primes
 _EMPTY = 0x7FFFFFFF
@@ -341,3 +349,140 @@ def voxel_map_sector_search_with_stats(
                        dtype=cov.dtype, device=cov.device)
     cov = torch.where(out[:, 3:4] < min_count, iso, cov)
     return out[:, :3], mask, count, mu, cov
+
+
+def voxel_map_lookup_slots(
+    vmap: VoxelHashMap, coords: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve integer voxel coordinates (..., 3) to their table slots ->
+    (slot (...) int32, found (...) bool); slot is 0 where not found, so
+    gate every gather through `found`. One gather per probe round over the
+    whole coordinate block."""
+    C = vmap.capacity
+    h = _hash(coords, C)
+    slots = torch.zeros(coords.shape[:-1], dtype=torch.int32, device=coords.device)
+    found = torch.zeros(coords.shape[:-1], dtype=torch.bool, device=coords.device)
+    for j in range(vmap.max_probes):
+        slot = (h + j) & (C - 1)
+        sl = slot.long()
+        hit = (torch.all(vmap.keys[sl] == coords, dim=-1) & (vmap.occupied[sl] > 0.5)
+               & ~found)
+        slots = torch.where(hit, slot, slots)
+        found = found | hit
+    return slots, found
+
+
+def _lookup_voxels(
+    vmap: VoxelHashMap, coords: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stored point of each integer voxel coordinate (..., 3) ->
+    (points (..., 3), found (...)); points are 0 where not found."""
+    slots, found = voxel_map_lookup_slots(vmap, coords)
+    pts = torch.where(found[..., None], vmap.points[slots.long()], 0.0)
+    return pts, found
+
+
+def _sq_dist(pts: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """(N, K, 3) candidates against (N, 3) queries -> (N, K) squared
+    distances, summed over x, y, z in order."""
+    d = pts - queries[:, None, :]
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def _k_nearest(d2: torch.Tensor, pts: torch.Tensor, k: int):
+    """The k smallest distances of each row and their points, nearest first;
+    among equal distances the lower column first (`lax.top_k`'s rule)."""
+    order, d2 = k_smallest(d2, k)
+    return d2, torch.gather(pts, 1, order[..., None].expand(order.shape + (3,)))
+
+
+def voxel_map_stencil_neighbors(
+    vmap: VoxelHashMap,
+    queries: torch.Tensor,
+    stencil_radius: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate map points around each query from the (2s+1)^3 voxel
+    stencil (the gather-based replacement for the kd-tree's Nearest_Search,
+    ikd_Tree.cpp:368-398): queries (N, 3) -> (points (N, K, 3), valid (N,
+    K)), K = (2s+1)^3, one stored point per voxel."""
+    base = _voxel_coords(queries, vmap.voxel_size)
+    r = torch.arange(-stencil_radius, stencil_radius + 1, dtype=torch.int32,
+                     device=queries.device)
+    offsets = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
+    return _lookup_voxels(vmap, base[:, None, :] + offsets[None, :, :])
+
+
+def voxel_map_knn(
+    vmap: VoxelHashMap,
+    queries: torch.Tensor,
+    k: int,
+    stencil_radius: int = 1,
+    max_dist: float = math.inf,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest map points per query from the voxel stencil, within
+    max_dist: queries (N, 3) -> (dists2 (N, k), points (N, k, 3)); slots
+    beyond the available neighbours carry +inf. Reach is bounded by the
+    stencil: (stencil_radius + 0.5) * voxel_size around the query's voxel."""
+    cand, valid = voxel_map_stencil_neighbors(vmap, queries, stencil_radius)
+    d2 = _sq_dist(cand, queries)
+    d2 = torch.where(valid & (d2 < max_dist * max_dist), d2, math.inf)
+    return _k_nearest(d2, cand, k)
+
+
+def voxel_map_knn_exact(
+    vmap: VoxelHashMap,
+    queries: torch.Tensor,
+    k: int,
+    max_dist: float = 2.0,
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EXACT k nearest map points per query within max_dist (the whole-map
+    Nearest_Search + max_dist gate, ikd_Tree.cpp:368-398; MAX_SEARCH_RADIUS
+    2.0 at src/radar_odometry.cpp:35), without the stencil's reach bound.
+
+    Candidate voxel offsets out to max_dist are sorted by a lower bound on
+    their distance to the query's voxel and visited in chunks of `chunk`
+    (one batched lookup each); the loop stops once every query's k-th best
+    beats the next chunk's lower bound, the kd-tree's box-distance pruning,
+    so the result does not depend on where it stops. queries (N, 3) ->
+    (dists2 (N, k), points (N, k, 3)); missing neighbours carry +inf."""
+    if not math.isfinite(max_dist) or max_dist <= 0:
+        raise ValueError("voxel_map_knn_exact needs a finite max_dist > 0")
+    L = vmap.voxel_size
+    R = int(np.floor(max_dist / L)) + 1
+    r = np.arange(-R, R + 1)
+    offs = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    # lower bound: a point of the query's voxel and one of the offset voxel
+    # are at least L * (|o_i| - 1) apart along each axis
+    dmin = L * np.sqrt((np.maximum(np.abs(offs) - 1, 0).astype(np.float64) ** 2).sum(-1))
+    keep = dmin <= max_dist
+    offs, dmin = offs[keep], dmin[keep]
+    order = np.argsort(dmin, kind="stable")
+    offs, dmin = offs[order], dmin[order]
+    n_off = offs.shape[0]
+    chunk = min(chunk, n_off)
+    n_chunks = -(-n_off // chunk)
+    pad = n_chunks * chunk - n_off
+    dev, dt = queries.device, queries.dtype
+    chunk_off = torch.tensor(np.pad(offs, ((0, pad), (0, 0))).reshape(n_chunks, chunk, 3),
+                             dtype=torch.int32, device=dev)
+    chunk_valid = torch.tensor(np.pad(np.ones(n_off, bool), (0, pad)).reshape(n_chunks, chunk),
+                               device=dev)
+    # squared lower bound of each chunk's first (closest) offset, consulted
+    # before the chunk is visited
+    lb2 = (dmin[::chunk] ** 2).astype(np.float32)
+
+    N = queries.shape[0]
+    base = _voxel_coords(queries, L)
+    best_d2 = torch.full((N, k), math.inf, dtype=dt, device=dev)
+    best_pts = torch.zeros((N, k, 3), dtype=dt, device=dev)
+    md2 = float(np.float32(max_dist * max_dist))
+    c = 0
+    while c < n_chunks and bool(torch.any(best_d2[:, k - 1] > float(lb2[c]))):
+        pts, found = _lookup_voxels(vmap, base[:, None, :] + chunk_off[c][None, :, :])
+        d2 = _sq_dist(pts, queries)
+        d2 = torch.where(found & chunk_valid[c] & (d2 < md2), d2, math.inf)
+        best_d2, best_pts = _k_nearest(torch.cat([best_d2, d2], dim=-1),
+                                        torch.cat([best_pts, pts], dim=1), k)
+        c += 1
+    return best_d2, best_pts

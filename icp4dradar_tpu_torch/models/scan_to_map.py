@@ -1,4 +1,4 @@
-"""Scan-to-map VGICP odometry against the voxel-hash map, the
+"""Scan-to-map odometry (VGICP or kNN GICP) against the voxel-hash map, the
 `radar_odometry` pipeline (PyTorch port of
 `icp4dradar_tpu/models/scan_to_map.py`).
 
@@ -19,12 +19,20 @@ and the pipeline's own pose tracks the map.
 RANSAC draws for REVE are an input, (F, 3H) (`preprocess/reve.py`); when
 absent they come from a `torch.Generator` seeded with `cfg.seed`.
 
+Registration is VGICP against the voxel Gaussians by default, or, with
+`gicp.use_vgicp=False`, the reference-faithful kNN GICP (FastGICP,
+src/radar_odometry.cpp:399-411): world-frame points against the sector
+submap's stored points, target covariances from submap-local k-NN or, with
+`gicp.use_exact_map_knn`, from the exact whole-map k-NN, and the
+correction composed on the left. As in the JAX package, the blocked runner
+honours `use_vgicp` in its warm-up frames only: its blocks always run
+VGICP (`ROADMAP.md` queue 3).
+
 Not ported yet, each raising NotImplementedError that names its place in
-`ROADMAP.md`: `gicp.use_vgicp=False` (kNN GICP, queue 1 item 11), a finite
-`voxel_map.forget_radius` (forget + rehash), `gt_poses` /
-`insert_before_registration` and `run_scan_to_map_batch` (queue 1 item
-16); `rigid_union`, `accumulate_scans > 1` and its `aux_world_xyz` /
-`insert_override` are left out for good ("Not ported").
+`ROADMAP.md`: a finite `voxel_map.forget_radius` (forget + rehash),
+`gt_poses` / `insert_before_registration` and `run_scan_to_map_batch`
+(queue 1 item 16); `rigid_union`, `accumulate_scans > 1` and its
+`aux_world_xyz` / `insert_override` are left out for good ("Not ported").
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ from icp4dradar_tpu_torch.mapping import (
     VoxelHashMap,
     voxel_map_create,
     voxel_map_insert,
+    voxel_map_knn_exact,
+    voxel_map_sector_search,
     voxel_map_sector_search_with_stats,
 )
 from icp4dradar_tpu_torch.ops.vgicp_fused import radar_point_covariances_packed
@@ -54,6 +64,7 @@ from icp4dradar_tpu_torch.preprocess.reve import (
     draw_reve_uniforms,
     estimate_ego_velocity,
 )
+from icp4dradar_tpu_torch.registration.gicp import covariances_from_neighbors, gicp_align
 from icp4dradar_tpu_torch.registration.vgicp import vgicp_align, vgicp_align_block
 
 # Blocks of `run_scan_to_map_blocked` in this process that fell back to the
@@ -71,8 +82,6 @@ def _not_ported(what: str, where: str = "queue 1 item 16") -> NotImplementedErro
 
 
 def _check_cfg(cfg: PipelineConfig) -> None:
-    if not cfg.gicp.use_vgicp:
-        raise _not_ported("gicp.use_vgicp=False (kNN GICP)", "queue 1 item 11")
     if math.isfinite(cfg.voxel_map.forget_radius):
         raise _not_ported("a finite voxel_map.forget_radius (forget + rehash)")
     if int(cfg.accumulate_scans) > 1:
@@ -121,10 +130,10 @@ class ScanToMapOutput:
     velocity: torch.Tensor        # (3,) REVE ego velocity
     velocity_sigma: torch.Tensor  # (3,)
     velocity_valid: torch.Tensor  # () bool
-    fitness: torch.Tensor         # () VGICP fitness
+    fitness: torch.Tensor         # () registration fitness
     num_inliers: torch.Tensor     # () inlier point count
     submap_points: torch.Tensor   # () sector submap size
-    iterations: torch.Tensor      # () GN sweeps the registration ran
+    iterations: torch.Tensor      # () GN iterations the registration ran
     insert_mask: torch.Tensor     # (N,) gated inlier mask actually inserted
 
 
@@ -193,10 +202,10 @@ def scan_to_map_step(
     insert_override=None,
     phase_times: Optional[Dict[str, float]] = None,
 ) -> Tuple[ScanToMapState, ScanToMapOutput]:
-    """One tracked frame (the VGICP branch). An empty map (first frame)
-    gives an identity correction and seeds the map. uniforms: (3H,) REVE
-    draws. `prior_delta` (4,4): body-frame motion prior composed into the
-    prediction once the map exists."""
+    """One tracked frame: VGICP, or kNN GICP with `gicp.use_vgicp=False`.
+    An empty map (first frame) gives an identity correction and seeds the
+    map. uniforms: (3H,) REVE draws. `prior_delta` (4,4): body-frame motion
+    prior composed into the prediction once the map exists."""
     _check_cfg(cfg)
     if gt_pose is not None or insert_before_registration:
         raise _not_ported("gt_pose / insert_before_registration")
@@ -218,19 +227,40 @@ def scan_to_map_step(
         pose = _add_doppler_step(pose, est.velocity, est.valid & has_map)
 
     heading = matrix_to_rpy(pose[:3, :3])[2]
-    with _phase(phase_times, "sector_query", dev):
-        _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
-            state.vmap, pose[:3, 3], vmcfg.sector_radius, heading,
-            vmcfg.sector_half_angle_deg, vmcfg.submap_max_points,
-            min_count=vmcfg.stats_min_count, fallback_var=vmcfg.stats_fallback_var)
-    with _phase(phase_times, "gn", dev):
-        src_cov6 = radar_point_covariances_packed(
-            scan.xyz, cfg.gicp.sigma_range, cfg.gicp.sigma_azimuth,
-            cfg.gicp.sigma_elevation)
-        g = vgicp_align(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
-                        src_cov6=src_cov6, init_transform=pose, cfg=cfg.gicp,
-                        tgt_count=sub_n)
-    new_T, insert_mask, _ = _apply_tracking_gate(cfg, pose, g.transform, g.fitness,
+    if cfg.gicp.use_vgicp:
+        with _phase(phase_times, "sector_query", dev):
+            _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
+                state.vmap, pose[:3, 3], vmcfg.sector_radius, heading,
+                vmcfg.sector_half_angle_deg, vmcfg.submap_max_points,
+                min_count=vmcfg.stats_min_count, fallback_var=vmcfg.stats_fallback_var)
+        with _phase(phase_times, "gn", dev):
+            src_cov6 = radar_point_covariances_packed(
+                scan.xyz, cfg.gicp.sigma_range, cfg.gicp.sigma_azimuth,
+                cfg.gicp.sigma_elevation)
+            g = vgicp_align(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
+                            src_cov6=src_cov6, init_transform=pose, cfg=cfg.gicp,
+                            tgt_count=sub_n)
+        reg_T = g.transform
+    else:
+        with _phase(phase_times, "sector_query", dev):
+            submap, submask, sub_n = voxel_map_sector_search(
+                state.vmap, pose[:3, 3], vmcfg.sector_radius, heading,
+                vmcfg.sector_half_angle_deg, vmcfg.submap_max_points)
+        tgt_cov = None
+        if cfg.gicp.use_exact_map_knn:
+            # the submap's covariance neighbourhoods from the exact
+            # whole-map k-NN, gated at max_correspondence_dist
+            with _phase(phase_times, "map_knn", dev):
+                d2n, pn = voxel_map_knn_exact(state.vmap, submap,
+                                              cfg.gicp.k_correspondences,
+                                              max_dist=cfg.gicp.max_correspondence_dist)
+                tgt_cov = covariances_from_neighbors(submap, pn, torch.isfinite(d2n),
+                                                     cfg.gicp.cov_epsilon)
+        with _phase(phase_times, "gn", dev):
+            g = gicp_align(se3_apply(pose, scan.xyz), submap, inlier_mask, submask,
+                           cfg=cfg.gicp, tgt_cov=tgt_cov)
+        reg_T = g.transform @ pose                  # left-compose (ref :412)
+    new_T, insert_mask, _ = _apply_tracking_gate(cfg, pose, reg_T, g.fitness,
                                                  inlier_mask)
     with _phase(phase_times, "insert", dev):
         vmap = voxel_map_insert(state.vmap, se3_apply(new_T, scan.xyz), insert_mask,
@@ -351,7 +381,9 @@ def run_scan_to_map_blocked(
     block register against the submap frozen at the block start.
 
     The first `block` frames run the per-frame tracker to build the map
-    (warm-up). `parallel_frames` (default): predict every pose of the block
+    (warm-up); they honour `gicp.use_vgicp`, while the blocks always run
+    VGICP (the JAX package's behaviour) and ignore `gicp.inner_gn_steps`.
+    `parallel_frames` (default): predict every pose of the block
     by chaining the motion priors from the block-start pose and register
     all frames in one joint GN (`vgicp_align_block`); False registers them
     one after another, each seeding the next prediction. With
@@ -363,7 +395,7 @@ def run_scan_to_map_blocked(
 
     uniforms: (F, 3H) REVE draws (warm-up frames first). `phase_times`:
     when a dict, host-clock seconds per phase (reve, sort, sector_query,
-    gn, insert) are added to it, with a device synchronize around each
+    map_knn, gn, insert) are added to it, with a device synchronize around each
     phase. Requires (F - block) % block == 0 (F % block == 0 with
     `init_state`)."""
     global SEQUENTIAL_FALLBACK_BLOCKS

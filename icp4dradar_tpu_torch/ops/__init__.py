@@ -1,6 +1,7 @@
-"""Compute kernels: the fused ICP-moments pass and the fused VGICP sweep
-(CUDA kernels + plain versions), masked compaction. The library is built
-from `csrc/` at the first CUDA launch."""
+"""Compute kernels: the fused ICP-moments pass, the fused VGICP sweep and
+its frozen-payload GN pass, the masked 1-NN search (CUDA kernels + plain
+versions), the chunked k-NN, masked compaction. The library is built from
+`csrc/` at the first CUDA launch."""
 
 from icp4dradar_tpu_torch.ops.icp_fused import (  # noqa: F401
     icp_iteration_moments,
@@ -8,9 +9,18 @@ from icp4dradar_tpu_torch.ops.icp_fused import (  # noqa: F401
     moments_to_transform,
 )
 from icp4dradar_tpu_torch.ops.compaction import mask_compact  # noqa: F401
+from icp4dradar_tpu_torch.ops.knn import (  # noqa: F401
+    knn,
+    nearest_neighbor,
+    nearest_neighbor_plain,
+    nearest_neighbor_with_coords,
+    nearest_neighbor_with_coords_plain,
+)
 from icp4dradar_tpu_torch.ops.vgicp_fused import (  # noqa: F401
     radar_point_covariances_packed,
     vgicp_iteration,
     vgicp_iteration_batch,
+    vgicp_iteration_frozen,
+    vgicp_iteration_frozen_plain,
     vgicp_iteration_plain,
 )

@@ -25,6 +25,11 @@ by the sector query's compaction); tile 0 is always swept.
 - `vgicp_iteration_plain` is plain torch with the kernel's semantics,
   chunked over frames so that the (frames, N, tm) distance tile stays
   bounded.
+- `vgicp_iteration_frozen` (the inner GN steps, `gicp.inner_gn_steps >
+  0`) re-linearises the same 30 sums at a new T on the payload a sweep
+  returned under `return_best`, with no search: the kernel
+  `vgicp_frozen_launch` of the same source on CUDA tensors, or
+  `vgicp_iteration_frozen_plain` on CPU tensors.
 
 The band-gate tile skip of the Pallas kernel (`:137-144`) is not ported: a
 tile it skips holds no voxel within the correspondence gate, so it changes
@@ -46,6 +51,8 @@ MAX_TILE = 1024
 # Kernel launches of `vgicp_iteration` / `vgicp_iteration_batch` in this
 # process; the CUDA path adds one per kernel launch and nowhere else.
 VGICP_SWEEP_LAUNCHES = 0
+# Kernel launches of `vgicp_iteration_frozen`, counted the same way.
+VGICP_FROZEN_LAUNCHES = 0
 
 _GRID_Y_MAX = 65535  # CUDA grid.y limit: frames per launch
 
@@ -168,23 +175,16 @@ def target_tile_rows(P: int) -> int:
     return min(MAX_TILE, P + (-P) % 8)
 
 
-def _prepare(T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask,
-             ts, tgt_count, gate_axis):
-    """Shared layout of the kernel and its plain version: sources padded to
-    a multiple of the block size ts and grouped by frame (Bk frames of Nf
-    sources, blocks never straddle frames), targets packed (P, 10) as
-    [mean3, cov6, penalty], the live count as an int32 (1,) tensor."""
-    n, P = src_xyz.shape[0], tgt_mean.shape[0]
+def _pack_sources(T, src_xyz, src_mask, src_cov6, ts):
+    """Sources padded to a multiple of the block size ts and packed (Np, 10)
+    as [xyz, mask, cov6], grouped by frame: Bk frames of Nf sources, blocks
+    never straddle frames. -> (T (Bk, 4, 4), src, ts, Bk, Nf)."""
+    n = src_xyz.shape[0]
     if src_mask.shape != (n,) or src_cov6.shape != (n, 6) or src_xyz.shape != (n, 3):
         raise ValueError(f"sources: xyz {tuple(src_xyz.shape)}, mask "
                          f"{tuple(src_mask.shape)}, cov {tuple(src_cov6.shape)}")
-    if tgt_cov6.shape != (P, 6) or tgt_mask.shape != (P,) or tgt_mean.shape != (P, 3):
-        raise ValueError(f"targets: mean {tuple(tgt_mean.shape)}, cov "
-                         f"{tuple(tgt_cov6.shape)}, mask {tuple(tgt_mask.shape)}")
-    if n == 0 or P == 0:
-        raise ValueError(f"empty clouds: n={n}, P={P}")
-    if gate_axis is not None and tuple(gate_axis.shape) != (2,):
-        raise ValueError(f"gate_axis has shape {tuple(gate_axis.shape)}, expected (2,)")
+    if n == 0:
+        raise ValueError("empty source cloud")
     f32 = torch.float32
     ts = min(ts, max(8, n))
     pad = (-n) % ts
@@ -197,14 +197,31 @@ def _prepare(T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask,
     Bk = Tk.shape[0]
     if (Np // ts) % Bk:
         raise ValueError(f"{Np // ts} source blocks do not split over {Bk} frames")
+    return Tk.reshape(Bk, 4, 4).contiguous(), src.contiguous(), ts, Bk, Np // Bk
+
+
+def _prepare(T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask,
+             ts, tgt_count, gate_axis):
+    """Shared layout of the kernel and its plain version: the sources of
+    `_pack_sources`, targets packed (P, 10) as [mean3, cov6, penalty], the
+    live count as an int32 (1,) tensor."""
+    P = tgt_mean.shape[0]
+    if tgt_cov6.shape != (P, 6) or tgt_mask.shape != (P,) or tgt_mean.shape != (P, 3):
+        raise ValueError(f"targets: mean {tuple(tgt_mean.shape)}, cov "
+                         f"{tuple(tgt_cov6.shape)}, mask {tuple(tgt_mask.shape)}")
+    if P == 0:
+        raise ValueError("empty target cloud")
+    if gate_axis is not None and tuple(gate_axis.shape) != (2,):
+        raise ValueError(f"gate_axis has shape {tuple(gate_axis.shape)}, expected (2,)")
+    f32 = torch.float32
+    Tk, src, ts, Bk, Nf = _pack_sources(T, src_xyz, src_mask, src_cov6, ts)
     pen = torch.where(tgt_mask > 0.5, 0.0, _BIG).to(f32)
     tgt10 = torch.cat([tgt_mean.to(f32), tgt_cov6.to(f32), pen[:, None]], dim=-1)
     if tgt_count is None:
         cnt = torch.full((1,), P, dtype=torch.int32, device=src.device)
     else:
         cnt = torch.as_tensor(tgt_count, device=src.device).to(torch.int32).reshape(1)
-    return (Tk.reshape(Bk, 4, 4).contiguous(), src.contiguous(), tgt10.contiguous(),
-            cnt, ts, Bk, Np // Bk)
+    return Tk, src, tgt10.contiguous(), cnt, ts, Bk, Nf
 
 
 def _finish(acc_frames, groups, dtype, best, return_best):
@@ -284,6 +301,86 @@ def vgicp_iteration_batch(
         gate_axis=gate_axis, _acc_groups=B)
 
 
+def vgicp_iteration_frozen(
+    T: torch.Tensor,
+    src_xyz: torch.Tensor,
+    src_mask: torch.Tensor,
+    src_cov6: torch.Tensor,
+    best: torch.Tensor,
+    max_correspondence_dist: float = 2.0,
+    cov_eps: float = 1e-3,
+    _acc_groups: int = 1,
+):
+    """GN pass re-linearised at T on FROZEN correspondences: the (ns, 10,
+    ts) payload `best` of an earlier `vgicp_iteration(..., return_best=True)`
+    over the same sources, no search -> (H, g, cost, wsum, d2sum) as a
+    sweep gives them. Each source is gated on its fresh |q - p|^2; a source
+    the sweep never matched (stale d2 >= 2.5e29) gets 1e30 and no weight.
+    The source block size is `best`'s own ts. CPU tensors run the plain
+    version; CUDA tensors launch the CUDA kernel or raise."""
+    args = (T, src_xyz, src_mask, src_cov6, best)
+    kw = dict(max_correspondence_dist=max_correspondence_dist, cov_eps=cov_eps,
+              _acc_groups=_acc_groups)
+    if all(x.device.type == "cpu" for x in args):
+        return vgicp_iteration_frozen_plain(*args, **kw)
+    if not all(x.is_cuda and x.device == src_xyz.device for x in args):
+        raise ValueError("vgicp_iteration_frozen: inputs must all be on the CPU or all "
+                         f"on one CUDA device, got {[str(x.device) for x in args]}")
+    return _vgicp_frozen_cuda(*args, **kw)
+
+
+def _prepare_frozen(T, src_xyz, src_mask, src_cov6, best, _acc_groups):
+    """`_pack_sources` at the payload's block size; checks that the payload
+    covers exactly the padded sources."""
+    if best.dim() != 3 or best.shape[1] != 10:
+        raise ValueError(f"best has shape {tuple(best.shape)}, expected (ns, 10, ts)")
+    Tk, src, ts, Bk, Nf = _pack_sources(T, src_xyz, src_mask, src_cov6, best.shape[2])
+    if ts != best.shape[2] or Bk * Nf != best.shape[0] * ts:
+        raise ValueError(f"best {tuple(best.shape)} does not match {src_xyz.shape[0]} "
+                         f"sources in blocks of {best.shape[2]}")
+    if Bk % _acc_groups:
+        raise ValueError(f"{Bk} frames do not split into {_acc_groups} groups")
+    return Tk, src, ts, Bk, Nf
+
+
+def best_payload_to_rows(best: torch.Tensor, n: int) -> torch.Tensor:
+    """(ns, 10, ts) blocked matched payload (the `return_best` layout) ->
+    (n, 10) rows [d2, q0..2, cb0..5]; row i is source point i."""
+    ns, _, ts = best.shape
+    return best.transpose(1, 2).reshape(ns * ts, 10)[:n]
+
+
+def vgicp_iteration_frozen_plain(
+    T: torch.Tensor,
+    src_xyz: torch.Tensor,
+    src_mask: torch.Tensor,
+    src_cov6: torch.Tensor,
+    best: torch.Tensor,
+    max_correspondence_dist: float = 2.0,
+    cov_eps: float = 1e-3,
+    _acc_groups: int = 1,
+):
+    """Plain-torch twin of the frozen kernel, on any device: the kernel's
+    p, fresh distance and GN terms (`_gn_accumulators`), summed in float64
+    per frame and returned as float32."""
+    Tk, src, ts, Bk, Nf = _prepare_frozen(T, src_xyz, src_mask, src_cov6, best,
+                                          _acc_groups)
+    rows = best_payload_to_rows(best.to(torch.float32), Bk * Nf).reshape(Bk, Nf, 10)
+    src = src.reshape(Bk, Nf, 10)
+    R = [[Tk[:, r, c, None] for c in range(3)] for r in range(3)]
+    s = [src[..., k] for k in range(10)]
+    p = [R[r][0] * s[0] + R[r][1] * s[1] + R[r][2] * s[2] + Tk[:, r, 3, None]
+         for r in range(3)]
+    pay = list(rows.unbind(-1))
+    d = [pay[1 + k] - p[k] for k in range(3)]
+    fresh = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    gate_d2 = torch.where(pay[0] < 2.5e29, fresh, _BIG)
+    terms = _gn_accumulators(R, p, s[3], s[4:10], pay[1:], gate_d2,
+                             sweep_gate(max_correspondence_dist), float(np.float32(cov_eps)))
+    return _finish(terms.sum(dim=1, dtype=torch.float64), _acc_groups, src_xyz.dtype,
+                   None, False)
+
+
 def _lib() -> ctypes.CDLL:
     from icp4dradar_tpu_torch.ops import _build
 
@@ -295,6 +392,9 @@ def _lib() -> ctypes.CDLL:
         lib.vgicp_sweep_launch.restype = i
         lib.vgicp_sweep_threads.argtypes = []
         lib.vgicp_sweep_threads.restype = i
+        lib.vgicp_frozen_launch.argtypes = [p, p, p, i, i, i, i, ctypes.c_float,
+                                            ctypes.c_float, p, p]
+        lib.vgicp_frozen_launch.restype = i
     return lib
 
 
@@ -335,6 +435,36 @@ def _vgicp_sweep_cuda(T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6,
                                    f"{rc} (B={nb}, N={Nf}, P={P})")
             VGICP_SWEEP_LAUNCHES += 1
     return _finish(out.sum(dim=1), _acc_groups, src_xyz.dtype, best, return_best)
+
+
+def _vgicp_frozen_cuda(T, src_xyz, src_mask, src_cov6, best, max_correspondence_dist,
+                       cov_eps, _acc_groups):
+    global VGICP_FROZEN_LAUNCHES
+    for name, x in (("T", T), ("src_xyz", src_xyz), ("src_mask", src_mask),
+                    ("src_cov6", src_cov6), ("best", best)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"vgicp_frozen kernel takes float32 tensors; {name} "
+                             f"is {x.dtype}")
+    if not best.is_contiguous():
+        raise ValueError("vgicp_frozen kernel takes a contiguous best payload")
+    Tk, src, ts, Bk, Nf = _prepare_frozen(T, src_xyz, src_mask, src_cov6, best,
+                                          _acc_groups)
+    lib = _lib()
+    nblk = -(-Nf // lib.vgicp_sweep_threads())
+    out = torch.empty((Bk, nblk, NUM_ACC), dtype=torch.float64, device=src.device)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for b0 in range(0, Bk, _GRID_Y_MAX):
+            nb = min(_GRID_Y_MAX, Bk - b0)
+            rc = lib.vgicp_frozen_launch(
+                Tk[b0].data_ptr(), src[b0 * Nf].data_ptr(), best.data_ptr(), nb, Nf,
+                b0 * Nf, ts, sweep_gate(max_correspondence_dist),
+                float(np.float32(cov_eps)), out[b0].data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"vgicp_frozen kernel launch failed: CUDA error "
+                                   f"{rc} (B={nb}, N={Nf}, ts={ts})")
+            VGICP_FROZEN_LAUNCHES += 1
+    return _finish(out.sum(dim=1), _acc_groups, src_xyz.dtype, None, False)
 
 
 def vgicp_iteration_plain(

@@ -9,7 +9,11 @@ distribution-to-distribution cost (src/radar_odometry.cpp:399-411) with the
 covariance estimation moved from query time to map-build time.
 
 The JAX package's `lax.while_loop` over GN iterations is a Python loop here:
-its condition costs one host sync per iteration.
+its condition costs one host sync per iteration. With `gicp.inner_gn_steps
+> 0` each GN body is one sweep followed by that many sweep-free steps on
+the payload the sweep matched (`vgicp_iteration_frozen`, the CUDA kernel
+`vgicp_frozen_launch` on the card), as the JAX package runs on the TPU; its
+CPU path ignores the knob, the port honours it on every device.
 """
 
 from __future__ import annotations
@@ -25,15 +29,9 @@ from icp4dradar_tpu_torch.ops.vgicp_fused import (
     radar_point_covariances_packed,
     vgicp_iteration,
     vgicp_iteration_batch,
+    vgicp_iteration_frozen,
 )
 from icp4dradar_tpu_torch.registration.gicp import GicpResult
-
-
-def _check_cfg(cfg: GicpConfig) -> None:
-    if cfg.inner_gn_steps > 0:
-        raise NotImplementedError(
-            "gicp.inner_gn_steps > 0 needs the frozen-payload GN kernel (K5), "
-            "not ported yet (ROADMAP.md queue 1 item 11)")
 
 
 def _gn_update(T, H, g, cfg: GicpConfig, active=None):
@@ -65,7 +63,6 @@ def vgicp_align(
     prediction, which the GN refines. `tgt_count`: live target rows when
     front-packed (the sweep skips dead tiles). `gate_axis` (2,): band-gating
     direction, passed through to the sweep."""
-    _check_cfg(cfg)
     dt, dev = src_xyz.dtype, src_xyz.device
     if src_mask is None:
         src_mask = torch.ones(src_xyz.shape[0], dtype=dt, device=dev)
@@ -86,15 +83,28 @@ def vgicp_align(
     delta = torch.tensor(float("inf"), dtype=dt, device=dev)
     wsum = d2sum = torch.zeros((), dtype=dt, device=dev)
     eps = cfg.vgicp_transformation_epsilon
+    inner = cfg.inner_gn_steps
     while iters < cfg.max_iterations and bool(delta > eps):
-        H, g, _, wsum, d2sum = vgicp_iteration(
+        H, g, _, wsum, d2sum, *best = vgicp_iteration(
             T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask,
             max_correspondence_dist=cfg.max_correspondence_dist,
-            cov_eps=cfg.cov_epsilon, tgt_count=tgt_count, gate_axis=gate_axis)
+            cov_eps=cfg.cov_epsilon, tgt_count=tgt_count, return_best=inner > 0,
+            gate_axis=gate_axis)
         T, delta = _gn_update(T, H, g, cfg)
         iters += 1
-    # fitness from the LAST evaluation point: at convergence it matches a
-    # final re-evaluation to first order, so no extra sweep is paid
+        # sweep-free steps on the frozen correspondences; the cap is checked
+        # only at the top, so `iters` may pass max_iterations by `inner`
+        for _ in range(inner):
+            H, g, _, wsum, d2sum = vgicp_iteration_frozen(
+                T, src_xyz, src_mask, src_cov6, best[0],
+                max_correspondence_dist=cfg.max_correspondence_dist,
+                cov_eps=cfg.cov_epsilon)
+            T, dlt = _gn_update(T, H, g, cfg)
+            delta = delta + dlt
+            iters += 1
+    # fitness from the LAST evaluation point (a frozen step's, with inner
+    # steps): at convergence it matches a final re-evaluation to first
+    # order, so no extra sweep is paid
     fitness = d2sum / torch.clamp(wsum, min=1.0)
     converged = (delta <= eps) | (iters >= cfg.max_iterations)
     T = T.clone()
@@ -126,8 +136,8 @@ def vgicp_align_block(
     (B,4,4) -> (GicpResult with a leading (B,) axis, matched_weight (B,)).
     A frame whose prediction drifted past the correspondence gate matches
     nothing and reports fitness 0, so callers MUST gate on matched_weight,
-    not fitness alone."""
-    _check_cfg(cfg)
+    not fitness alone. Blocks run no inner steps: `cfg.inner_gn_steps` is
+    ignored here, as in the JAX package."""
     B, dt, dev = src_xyz.shape[0], src_xyz.dtype, src_xyz.device
     T = init_transforms.clone()
     # one shared centering for the block: all frames sit within a few

@@ -1,7 +1,8 @@
-"""Card tests of the port's CUDA kernels (ICP moments, VGICP sweep) against
-their plain PyTorch versions. Marked `gpu`: they skip where torch.cuda.is_available() is
-False. This file imports neither jax nor the JAX package, so on a machine
-with a card and no jax it runs without the suite's conftest:
+"""Card tests of the port's CUDA kernels (ICP moments, VGICP sweep and its
+frozen-payload pass, the 1-NN search) against their plain PyTorch versions.
+Marked `gpu`: they skip where torch.cuda.is_available() is False. This
+file imports neither jax nor the JAX package, so on a machine with a card
+and no jax it runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
@@ -174,3 +175,107 @@ def test_vgicp_kernel_rejects_what_it_does_not_take(cuda):
         vgicp_iteration(T[0], src[0].double(), sm[0], scov[0], tgt, tcov, tmask)
     with pytest.raises(ValueError):
         vgicp_iteration(T[0], src[0], sm[0].cpu(), scov[0], tgt, tcov, tmask)
+
+
+# ---- the masked 1-NN search (csrc/nn_search.cu, K2 and K3) against its
+# plain version: the same fused multiply-adds and the same tie rule, so
+# indices, distances and coordinates are equal, not merely close.
+import importlib  # noqa: E402
+
+nn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
+
+
+def _nn_case(rng, n, m, live, device, scale=60.0):
+    src = torch.from_numpy(rng.uniform(-scale, scale, (n, 3)).astype(np.float32))
+    tgt = torch.from_numpy(rng.uniform(-scale, scale, (m, 3)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=m) < live).astype(np.float32))
+    return [x.to(device) for x in (src, tgt, mask)]
+
+
+def _assert_nn_equal(src, tgt, mask):
+    before = (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES)
+    ki, kd = nn.nearest_neighbor(src, tgt, mask)
+    kd2, kq = nn.nearest_neighbor_with_coords(src, tgt, mask)
+    torch.cuda.synchronize()
+    assert (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    pi, pd = nn.nearest_neighbor_plain(src, tgt, mask)
+    assert ki.dtype == torch.int32 and torch.equal(ki, pi)
+    assert torch.equal(kd, pd) and torch.equal(kd2, pd)
+    assert torch.equal(kq, tgt[pi.long()])
+    return ki, kd
+
+
+@pytest.mark.parametrize("n,m,live", [(1, 1, 1.0), (2048, 16384, 0.05), (2048, 16384, 1.0),
+                                      (1000, 5001, 0.7), (130, 300, 0.5)])
+def test_nn_kernels_match_plain(cuda, n, m, live):
+    src, tgt, mask = _nn_case(np.random.default_rng(n + m), n, m, live, cuda)
+    mask[0] = 1.0
+    _assert_nn_equal(src, tgt, mask)
+
+
+def test_nn_kernels_ties_and_all_masked(cuda):
+    m = 16384
+    tgt = torch.full((m, 3), 90.0)
+    # rows 3 and 9000 tie at d2 = 5 in different row ranges: 3 wins; rows
+    # 12000 and 15000 tie at d2 = 2 for the second source: 12000 wins
+    for row, v in ((3, (1., 2., 0.)), (9000, (1., -2., 0.)), (5, (20., 3., 0.)),
+                   (12000, (21., 0., 1.)), (15000, (19., 0., -1.))):
+        tgt[row] = torch.tensor(v)
+    src = torch.tensor([[0.0, 0.0, 0.0], [20.0, 0.0, 0.0]])
+    ki, kd = _assert_nn_equal(src.to(cuda), tgt.to(cuda), torch.ones(m, device=cuda))
+    assert ki.tolist() == [3, 12000] and kd.tolist() == [5.0, 2.0]
+    ki, kd = _assert_nn_equal(src.to(cuda), tgt.to(cuda), torch.zeros(m, device=cuda))
+    assert ki.tolist() == [0, 0] and bool((kd == torch.tensor(1e30, device=cuda)).all())
+
+
+def test_nn_kernels_reject_what_they_do_not_take(cuda):
+    src, tgt, mask = _nn_case(np.random.default_rng(4), 64, 64, 1.0, cuda)
+    with pytest.raises(ValueError):
+        nn.nearest_neighbor(src.double(), tgt, mask)
+    with pytest.raises(ValueError):
+        nn.nearest_neighbor(src, tgt.t().contiguous().t(), mask)
+    with pytest.raises(ValueError):
+        nn.nearest_neighbor_with_coords(src, tgt, mask.cpu())
+    with pytest.raises(ValueError):
+        nn.nearest_neighbor_with_coords(src, tgt[:, :2].contiguous(), mask)
+
+
+# ---- the frozen-payload GN pass (vgicp_frozen_launch, K5) against its
+# plain version on a payload of the sweep kernel.
+from icp4dradar_tpu_torch.ops.vgicp_fused import (  # noqa: E402
+    vgicp_iteration_frozen,
+    vgicp_iteration_frozen_plain,
+)
+
+
+@pytest.mark.parametrize("B,N,P,count", [(1, 700, 2100, 2100), (8, 512, 5000, 900),
+                                         (2, 384, 500, 0)])
+def test_vgicp_frozen_kernel_matches_plain(cuda, B, N, P, count):
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _vgicp_case(
+        np.random.default_rng(B * N + P), B, N, P, count, cuda)
+    kw = dict(tgt_count=cnt, ts=128, return_best=True)
+    best = (vgicp_iteration_batch(T, src, sm, scov, tgt, tcov, tmask, **kw) if B > 1 else
+            vgicp_iteration(T[0], src[0], sm[0], scov[0], tgt, tcov, tmask, **kw))[5]
+    T1 = (se3_exp(torch.full((B, 6), 0.01)) @ T.cpu()).to(cuda).contiguous()
+    flat = (src.reshape(B * N, 3), sm.reshape(B * N), scov.reshape(B * N, 6), best)
+    before = vgicp_fused.VGICP_FROZEN_LAUNCHES
+    k = vgicp_iteration_frozen(T1 if B > 1 else T1[0], *flat, _acc_groups=B)
+    torch.cuda.synchronize()
+    assert vgicp_fused.VGICP_FROZEN_LAUNCHES == before + 1
+    p = vgicp_iteration_frozen_plain(T1 if B > 1 else T1[0], *flat, _acc_groups=B)
+    _assert_vgicp_close(k, p)
+    if count == 0:
+        assert float(k[3].abs().sum()) == 0.0
+
+
+def test_vgicp_frozen_kernel_rejects_what_it_does_not_take(cuda):
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _vgicp_case(
+        np.random.default_rng(5), 1, 64, 64, 64, cuda)
+    best = vgicp_iteration(T[0], src[0], sm[0], scov[0], tgt, tcov, tmask, ts=64,
+                           return_best=True)[5]
+    with pytest.raises(ValueError):
+        vgicp_iteration_frozen(T[0], src[0].double(), sm[0], scov[0], best)
+    with pytest.raises(ValueError):
+        vgicp_iteration_frozen(T[0], src[0], sm[0], scov[0], best.cpu())
+    with pytest.raises(ValueError):
+        vgicp_iteration_frozen(T[0], src[0, :32], sm[0, :32], scov[0, :32], best)

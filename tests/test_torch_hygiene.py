@@ -1,6 +1,7 @@
 """The port stands alone: no source of `icp4dradar_tpu_torch` (or
-`chip_smoke.py`) imports jax, flax or the JAX package, and running the whole
-slice leaves them out of sys.modules."""
+`chip_smoke.py`) imports jax, flax or the JAX package, and running its
+slices (scan-to-scan, the blocked VGICP tracker, the kNN-GICP tracker)
+leaves them out of sys.modules."""
 
 import pathlib
 import re
@@ -37,7 +38,7 @@ import icp4dradar_tpu_torch
 from icp4dradar_tpu_torch import (geom, interop, io, mapping, ops, preprocess,
                                   registration, utils)
 from icp4dradar_tpu_torch.registration import vgicp
-from icp4dradar_tpu_torch.models import (run_odometry, run_scan_to_scan,
+from icp4dradar_tpu_torch.models import (run_odometry, run_scan_to_scan, run_scan_to_map,
                                          run_scan_to_map_blocked, scan_to_map)
 from icp4dradar_tpu_torch.io import SyntheticSequence, stack_scans
 seq = SyntheticSequence(num_frames=3, max_points=64, num_landmarks=2000, seed=1)
@@ -51,6 +52,8 @@ cfg = icp4dradar_tpu_torch.PipelineConfig().override(
     **{"voxel_map.capacity": 1 << 12, "voxel_map.submap_max_points": 1 << 10})
 _, out = run_scan_to_map_blocked(scans, cfg, block=4, use_const_velocity_rot=True)
 assert torch.isfinite(out.world_T).all() and out.world_T.shape == (8, 4, 4)
+_, out = run_scan_to_map(scans[:4], cfg.override(**{"gicp.use_vgicp": False}))
+assert torch.isfinite(out.world_T).all() and out.world_T.shape == (4, 4, 4)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'icp4dradar_tpu'))
 print('LOADED', bad)

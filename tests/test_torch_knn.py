@@ -1,0 +1,200 @@
+"""Port nearest-neighbour parity on the CPU: the plain versions of the CUDA
+1-NN kernels against the Pallas kernels run in interpret mode (as
+tests/test_ops.py runs them), and the chunked k-NN against the JAX
+package's.
+
+Tolerances. 1-NN: equal indices, bit-equal d2 and equal coordinates (the
+plain version forms d2 with the same fused multiply-adds as XLA evaluates
+the Pallas body, and takes the smallest index among the exact minima).
+k-NN: the same index sets; d2 within 1e-5 relative plus 2e-7 of the
+largest |s|^2 + |t|^2 (both form |s|^2 - 2 s.t + |t|^2, whose terms cancel,
+and the two libraries' (256 x 3) x (3 x M) products may round differently:
+a few float32 ulps of the cancelling terms)."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# both packages' `ops` export a function `knn` that shadows the module
+jknn = importlib.import_module("icp4dradar_tpu.ops.knn")
+pknn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
+
+
+def _cloud(rng, n, scale=60.0):
+    return rng.uniform(-scale, scale, (n, 3)).astype(np.float32)
+
+
+def _pallas(src, tgt, mask, coords=False, **kw):
+    fn = jknn.nearest_neighbor_coords_pallas if coords else jknn.nearest_neighbor_pallas
+    out = fn(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask), interpret=True, **kw)
+    return tuple(np.asarray(x) for x in out)
+
+
+def _plain(src, tgt, mask, coords=False):
+    fn = pknn.nearest_neighbor_with_coords if coords else pknn.nearest_neighbor
+    return tuple(x.numpy() for x in fn(torch.tensor(src), torch.tensor(tgt),
+                                       torch.tensor(mask)))
+
+
+@pytest.mark.parametrize("n,m,live", [
+    (700, 5000, 0.7),      # three target tiles, ragged sources and targets
+    (64, 2048, 1.0),       # one full tile, no mask
+    (513, 4100, 0.05),     # sparse mask: most rows 1e30
+    (3, 1, 1.0),           # one target
+])
+def test_nearest_neighbor_matches_pallas(n, m, live):
+    rng = np.random.default_rng(n + m)
+    src, tgt = _cloud(rng, n), _cloud(rng, m)
+    mask = (rng.uniform(size=m) < live).astype(np.float32)
+    mask[rng.integers(m)] = 1.0
+    ji, jd = _pallas(src, tgt, mask)
+    pi, pd = _plain(src, tgt, mask)
+    assert pi.dtype == np.int32 and pd.dtype == np.float32
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_array_equal(pd, jd)
+    assert (mask[pi] > 0.5).all()
+
+
+def _tie_case():
+    """Source 0 at the origin: rows 3 and 700 (tile 0 of 2048 rows) and
+    row 2100 (tile 1) all lie at d2 = 5: row 3 wins. Source 1 at (20, 0,
+    0): tile 0's best is row 5 at d2 = 9; rows 2500 and 3000 of tile 1 at
+    d2 = 2 are strictly closer, and row 2500 wins."""
+    rng = np.random.default_rng(11)
+    tgt = (rng.uniform(60, 100, (4096, 3)) * rng.choice([-1.0, 1.0], (4096, 3)))
+    tgt = tgt.astype(np.float32)
+    tgt[3], tgt[700], tgt[2100] = (1, 2, 0), (1, -2, 0), (-1, 2, 0)
+    tgt[5], tgt[2500], tgt[3000] = (20, 3, 0), (21, 0, 1), (19, 0, -1)
+    src = np.asarray([[0, 0, 0], [20, 0, 0]], np.float32)
+    return src, tgt, np.ones(4096, np.float32)
+
+
+def test_exact_ties_within_and_across_tiles():
+    src, tgt, mask = _tie_case()
+    ji, jd = _pallas(src, tgt, mask)
+    pi, pd = _plain(src, tgt, mask)
+    np.testing.assert_array_equal(ji, [3, 2500])
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_array_equal(pd, [5.0, 2.0])
+    np.testing.assert_array_equal(pd, jd)
+    jd, jq = _pallas(src, tgt, mask, coords=True)
+    pd, pq = _plain(src, tgt, mask, coords=True)
+    np.testing.assert_array_equal(pq, [[1, 2, 0], [21, 0, 1]])
+    np.testing.assert_array_equal(pq, jq)
+    np.testing.assert_array_equal(pd, jd)
+
+
+def test_all_targets_masked():
+    rng = np.random.default_rng(5)
+    src, tgt = _cloud(rng, 300), _cloud(rng, 2500)
+    mask = np.zeros(2500, np.float32)
+    ji, jd = _pallas(src, tgt, mask)
+    pi, pd = _plain(src, tgt, mask)
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_array_equal(pd, jd)
+    assert (pi == 0).all() and (pd == np.float32(1e30)).all()
+
+
+@pytest.mark.parametrize("n,m", [(700, 5000), (100, 300)])
+def test_nearest_neighbor_with_coords_matches_pallas(n, m):
+    rng = np.random.default_rng(n * m)
+    src, tgt = _cloud(rng, n), _cloud(rng, m)
+    mask = (rng.uniform(size=m) > 0.3).astype(np.float32)
+    jd, jq = _pallas(src, tgt, mask, coords=True)
+    pd, pq = _plain(src, tgt, mask, coords=True)
+    np.testing.assert_array_equal(pd, jd)
+    np.testing.assert_array_equal(pq, jq)
+    pi, _ = _plain(src, tgt, mask)
+    np.testing.assert_array_equal(pq, tgt[pi])
+
+
+def test_fma_rounds_once():
+    """The plain version's float32 fused multiply-add is the correctly
+    rounded a * b + c, checked against exact rational arithmetic."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    a = (rng.normal(size=2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    b = (rng.normal(size=2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    c = (rng.normal(size=2000) * 10.0 ** rng.integers(-6, 7, 2000)).astype(np.float32)
+    got = pknn._fma(torch.tensor(a), torch.tensor(b), torch.tensor(c)).numpy()
+    for x, y, z, g in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        lo = np.float32(float(exact))
+        # the two float32 neighbours of the exact value; g must be the nearer
+        cands = {lo, np.nextafter(lo, np.float32(np.inf)), np.nextafter(lo, np.float32(-np.inf))}
+        errs = {v: abs(Fraction(float(v)) - exact) for v in cands}
+        best = min(errs.values())
+        assert errs[g] == best, (x, y, z, g)
+
+
+@pytest.mark.parametrize("n,m,k,live", [(600, 900, 5, 0.8), (300, 300, 5, 1.0),
+                                        (50, 40, 8, 0.1)])
+def test_knn_matches_jax(n, m, k, live):
+    rng = np.random.default_rng(n + m + k)
+    src, tgt = _cloud(rng, n, 30.0), _cloud(rng, m, 30.0)
+    mask = (rng.uniform(size=m) < live).astype(np.float32)
+    ji, jd = (np.asarray(x) for x in jknn.knn(jnp.asarray(src), jnp.asarray(tgt), k,
+                                             jnp.asarray(mask)))
+    pi, pd = (x.numpy() for x in pknn.knn(torch.tensor(src), torch.tensor(tgt), k,
+                                          torch.tensor(mask)))
+    assert pi.shape == ji.shape == (n, k) and pi.dtype == np.int32
+    valid = jd < 1e20
+    np.testing.assert_array_equal(pd < 1e20, valid)
+    for a, b, v in zip(pi, ji, valid):
+        assert set(a[v]) == set(b[v])
+    scale = (src * src).sum(-1).max() + (tgt * tgt).sum(-1).max()
+    np.testing.assert_allclose(pd[valid], jd[valid], rtol=1e-5, atol=2e-7 * scale)
+    assert (np.diff(pd, axis=1) >= 0).all()
+
+
+def test_knn_ties_take_the_lower_index_first():
+    tgt = np.asarray([[5, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [-1, 0, 0]],
+                     np.float32)
+    src = np.zeros((1, 3), np.float32)
+    pi, pd = pknn.knn(torch.tensor(src), torch.tensor(tgt), 3)
+    ji, jd = jknn.knn(jnp.asarray(src), jnp.asarray(tgt), 3)
+    np.testing.assert_array_equal(pi.numpy(), [[1, 2, 3]])
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
+
+
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    """On the CPU the wrappers run the plain versions only because their
+    tensors lie on the CPU; mixed devices raise, and so do bad shapes."""
+    rng = np.random.default_rng(2)
+    src, tgt = torch.tensor(_cloud(rng, 20)), torch.tensor(_cloud(rng, 30))
+    calls = []
+    monkeypatch.setattr(pknn, "_nn_cuda", lambda *a, **k: calls.append(1))
+    pknn.nearest_neighbor(src, tgt)
+    pknn.nearest_neighbor_with_coords(src, tgt)
+    assert calls == []
+    with pytest.raises(ValueError):
+        pknn.nearest_neighbor(src, tgt, torch.ones(30, device="meta"))
+    with pytest.raises(ValueError):
+        pknn.nearest_neighbor_with_coords(src, tgt[:, :2])
+    with pytest.raises(ValueError):
+        pknn.nearest_neighbor(src, tgt[:0])
+
+
+def test_k_smallest_is_the_stable_sort_prefix():
+    """The k-NN selection equals the first k columns of a stable sort (the
+    lower index first among equal values) on rows full of ties, with +inf
+    and 1e30 entries and k at the row length."""
+    g = torch.Generator().manual_seed(0)
+    for trial in range(100):
+        r = int(torch.randint(1, 30, (1,), generator=g))
+        m = int(torch.randint(5, 200, (1,), generator=g))
+        k = int(torch.randint(1, 6, (1,), generator=g))
+        d = torch.randint(0, 6, (r, m), generator=g).float()
+        d[d == 4] = np.inf
+        d[d == 5] = 1e30
+        if trial % 4 == 0:
+            k = m
+        want_d, want_i = torch.sort(d, dim=-1, stable=True)
+        got_i, got_d = pknn.k_smallest(d, k)
+        assert torch.equal(got_i, want_i[:, :k]), trial
+        assert torch.equal(got_d, want_d[:, :k]), trial

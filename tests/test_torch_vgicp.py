@@ -265,3 +265,149 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     assert calls == []
     with pytest.raises(ValueError):
         pv.vgicp_iteration(*args[:6], args[6].to("meta"))
+
+
+# ---- the frozen-payload GN pass (inner GN steps, K5). Same budget as the
+# sweep's sums: the per-point terms agree, the sums run in float64 here.
+
+def _frozen_both(T1, src, sm, scov, best, groups=1, **kw):
+    jo = jv.vgicp_iteration_frozen(*map(jnp.asarray, (T1, src, sm, scov, best)),
+                                   interpret=True, _acc_groups=groups, **kw)
+    po = pv.vgicp_iteration_frozen(*(torch.tensor(np.asarray(x))
+                                     for x in (T1, src, sm, scov, best)),
+                                   _acc_groups=groups, **kw)
+    return jo, po
+
+
+@pytest.mark.parametrize("n,P,count", [
+    (300, 2100, 2100),    # every source matched
+    (257, 700, 650),      # padded sources (ts=128)
+    (200, 500, 0),        # empty target: no source ever matched, all sums 0
+])
+def test_frozen_plain_matches_pallas_interpret(n, P, count):
+    T, src, sm, scov, tgt, tcov, tmask, count = _case(n + P + 1, n, P, count)
+    jo, _ = _both(T, src, sm, scov, tgt, tcov, tmask, count,
+                  max_correspondence_dist=4.0)
+    best = np.asarray(jo[5])
+    T1 = _pose([0.13, -0.17, 0.04, 0.015, 0.005, 0.09])      # a GN step later
+    jf, pf = _frozen_both(T1, src, sm, scov, best, max_correspondence_dist=4.0)
+    _assert_sums(jf, pf)
+    if count == 0:
+        assert float(pf[3]) == 0.0 and float(np.asarray(jf[3])) == 0.0
+    else:
+        assert float(pf[3]) > 0.5 * sm.sum()
+
+
+def test_frozen_batch_groups_and_never_matched_rows():
+    """B = 3 frames against one target, per-frame sums (`_acc_groups`).
+    Frame 1's payload rows are marked never matched (stale d2 1e30, as a
+    sweep against an empty submap leaves them): they add nothing, although
+    their fresh distances lie inside the gate."""
+    rng = np.random.default_rng(21)
+    B, N, P = 3, 256, 1500
+    src = rng.uniform(-20, 20, (B, N, 3)).astype(np.float32)
+    sm = (rng.uniform(size=(B, N)) > 0.2).astype(np.float32)
+    scov = np.asarray(jv.radar_point_covariances_packed(
+        jnp.asarray(src.reshape(-1, 3)))).reshape(B, N, 6)
+    tgt = rng.uniform(-20, 20, (P, 3)).astype(np.float32)
+    tcov, tmask = _covs(rng, P), np.ones(P, np.float32)
+    T = np.stack([_pose([0.1 * b, -0.2, 0.05, 0.02, 0.0, 0.1 * b]) for b in range(B)])
+    jo = jv.vgicp_iteration_batch(*map(jnp.asarray, (T, src, sm, scov, tgt, tcov, tmask)),
+                                  ts=128, interpret=True, return_best=True,
+                                  max_correspondence_dist=3.0)
+    best = np.asarray(jo[5]).copy()                     # (6, 10, 128): 2 blocks a frame
+    rows = pv.best_payload_to_rows(torch.tensor(best), B * N)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(
+        jv.best_payload_to_rows(jnp.asarray(best), B * N)))
+    T1 = np.stack([_pose([0.1 * b + 0.03, -0.18, 0.05, 0.02, 0.004, 0.1 * b - 0.01])
+                   for b in range(B)])
+    flat = (src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6))
+    _, matched = _frozen_both(T1, *flat, best, groups=B, max_correspondence_dist=3.0)
+    assert float(matched[3][1]) > 100.0
+    best[2:4, 0, :] = 1e30
+    jf, pf = _frozen_both(T1, *flat, best, groups=B, max_correspondence_dist=3.0)
+    _assert_sums(jf, pf)
+    assert pf[0].shape == (B, 6, 6)
+    for x, y in zip(pf, matched):
+        assert float(x[1].abs().sum()) == 0.0            # frame 1 never matched
+        torch.testing.assert_close(x[[0, 2]], y[[0, 2]], rtol=0, atol=0)
+    with pytest.raises(ValueError):                     # payload of other sources
+        pv.vgicp_iteration_frozen(torch.tensor(T1[0]), torch.tensor(src[0, :100]),
+                                  torch.tensor(sm[0, :100]), torch.tensor(scov[0, :100]),
+                                  torch.tensor(best))
+
+
+def _reference_inner_align(src, tgt, tcov, sm, tmask, scov, init, cfg):
+    """The JAX package's TPU body of vgicp_align with inner GN steps
+    (vgicp.py:74-124), run from its own functions with interpret=True (its
+    CPU path forces inner = 0)."""
+    from icp4dradar_tpu.geom.linalg import solve_spd6
+
+    kw = dict(max_correspondence_dist=cfg.max_correspondence_dist, cov_eps=cfg.cov_epsilon)
+    center = init[:3, 3].copy()
+    T = jnp.asarray(init).at[:3, 3].set(0.0)
+    tgt_c = jnp.asarray(tgt - center[None])
+    src, sm, scov = map(jnp.asarray, (src, sm, scov))
+
+    def update(T, H, g):
+        xi = solve_spd6(H + cfg.lm_lambda * jnp.eye(6), -g)
+        xi = jnp.where(jnp.isfinite(xi), xi, 0.0)
+        return j_se3_exp(xi) @ T, float(jnp.sum(jnp.abs(xi)))
+
+    it, delta = 0, np.inf
+    while it < cfg.max_iterations and delta > cfg.vgicp_transformation_epsilon:
+        H, g, _, wsum, d2sum, best = jv.vgicp_iteration(
+            T, src, sm, scov, tgt_c, jnp.asarray(tcov), jnp.asarray(tmask),
+            interpret=True, return_best=True, **kw)
+        T, delta = update(T, H, g)
+        it += 1
+        for _ in range(cfg.inner_gn_steps):
+            H, g, _, wsum, d2sum = jv.vgicp_iteration_frozen(T, src, sm, scov, best,
+                                                             interpret=True, **kw)
+            T, dlt = update(T, H, g)
+            delta += dlt
+            it += 1
+    T = np.asarray(T).copy()
+    T[:3, 3] += center
+    return T, it, float(d2sum) / max(float(wsum), 1.0)
+
+
+@pytest.mark.parametrize("max_iterations", [15, 3])
+def test_vgicp_align_inner_steps_match_reference(max_iterations):
+    """One sweep then one frozen step per GN body; every step counts, and
+    the cap is checked only at the top (3 -> 4 iterations)."""
+    world, tcov, scans, poses = _scene(0)
+    src = scans[0]
+    sm = np.ones(src.shape[0], np.float32)
+    tmask = np.ones(world.shape[0], np.float32)
+    scov = np.asarray(jv.radar_point_covariances_packed(jnp.asarray(src)))
+    init = _pose([0.35, 0.2, 0.0, 0.0, 0.0, 0.01])
+    cfg = GicpConfig(max_iterations=max_iterations, inner_gn_steps=1)
+    T, it, fit = _reference_inner_align(src, world, tcov, sm, tmask, scov, init, cfg)
+    pr = preg.vgicp_align(torch.tensor(src), torch.tensor(world), torch.tensor(tcov),
+                          torch.tensor(sm), torch.tensor(tmask), torch.tensor(scov),
+                          init_transform=torch.tensor(init), cfg=cfg)
+    _assert_pose(pr.transform, T)
+    assert int(pr.iterations) == it and it % 2 == 0
+    np.testing.assert_allclose(float(pr.fitness), fit, rtol=1e-3, atol=1e-5)
+    if max_iterations == 3:
+        assert it == 4
+    else:
+        np.testing.assert_allclose(pr.transform.numpy()[:3, 3], poses[0, :3, 3], atol=1e-2)
+
+
+def test_vgicp_align_block_ignores_inner_steps():
+    """Blocks run no inner steps, as in the JAX package: the knob changes
+    nothing there (it used to raise)."""
+    B = 2
+    world, tcov, scans, poses = _scene(1, B=B)
+    N = scans.shape[1]
+    sm = np.ones((B, N), np.float32)
+    scov = pv.radar_point_covariances_packed(torch.tensor(scans))
+    args = [torch.tensor(x) for x in (scans, world, tcov, sm, np.ones(len(world), np.float32))]
+    init = torch.tensor(poses)
+    r0, w0 = preg.vgicp_align_block(*args, scov, init, cfg=GicpConfig(max_iterations=15))
+    r1, w1 = preg.vgicp_align_block(*args, scov, init,
+                                    cfg=GicpConfig(max_iterations=15, inner_gn_steps=1))
+    torch.testing.assert_close(r1.transform, r0.transform, rtol=0, atol=0)
+    assert torch.equal(r1.iterations, r0.iterations) and torch.equal(w1, w0)

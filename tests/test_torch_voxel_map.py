@@ -162,3 +162,71 @@ def test_map_round_trips_through_numpy():
         voxel_map_from_numpy({"keys": np.zeros((4, 3), np.int32)}, device="cpu")
     with pytest.raises(ValueError):
         pvh.voxel_map_create(capacity=300, device="cpu")
+
+
+def _knn_map(seed=12):
+    """A small map of a ground-like slab, and queries on and off it."""
+    rng = np.random.default_rng(seed)
+    jmap = jvh.voxel_map_create(capacity=1 << 12, voxel_size=0.5)
+    for k in range(2):
+        pts, mask, inten = _batch(rng, B, 8.0, center=(k * 1.5, 0.0, 0.0))
+        pts[:, 2] *= 0.2
+        jmap = _jinsert(jmap, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(inten))
+    queries = rng.uniform(-10, 10, (300, 3)).astype(np.float32)
+    queries[:, 2] *= 0.3
+    queries[:20] = 0.0                     # padded submap rows sit at the origin
+    return jmap, _to_port(jmap), queries
+
+
+def test_stencil_neighbors_and_lookup_match_jax():
+    jmap, pmap, q = _knn_map()
+    want = jvh.voxel_map_stencil_neighbors(jmap, jnp.asarray(q), 1)
+    got = pvh.voxel_map_stencil_neighbors(pmap, torch.tensor(q), 1)
+    assert got[0].shape == (300, 27, 3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    coords = np.asarray(jvh._voxel_coords(jnp.asarray(q), 0.5))
+    ws, wf = jvh.voxel_map_lookup_slots(jmap, jnp.asarray(coords))
+    gs, gf = pvh.voxel_map_lookup_slots(pmap, torch.tensor(coords))
+    np.testing.assert_array_equal(gf.numpy(), np.asarray(wf))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    assert gf.any() and not gf.all()
+
+
+def _assert_same_knn(got, want):
+    """Equal distances where finite (1e-6 relative: the JAX sum of squares
+    may contract into FMAs), the same points there, +inf elsewhere."""
+    gd, gp = (x.numpy() for x in got)
+    wd, wp = (np.asarray(x) for x in want)
+    fin = np.isfinite(wd)
+    np.testing.assert_array_equal(np.isfinite(gd), fin)
+    np.testing.assert_allclose(gd[fin], wd[fin], rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(gp[fin], wp[fin])
+    return fin
+
+
+@pytest.mark.parametrize("k,radius,max_dist", [(5, 1, np.inf), (5, 1, 0.6), (8, 2, 1.2)])
+def test_voxel_map_knn_matches_jax(k, radius, max_dist):
+    jmap, pmap, q = _knn_map()
+    want = jvh.voxel_map_knn(jmap, jnp.asarray(q), k, stencil_radius=radius,
+                             max_dist=max_dist)
+    fin = _assert_same_knn(pvh.voxel_map_knn(pmap, torch.tensor(q), k, radius, max_dist),
+                           want)
+    assert fin.any() and not fin.all()
+
+
+@pytest.mark.parametrize("k,max_dist,chunk", [(5, 2.0, 256), (5, 1.0, 64), (3, 2.0, 1000)])
+def test_voxel_map_knn_exact_matches_jax(k, max_dist, chunk):
+    jmap, pmap, q = _knn_map()
+    want = jvh.voxel_map_knn_exact(jmap, jnp.asarray(q), k, max_dist=max_dist, chunk=chunk)
+    got = pvh.voxel_map_knn_exact(pmap, torch.tensor(q), k, max_dist=max_dist, chunk=chunk)
+    fin = _assert_same_knn(got, want)
+    assert fin.any() and not fin.all()
+    # exact: no neighbour within max_dist is missed (numpy brute force)
+    stored = voxel_map_to_numpy(pmap)
+    pts = stored["points"][stored["occupied"] > 0.5]
+    d2 = ((q[:, None, :] - pts[None]) ** 2).sum(-1)
+    d2 = np.sort(np.where(d2 < max_dist * max_dist, d2, np.inf), axis=1)[:, :k]
+    np.testing.assert_allclose(got[0].numpy(), d2, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        pvh.voxel_map_knn_exact(pmap, torch.tensor(q), k, max_dist=np.inf)
