@@ -9,22 +9,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 1. device  — requires CUDA; prints torch/CUDA versions and the card's name
              and power limit (nvidia-smi).
 2. build   — compiles csrc/*.cu with nvcc (sm_90a) and prints the seconds
-             and the ptxas resource report.
+             and the ptxas resource report per kernel (registers, shared
+             memory, spills).
 3. kernel  — the ICP-moments kernel against its plain PyTorch version on the
-             card: 8 bench pairs (2048 x 2048) under random poses, a ragged
-             case with random masks and fully masked pairs, exact ties, and
-             the full bench batch (1024 pairs); tolerance rtol 1e-4 /
-             atol 1e-3 on every moment. Times both at 1024 x 2048 x 2048
-             (one ICP iteration; CUDA events, median of 10, in
-             turns plain / kernel / kernel / plain).
+             card: 8 bench pairs (2048 x 2048) under random poses, the same
+             pairs with two marked inactive (zero rows, the active rows
+             identical to the call without the mask), a ragged case with
+             random masks, a pair whose targets are all masked and one
+             with no valid source, exact ties (two, and four in one pair
+             across the kernel's chunks), and the full bench batch (1024
+             pairs; clouds prepared once against the per-call path);
+             tolerance rtol 1e-4 / atol 1e-3 on every moment. Times both at
+             1024 x 2048 x 2048 (one ICP iteration on prepared clouds; CUDA
+             events, median of 10, in turns plain / kernel / kernel /
+             plain) and prints the share of the FP32 bound and of the
+             slot floor (9 slots a pair at 1.98 GHz on 132 SMs x 128
+             lanes) it reaches, over all pairs and over the live pairs.
 4. slice   — the bench sequence of `bench.py` (1024 frames x 2048 points,
              5000 landmarks, seed 0) through
              run_scan_to_scan(use_doppler_prior=True): warm-up, then one
              timed run with the kernel launch count reset just before and
              read just after (launches must equal ICP iterations + 1). Fails
              on non-finite outputs, on any rejected frame, or on an ATE
-             (align=False) outside 1.976 +- 0.05 m. Also checks that the CUDA
-             path agrees with the CPU path on a 16-frame x 256-point input.
+             (align=False) outside 1.976 +- 0.05 m. Prints the pairs still
+             active at each ICP iteration (the kernel sweeps only those).
+             Also checks that the CUDA path agrees with the CPU path on a
+             16-frame x 256-point input.
 5. s2m     — the scan-to-map bench cell of `bench.py` (the first 256 frames
              of the same sequence) through run_scan_to_map_blocked(block=8,
              use_const_velocity_rot=True): warm-up, then one timed run with
@@ -40,10 +50,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              the card: the bench block (8 frames x 2048 points against a
              real 16,384-row submap of the warm map of phase 5), a fully
              live 16,384-row submap, a ragged masked case, exact ties within
-             and across target tiles, and an empty submap; tolerance rtol
-             1e-5 / atol 1e-4 on every output. Times both at the bench block
-             (CUDA events, median of 10, in turns plain / kernel / kernel /
-             plain), and the kernel's launch alone on inputs packed once.
+             and across target tiles, three-way ties across the kernel's row
+             ranges with masked rows between them, and an empty submap;
+             tolerance rtol 1e-5 / atol 1e-4 on every output; the operands
+             prepared once against the per-call path (equal). Times at the
+             bench block (CUDA events, median of 10, in turns): the plain
+             version, the per-call wrapper (packing included), the call the
+             GN loop makes on prepared operands, and the launch alone.
 7. gicp    — the kNN-GICP tracker: the first 64 frames of the bench
              sequence through run_scan_to_map(gicp.use_vgicp=False,
              use_const_velocity_rot=True): warm-up, then one timed run with
@@ -63,7 +76,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              fully live 16,384-row submap, a ragged masked case, exact ties
              within and across row ranges, and all targets masked; indices,
              distances and coordinates must be equal. Times both at the path
-             shape (CUDA events, in turns plain / kernel / kernel / plain).
+             shape (CUDA events, in turns plain / kernel / kernel / plain),
+             and the search's two launches alone on buffers made once.
 9. inner   — the per-frame VGICP tracker on the same 64 frames, with
              gicp.inner_gn_steps 0 and then 1 (warm-up, then one timed run
              each, counts reset before it): ATE within 0.0252 +- 0.01 m
@@ -74,10 +88,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              card, on real sweep payloads of phase 9's map (one frame, and
              8 frames in per-frame groups) under perturbed transforms, with
              rows marked never matched and an empty payload; tolerance rtol
-             1e-5 / atol 1e-4. Times both at one 2048-point frame.
+             1e-5 / atol 1e-4. Times both at one 2048-point frame, the call
+             on prepared sources and the launch alone.
 11. profile — one torch.profiler run of each tracker: device kernel time,
              kernel launches, the top kernels, and the device's idle share
-             against the unprofiled run time.
+             against the unprofiled run time. Then the host synchronisations
+             (stream / device synchronise calls and host-to-device copies)
+             per K4 and K5 call on prepared operands, which must be none,
+             and per K4 call of the per-call wrapper.
 
 The kernels' bounds come from the shapes and this run's data (bytes over
 3.35 TB/s, FP32 operations over 67 TFLOP/s, the H100 SXM data sheet). The
@@ -87,6 +105,7 @@ card's name and power limit; the last line is
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -122,6 +141,9 @@ FROZEN_FLOPS_PER_SOURCE = 320  # p = R s + t, the fresh distance, the GN epilogu
 # NVIDIA's H100 SXM data sheet: HBM rate and FP32 peak (at 700 W)
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
 ICP_FLOPS_PER_PAIR = 9       # 3 sub, 3 mul, 3 add (the compare not counted)
+# the slot floor: FP32 ops that may not contract take a slot each;
+# 132 SMs x 128 FP32 lanes at the H100 SXM's 1.98 GHz boost clock
+SLOTS_PER_S = 132 * 128 * 1.98e9
 VGICP_FLOPS_PER_PAIR = 9
 VGICP_FLOPS_PER_SOURCE = 300  # p = R s + t and the GN epilogue, about
 
@@ -159,9 +181,15 @@ def phase_build():
     path = _build.build_library()
     _build.load_library()
     log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
+    # ptxas: "Function properties for <mangled name>", then its spill line
+    # and its "Used N registers, ... smem" line
+    name = None
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
+        if "Function properties for" in line:
+            m = re.search(r"([a-z][a-z_]*_kernel)", line)
+            name = m.group(1) if m else line.split()[-1]
+        elif name and ("spill" in line or "registers" in line):
+            log(f"[build] ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
 
 def compare(name, kern, plain):
@@ -197,20 +225,42 @@ def time_cuda(torch, fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def kernel_device_ms(torch, fn, keys, calls=20):
+    """Device time per call of fn spent in the kernels whose names hold one
+    of `keys`, from a torch.profiler trace of `calls` calls (None when the
+    profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == cuda and any(k in e.key for k in keys))
+    return us / 1e3 / calls if us > 0 else None
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def phase_kernel(torch, scans):
     from icp4dradar_tpu_torch.geom import se3_exp
     from icp4dradar_tpu_torch.ops.icp_fused import (
-        icp_iteration_moments, icp_iteration_moments_plain,
+        icp_iteration_moments, icp_iteration_moments_plain, icp_moments, icp_prepare,
     )
 
     dev = scans.xyz.device
     rng = np.random.default_rng(0)
     max_err = 0.0
 
-    def both(name, T, src, sm, tgt, tm):
-        k = icp_iteration_moments(T, src, sm, tgt, tm)
+    def both(name, T, src, sm, tgt, tm, active=None):
+        k = icp_iteration_moments(T, src, sm, tgt, tm, active=active)
         torch.cuda.synchronize()
-        p = icp_iteration_moments_plain(T, src, sm, tgt, tm)
+        p = icp_iteration_moments_plain(T, src, sm, tgt, tm, active=active)
         return compare(name, k, p), k
 
     # 8 bench pairs (frame k onto k-1) under random poses
@@ -218,10 +268,16 @@ def phase_kernel(torch, scans):
     T = se3_exp(torch.from_numpy(xi).to(dev)).contiguous()
     src, sm = scans.xyz[1:9].contiguous(), scans.mask[1:9].contiguous()
     tgt, tm = scans.xyz[0:8].contiguous(), scans.mask[0:8].contiguous()
-    max_err = max(max_err, both("bench B=8 2048x2048", T, src, sm, tgt, tm)[0])
+    err, k8 = both("bench B=8 2048x2048", T, src, sm, tgt, tm)
+    max_err = max(max_err, err)
+    # pairs 2 and 5 inactive: zero rows, the others identical
+    active = torch.tensor([True, True, False, True, True, False, True, True], device=dev)
+    _, ka = both("bench B=8, pairs 2 and 5 inactive", T, src, sm, tgt, tm, active)
+    if not (torch.equal(ka[active], k8[active]) and float(ka[~active].abs().max()) == 0.0):
+        raise RuntimeError("[kernel] inactive pairs: rows not zero, or active rows changed")
 
-    # ragged: N=1000, M=1234, random masks; pair 2 has no valid target,
-    # pair 3 no valid source
+    # ragged: N=1000, M=1234, random masks; pair 2 has all its targets
+    # masked, pair 3 no valid source
     B, N, M = 4, 1000, 1234
     src = torch.from_numpy(rng.normal(0, 20, (B, N, 3)).astype(np.float32)).to(dev)
     tgt = torch.from_numpy(rng.normal(0, 20, (B, M, 3)).astype(np.float32)).to(dev)
@@ -231,7 +287,10 @@ def phase_kernel(torch, scans):
     sm[3] = 0.0
     xi = rng.normal(0.0, [1.0, 1.0, 0.2, 0.02, 0.02, 0.1], (B, 6)).astype(np.float32)
     T = se3_exp(torch.from_numpy(xi).to(dev)).contiguous()
-    both("ragged B=4 1000x1234 masked", T, src, sm, tgt, tm)
+    _, k = both("ragged B=4 1000x1234 masked, pair 2 all targets masked", T, src, sm, tgt, tm)
+    if float(k[2, 0]) != 0.0 or float(k[2, 17]) < 1e29 * float(sm[2].sum()):
+        raise RuntimeError(f"[kernel] all-masked pair: sw {float(k[2, 0])}, "
+                           f"s(mask*dmin) {float(k[2, 17])}")
 
     # exact ties: two targets at d2 = 5 from the source average to (1, 0, 0)
     src = torch.zeros((1, 1, 3), device=dev)
@@ -243,32 +302,68 @@ def phase_kernel(torch, scans):
     if not torch.allclose(k[0, 4:7], want, atol=1e-6) or abs(k[0, 16].item() - 5.0) > 5e-6:
         raise RuntimeError(f"[kernel] exact tie: swq {k[0, 4:7].tolist()} "
                            f"swd2 {k[0, 16].item()}, expected [1, 0, 0] and 5")
+    # four targets at d2 = 5 from source 0 (rows 1 and 40 in the kernel's
+    # first 64-row chunk, 900 and 2000 chunks later, masked rows between),
+    # two at d2 = 5 from source 1 in different chunks only
+    tgt = torch.full((1, 2048, 3), 60.0, device=dev)
+    for row, v in ((1, (2., 1., 0.)), (40, (1., 2., 0.)), (900, (-2., 1., 0.)),
+                   (2000, (0., -1., 2.)), (100, (32., 1., 0.)), (1500, (31., 2., 0.))):
+        tgt[0, row] = torch.tensor(v, device=dev)
+    tm = torch.ones((1, 2048), device=dev)
+    tm[0, 500:700] = 0.0
+    src = torch.tensor([[[0.0, 0.0, 0.0], [30.0, 0.0, 0.0]]], device=dev)
+    _, k = both("four- and two-way ties across chunks", torch.eye(4, device=dev)[None], src,
+                torch.ones((1, 2), device=dev), tgt, tm)
+    if k[0, 4:7].tolist() != [31.75, 2.25, 0.5] or k[0, 16].item() != 10.0:
+        raise RuntimeError(f"[kernel] ties across chunks: swq {k[0, 4:7].tolist()} swd2 "
+                           f"{k[0, 16].item()}, expected [31.75, 2.25, 0.5] and 10")
 
-    # the full bench batch: one ICP iteration of the main path
+    # the full bench batch: one ICP iteration of the main path, on clouds
+    # prepared once (as the ICP loop prepares them) and per call
     src, sm = scans.xyz, scans.mask
     tgt = torch.cat([scans.xyz[:1], scans.xyz[:-1]]).contiguous()
     tm = torch.cat([scans.mask[:1], scans.mask[:-1]]).contiguous()
     T = torch.eye(4, device=dev).expand(src.shape[0], 4, 4).contiguous()
     max_err = max(max_err, both(f"bench B={src.shape[0]} 2048x2048",
                                 T, src, sm, tgt, tm)[0])
+    ops = icp_prepare(src, sm, tgt, tm)
+    if not torch.equal(icp_moments(T, ops), icp_iteration_moments(T, src, sm, tgt, tm)):
+        raise RuntimeError("[kernel] prepared clouds and the per-call path differ")
+
     # in turns, plain / kernel / kernel / plain; each a median of 10
     def kernel():
+        return icp_moments(T, ops)
+
+    def per_call():
         return icp_iteration_moments(T, src, sm, tgt, tm)
 
     def plain():
         return icp_iteration_moments_plain(T, src, sm, tgt, tm)
 
     p1, k1, k2, p2 = (time_cuda(torch, f) for f in (plain, kernel, kernel, plain))
+    pc = time_cuda(torch, per_call)
+    dev_ms = kernel_device_ms(torch, kernel, ("icp_moments_kernel",), calls=10)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     B, N, M = src.shape[0], src.shape[1], tgt.shape[1]
     pairs = B * N * M
-    # each input read once (T, xyz and masks of both clouds), (B, 19) out
-    bound_ms, bound_by = roofline(4 * (16 * B + 4 * B * N + 4 * B * M + 19 * B),
-                                  ICP_FLOPS_PER_PAIR * pairs)
-    log(f"[kernel] time at B={B} x {N} x {M}: "
-        f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; "
-        f"kernel {pairs / (ms * 1e-3) / 1e9:.1f} G point pairs/s; bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
+    _, src_live, _, tgt_live = ops.packed
+    live = int((src_live.long() * tgt_live.long()).sum().item())
+    # each input read once (T, xyz and masks of both clouds), (B, 19) out;
+    # the work is the live pairs, which are all the kernel sweeps
+    nbytes = 4 * (16 * B + 4 * B * N + 4 * B * M + 19 * B)
+    bound_ms, bound_by = roofline(nbytes, ICP_FLOPS_PER_PAIR * live)
+    all_ms, _ = roofline(nbytes, ICP_FLOPS_PER_PAIR * pairs)
+    slots_ms = ICP_FLOPS_PER_PAIR * live / SLOTS_PER_S * 1e3
+    slots_all_ms = ICP_FLOPS_PER_PAIR * pairs / SLOTS_PER_S * 1e3
+    log(f"[kernel] time at B={B} x {N} x {M}: kernel {k1:.4f} / {k2:.4f} ms on prepared "
+        f"clouds (device time of the kernel alone {fmt_ms(dev_ms)}, profiler; "
+        f"{pc:.4f} ms per call with the packing), plain {p1:.3f} / {p2:.3f} ms; "
+        f"live pairs {live} of {pairs} ({live / pairs:.3f}); kernel "
+        f"{pairs / (ms * 1e-3) / 1e9:.1f} G point pairs/s over all pairs")
+    log(f"[kernel] bounds: FP32 {bound_ms:.4f} ms live pairs ({bound_by}; {all_ms:.4f} ms all "
+        f"pairs), slot floor {slots_ms:.4f} ms live ({slots_all_ms:.4f} ms all); the "
+        f"kernel at {bound_ms / ms:.3f} / {all_ms / ms:.3f} of the FP32 bound and "
+        f"{slots_ms / ms:.3f} / {slots_all_ms / ms:.3f} of the slot floor (live / all)")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -310,6 +405,13 @@ def phase_slice(torch, seq, scans):
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[slice] icp_moments launches {launches}, ICP iterations {iters} "
         f"(per-pair mean {out.iterations.float().mean().item():.2f})")
+    # a pair stays active until it converges: iteration k sweeps the pairs
+    # with more than k iterations, the final fitness pass every pair
+    its = out.iterations.cpu()
+    n_pairs = its.shape[0]
+    counts = [int((its > k).sum()) for k in range(iters)] + [n_pairs]
+    log(f"[slice] pairs swept per launch: {counts} ({sum(counts)} of "
+        f"{n_pairs * len(counts)})")
     if launches <= 0 or launches != iters + 1:
         raise RuntimeError(f"[slice] launch count {launches} != ICP "
                            f"iterations {iters} + 1")
@@ -442,7 +544,7 @@ def phase_s2m(torch, seq, scans):
 
 def phase_vgicp(torch, state, out, s2m):
     from icp4dradar_tpu_torch.config import PipelineConfig
-    from icp4dradar_tpu_torch.geom import matrix_to_rpy
+    from icp4dradar_tpu_torch.geom import matrix_to_rpy, se3_exp
     from icp4dradar_tpu_torch.mapping import voxel_map_sector_search_with_stats
     from icp4dradar_tpu_torch.models.scan_to_map import (
         _sort_scans_by_sensor_x, _sort_submap_by_axis,
@@ -555,6 +657,26 @@ def phase_vgicp(torch, state, out, s2m):
             best[:4, 1].tolist() != [2.0, 20.0, 0.0, 0.0]:
         raise RuntimeError(f"[vgicp] exact ties: payloads {best[:4, :2].T.tolist()}")
 
+    # three rows of one 1024-row tile at d2 = 5 from source 0, in three of
+    # the kernel's eight row ranges with 200 masked rows before the second,
+    # average in row order (dyadic covariances: every order sums alike)
+    tt = torch.full((1024, 3), 90.0, device=dev)
+    for row, v in ((3, (2., 1., 0.)), (400, (1., 2., 0.)), (1000, (-2., 1., 0.))):
+        tt[row] = torch.tensor(v, device=dev)
+    tcov = torch.zeros((1024, 6), device=dev)
+    tcov[:, :3] = torch.arange(1024, dtype=torch.float32, device=dev)[:, None] / 64.0
+    tmask3 = torch.ones(1024, device=dev)
+    tmask3[100:300] = 0.0
+    _, k = both("three-way ties across row ranges", torch.eye(4, device=dev), tsrc,
+                torch.ones(2, device=dev), radar_point_covariances_packed(tsrc), tt, tcov,
+                tmask3, ts=8)
+    three = np.float32(3.0)
+    want = [5.0, float(np.float32(1.0) / three), float(np.float32(4.0) / three), 0.0,
+            float(np.float32(1403 / 64.0) / three)]
+    if k[5][0, :5, 0].tolist() != want:
+        raise RuntimeError(f"[vgicp] three-way ties: payload {k[5][0, :5, 0].tolist()}, "
+                           f"expected {want}")
+
     # an empty submap: nothing matches, every sum is zero
     _, k = both("empty submap", Tc, src, sm, scov, tgt, sub_cov.contiguous(),
                 torch.zeros(P, device=dev), batch=True,
@@ -562,43 +684,58 @@ def phase_vgicp(torch, state, out, s2m):
     if float(k[3].abs().sum()) != 0.0:
         raise RuntimeError("[vgicp] empty submap matched something")
 
+    # operands prepared once, as the GN loop prepares them, against the
+    # per-call path at two transforms: equal
+    kw = dict(max_correspondence_dist=g.max_correspondence_dist, cov_eps=g.cov_epsilon)
+    ops = vf.vgicp_prepare(*bench[1:], tgt_count=sub_n, gate_axis=axis2)
+    for step in (0.0, 0.02):
+        Ts = (se3_exp(torch.full((B, 6), step, device=dev)) @ Tc).contiguous()
+        a = vf.vgicp_sweep(Ts, ops, return_best=True, _acc_groups=B, **kw)
+        b = vgicp_iteration_batch(Ts, *bench[1:], tgt_count=sub_n, gate_axis=axis2,
+                                  return_best=True, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"[vgicp] prepared operands and the per-call path differ "
+                               f"(step {step})")
+    log("[vgicp] prepared operands: equal to the per-call path at two transforms")
+
     # time the bench block in turns; 20 calls per event window (one call
     # is a few microseconds of device work, below the events' resolution)
-    kw = dict(max_correspondence_dist=g.max_correspondence_dist, cov_eps=g.cov_epsilon,
-              tgt_count=sub_n, gate_axis=axis2)
     flat = (Tc, src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6)) + bench[4:]
     calls = 20
-
-    def kernel():
-        for _ in range(calls):
-            vgicp_iteration_batch(*bench, **kw)
-
-    def plain():
-        for _ in range(calls):
-            vgicp_iteration_plain(*flat, _acc_groups=B, ts=min(2048, src.shape[1]), **kw)
-
-    p1, k1, k2, p2 = (time_cuda(torch, f) / calls for f in (plain, kernel, kernel, plain))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-
-    # the kernel alone: launches on buffers packed once, without the
-    # wrapper's packing, per-frame sum and unpack
-    Tk, srcp, tgt10, cnt, ts, Bk, Nf = vf._prepare(*flat, min(2048, src.shape[1]),
-                                                    sub_n, axis2)
+    gate, eps = vf.sweep_gate(g.max_correspondence_dist), float(np.float32(g.cov_epsilon))
     lib = vf._lib()
-    part = torch.empty((Bk, -(-Nf // lib.vgicp_sweep_threads()), vf.NUM_ACC),
-                       dtype=torch.float64, device=dev)
-    launch_args = (Tk.data_ptr(), srcp.data_ptr(), tgt10.data_ptr(), cnt.data_ptr(), Bk, Nf,
-                   0, P, vf.target_tile_rows(P), ts, vf.sweep_gate(g.max_correspondence_dist),
-                   float(np.float32(g.cov_epsilon)), part.data_ptr(), None,
+    part = torch.empty((B, -(-ops.per_frame // lib.vgicp_sweep_sources_per_block()),
+                        vf.NUM_ACC), dtype=torch.float64, device=dev)
+    launch_args = (Tc.data_ptr(), ops.src.data_ptr(), ops.tgt.data_ptr(), ops.tgt_cov.data_ptr(),
+                   ops.tile_live.data_ptr(), ops.count.data_ptr(), B, ops.per_frame, 0,
+                   ops.tgt.shape[0], ops.tm, ops.ts, gate, eps, part.data_ptr(), None,
                    torch.cuda.current_stream().cuda_stream)
 
+    def per_call():
+        for _ in range(calls):
+            vgicp_iteration_batch(*bench, tgt_count=sub_n, gate_axis=axis2, **kw)
+
+    def prepared():
+        for _ in range(calls):
+            vf.vgicp_sweep(Tc, ops, _acc_groups=B, **kw)
+
     def launch_only():
+        # the kernel alone, on arguments made once: no allocation, no
+        # Python around it
         for _ in range(calls):
             rc = lib.vgicp_sweep_launch(*launch_args)
             if rc != 0:
                 raise RuntimeError(f"[vgicp] launch failed: CUDA error {rc}")
 
-    alone = time_cuda(torch, launch_only) / calls
+    def plain():
+        for _ in range(calls):
+            vgicp_iteration_plain(*flat, _acc_groups=B, ts=min(2048, src.shape[1]),
+                                  tgt_count=sub_n, gate_axis=axis2, **kw)
+
+    order = (plain, per_call, prepared, launch_only, launch_only, prepared, per_call, plain)
+    p1, w1, c1, l1, l2, c2, w2, p2 = (time_cuda(torch, f) / calls for f in order)
+    dev_ms = kernel_device_ms(torch, prepared, ("vgicp_sweep_kernel",))
+    ms, plain_ms = (c1 + c2) / 2, (p1 + p2) / 2
     N = src.shape[1]
     live_rows = min(P, count)
     # inputs read once: T, the sources (xyz, mask, cov6), the live target
@@ -606,11 +743,13 @@ def phase_vgicp(torch, state, out, s2m):
     nbytes = 4 * (16 * B + 10 * B * N + 10 * live_rows + 1 + 30 * B)
     flops = VGICP_FLOPS_PER_PAIR * B * N * live_rows + VGICP_FLOPS_PER_SOURCE * B * N
     bound_ms, bound_by = roofline(nbytes, flops)
-    log(f"[vgicp] time at B={B} x {N} x {P} rows ({count} live), per call of the "
-        f"wrapper: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; the "
-        f"kernel alone {alone:.4f} ms per launch; bound {bound_ms:.5f} ms ({bound_by})")
+    log(f"[vgicp] time at B={B} x {N} x {P} rows ({count} live): the call on prepared "
+        f"operands {c1:.4f} / {c2:.4f} ms, the launch alone {l1:.4f} / {l2:.4f} ms (device "
+        f"time {fmt_ms(None if dev_ms is None else dev_ms / calls)} a launch, profiler), the "
+        f"per-call wrapper (packing included) {w1:.4f} / {w2:.4f} ms, plain {p1:.4f} / "
+        f"{p2:.4f} ms; bound {bound_ms:.5f} ms ({bound_by})")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None), (Tc, ops, bench, sub_n, axis2)
 
 
 def _lost(out):
@@ -839,9 +978,30 @@ def phase_knn(torch, state, out, track):
         for _ in range(calls):
             torch.cdist(src, submap[:live]).min(dim=1)
 
-    p1, k1, c1, c2, k2, p2 = (time_cuda(torch, f) / calls for f in
-                              (plain, kernel, kernel_coords, kernel_coords, kernel, plain))
+    # the search's split and merge launches alone, on buffers made once
+    # (the wrapper's own split of the rows)
+    lib = nn._lib()
+    nblk = -(-N // lib.nn_search_threads())
+    splits = max(1, min(-(-M // nn._MIN_SPLIT_ROWS), -(-nn._TARGET_BLOCKS // nblk)))
+    rows = -(-M // splits)
+    splits = -(-M // rows)
+    bufs = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in
+            (((splits, N), torch.float32), ((splits, N), torch.int32), (N, torch.float32),
+             (N, torch.int32))]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch_only():
+        for _ in range(calls):
+            rc = lib.nn_search_launch(src.data_ptr(), submap.data_ptr(), submask.data_ptr(),
+                                      N, M, rows, splits, *(x.data_ptr() for x in bufs), stream)
+            if rc != 0:
+                raise RuntimeError(f"[knn] launch failed: CUDA error {rc}")
+
+    p1, k1, c1, l1, l2, c2, k2, p2 = (
+        time_cuda(torch, f) / calls for f in
+        (plain, kernel, kernel_coords, launch_only, launch_only, kernel_coords, kernel, plain))
     cd = time_cuda(torch, cdist) / calls
+    dev_ms = kernel_device_ms(torch, kernel, ("nn_split_kernel", "nn_merge_kernel"))
     # bytes: sources, every target row and mask once, (index, d2) out; work:
     # the live rows this submap holds (masked rows cannot win)
     nbytes = 4 * (3 * N + 4 * M + 2 * N)
@@ -849,7 +1009,10 @@ def phase_knn(torch, state, out, track):
     all_rows_ms, _ = roofline(nbytes, NN_FLOPS_PER_PAIR * N * M)
     cbound_ms, cbound_by = roofline(4 * (3 * N + 4 * M + 4 * N), NN_FLOPS_PER_PAIR * N * live)
     log(f"[knn] time at {N} x {M} rows ({live} live), per call: nn_search "
-        f"{k1:.4f} / {k2:.4f} ms, nn_coords {c1:.4f} / {c2:.4f} ms, plain "
+        f"{k1:.4f} / {k2:.4f} ms, its {splits} x {rows}-row split and merge launches "
+        f"alone {l1:.4f} / {l2:.4f} ms (device time "
+        f"{fmt_ms(None if dev_ms is None else dev_ms / calls)} a search, profiler), "
+        f"nn_coords {c1:.4f} / {c2:.4f} ms, plain "
         f"{p1:.4f} / {p2:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, live rows; "
         f"{all_rows_ms:.5f} ms over all {M} rows)")
     log(f"[knn] context, not a port path: torch.cdist(src, live rows).min(dim=1) "
@@ -918,6 +1081,7 @@ def phase_frozen(torch, state, out, track):
     from icp4dradar_tpu_torch.config import PipelineConfig
     from icp4dradar_tpu_torch.geom import matrix_to_rpy, se3_exp
     from icp4dradar_tpu_torch.mapping import voxel_map_sector_search_with_stats
+    from icp4dradar_tpu_torch.ops import vgicp_fused as vf
     from icp4dradar_tpu_torch.ops.vgicp_fused import (
         radar_point_covariances_packed, vgicp_iteration, vgicp_iteration_batch,
         vgicp_iteration_frozen, vgicp_iteration_frozen_plain,
@@ -996,6 +1160,12 @@ def phase_frozen(torch, state, out, track):
 
     calls = 20
     T1 = perturbed(T[-1:], 0.01)[0]
+    ops = vf.vgicp_prepare(src[-1], sm[-1], scov[-1], ts=best1.shape[2])
+    lib = vf._lib()
+    part = torch.empty((1, -(-ops.per_frame // lib.vgicp_frozen_threads()), vf.NUM_ACC),
+                       dtype=torch.float64, device=dev)
+    gate, eps = vf.sweep_gate(g.max_correspondence_dist), float(np.float32(g.cov_epsilon))
+    stream = torch.cuda.current_stream().cuda_stream
 
     def kernel():
         for _ in range(calls):
@@ -1005,16 +1175,83 @@ def phase_frozen(torch, state, out, track):
         for _ in range(calls):
             vgicp_iteration_frozen_plain(T1, src[-1], sm[-1], scov[-1], best1, **kw)
 
-    p1, k1, k2, p2 = (time_cuda(torch, f) / calls for f in (plain, kernel, kernel, plain))
+    def prepared():
+        for _ in range(calls):
+            vf.vgicp_frozen(T1, ops, best1, **kw)
+
+    def launch_only():
+        for _ in range(calls):
+            rc = lib.vgicp_frozen_launch(T1.data_ptr(), ops.src.data_ptr(), best1.data_ptr(),
+                                         1, ops.per_frame, 0, ops.ts, gate, eps,
+                                         part.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"[frozen] launch failed: CUDA error {rc}")
+
+    p1, k1, c1, l1, l2, c2, k2, p2 = (
+        time_cuda(torch, f) / calls for f in
+        (plain, kernel, prepared, launch_only, launch_only, prepared, kernel, plain))
+    dev_ms = kernel_device_ms(torch, prepared, ("vgicp_frozen_kernel",))
     # inputs read once: T, the sources (xyz, mask, cov6) and the (10, N)
     # payload; 30 sums out
     bound_ms, bound_by = roofline(4 * (16 + 10 * N + 10 * N + 30),
                                   FROZEN_FLOPS_PER_SOURCE * N)
-    log(f"[frozen] time at one frame of {N} points, per call of the wrapper: kernel "
-        f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound {bound_ms:.6f} ms "
-        f"({bound_by})")
-    return dict(max_abs_err=max_err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log(f"[frozen] time at one frame of {N} points: the call on prepared sources "
+        f"{c1:.4f} / {c2:.4f} ms, the launch alone {l1:.4f} / {l2:.4f} ms (device time "
+        f"{fmt_ms(None if dev_ms is None else dev_ms / calls)} a launch, profiler), the per-call "
+        f"wrapper (packing included) {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
+        f"bound {bound_ms:.6f} ms ({bound_by})")
+    return dict(max_abs_err=max_err, ms=(c1 + c2) / 2, plain_ms=(p1 + p2) / 2,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None), (T1, ops, best1)
+
+
+def count_syncs(torch, fn, calls=20):
+    """Host synchronisations per call of fn, from a torch.profiler trace:
+    (stream / device / event synchronise calls, host-to-device copies), less
+    those of an empty window (the profiler's own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(n):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+        names = [e.name for e in prof.events()]
+        return (sum("Synchronize" in n for n in names),
+                sum(n.startswith("Memcpy HtoD") or n == "cudaMemcpy" for n in names))
+
+    fn()
+    torch.cuda.synchronize()
+    base, full = window(0), window(calls)
+    return tuple((f - b) / calls for f, b in zip(full, base))
+
+
+def phase_syncs(torch, sweep, frozen):
+    """K4 and K5 calls on prepared operands copy nothing from the host and
+    never wait for the device; the per-call wrapper is measured beside."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.ops import vgicp_fused as vf
+
+    g = PipelineConfig().gicp
+    kw = dict(max_correspondence_dist=g.max_correspondence_dist, cov_eps=g.cov_epsilon)
+    Tc, ops, bench, sub_n, axis2 = sweep
+    T1, fops, best1 = frozen
+    B = Tc.shape[0]
+    res = {
+        "K4 call on prepared operands": count_syncs(
+            torch, lambda: vf.vgicp_sweep(Tc, ops, _acc_groups=B, **kw)),
+        "K4 call with the payload": count_syncs(
+            torch, lambda: vf.vgicp_sweep(Tc, ops, return_best=True, _acc_groups=B, **kw)),
+        "K5 call on prepared sources": count_syncs(
+            torch, lambda: vf.vgicp_frozen(T1, fops, best1, **kw)),
+        "K4 per-call wrapper": count_syncs(
+            torch, lambda: vf.vgicp_iteration_batch(*bench, tgt_count=sub_n,
+                                                    gate_axis=axis2, **kw)),
+    }
+    log("[profile] host syncs per call (synchronise calls, host-to-device copies): " +
+        "; ".join(f"{k} {a:.2f}, {c:.2f}" for k, (a, c) in res.items()))
+    for k, (a, c) in list(res.items())[:3]:
+        if a or c:
+            raise RuntimeError(f"[profile] {k}: {a} synchronise calls and {c} host-to-device "
+                               f"copies per call, expected none")
 
 
 def phase_profile(torch, scans, s2m, track):
@@ -1090,12 +1327,13 @@ def main() -> int:
     icp = phase_kernel(torch, scans)
     icp_launches, scans_per_s, ate = phase_slice(torch, seq, scans)
     vg_launches, state, out, s2m = phase_s2m(torch, seq, scans)
-    vg = phase_vgicp(torch, state, out, s2m)
+    vg, sweep_ops = phase_vgicp(torch, state, out, s2m)
     nn_launches, state, out, track = phase_gicp(torch, seq, scans)
     nn, coords_launches, coords = phase_knn(torch, state, out, track)
     frozen_launches, state, out, track = phase_inner(torch, seq, scans)
-    frozen = phase_frozen(torch, state, out, track)
+    frozen, frozen_ops = phase_frozen(torch, state, out, track)
     phase_profile(torch, scans, s2m, track)
+    phase_syncs(torch, sweep_ops, frozen_ops)
 
     log(json.dumps({"kernels": [
         {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,

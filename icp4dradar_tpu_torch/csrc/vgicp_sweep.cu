@@ -15,28 +15,41 @@
 //   the 30 Mahalanobis GN terms: packed upper H (21), g (6), cost, w, w d2
 //
 // and reduces the terms over the block's sources into one float64 row of
-// out (B, nblk, 30); the caller sums each frame's rows (one torch.sum over
-// blocks: deterministic, no float atomics) and rounds once to f32. When
+// out (B, nblk, 30) (no float atomics; the caller sums the rows). When
 // `best` is given it also writes the matched payload [d2, mean3, cov6] in
 // the Pallas kernel's (ns, 10, ts) layout for a later frozen GN step.
 //
-// What bounds it on an H100: per (source, target) pair ~9 FP32 operations
-// and a compare, read as one broadcast float4 from shared memory. At the
-// bench block (8 frames x 2048 sources against one ~1000-row live tile)
-// that is ~1.7e7 pairs, ~1.5e8 flops: ~2 us at the 67 TFLOP/s FP32 peak,
-// against a launch latency of several us. So launch latency, not the
-// card, bounds it there; the per-source epilogue (~300 flops) is small.
+// What bounds it on an H100: per (source, target) pair 9 FP32 operations
+// and a compare. At the bench block (8 frames x 2048 sources against one
+// ~800-row live tile) that is ~1.3e7 pairs, ~1.2e8 flops: ~2 us at the 67
+// TFLOP/s FP32 peak. Latency, not throughput, bounds it there: a launch is a
+// few us, and a simple design (one thread per source walking ~800
+// dependent rows, one block per SM) leaves every scheduler idle most
+// cycles.
 //
-// Design: one source point per thread, 128 threads per block, grid
-// (ceil(N/128), B): a block holds points of one frame only and reads that
-// frame's T. 128 threads (not 256) so that the bench block launches 128
-// blocks for the 132 SMs. Target tiles of tm <= 1024 rows are staged in
-// shared memory as float4 (mean, penalty) + 6 floats of covariance (40 KB);
-// the live count is read on the device (no host sync) and tiles past it are
-// never loaded: the dead-tile skip of the Pallas kernel. Each thread keeps
-// the tile's running (min, payload sum, count) and the sweep's best in
-// registers. The TPU kernel's matrix-unit payload gather (one-hot x [t |
-// ones]) becomes a branch taken only on a new minimum or an exact tie.
+// Design (vgicp_sweep_kernel): a block holds 64 sources of one frame, two
+// per lane, and 8 warps; each warp sweeps the block's 64 sources against
+// its own contiguous range of the tile's rows, so the bench block is 256
+// blocks of 8 warps: one wave at two resident blocks (16 warps) per SM.
+// In the loop a source keeps only a running minimum over chunks of 32 rows
+// (one FMNMX a pair, no payload and no tie state); after each chunk the
+// range keeps (min, first chunk at it, tie flag: a later chunk reached the
+// same min). The 8 ranges merge in shared memory in row order (a strictly
+// smaller minimum replaces, an equal one flags a tie), which keeps the
+// in-tile tie rule: warps 0 and 1 (one source per lane) then re-scan the
+// chunk that first reached the minimum for its first row, gather that
+// row's payload [mean3, cov6] and, for a tie only, re-scan the rest of the
+// tile summing every row at the minimum in row order (d2 recomputed by the
+// same ops, so with the same bits), and finish with the GN epilogue.
+// Operands come packed once per registration (ops/vgicp_fused.py): targets
+// (P, 4) [mean, penalty] with each tile's live rows first in row order and
+// a per-tile live count, covariances (P, 8) in the same order. A tile with
+// a live row sweeps only those (a masked row's d2 >= 1e30 never beats one);
+// a tile without sweeps all its rows at the penalty, as the Pallas kernel.
+// The tile is staged with cp.async in 16-byte rows. The live count is read
+// on the device (no host sync) and tiles past it are never loaded: the
+// dead-tile skip of the Pallas kernel. Across tiles a later tile replaces
+// the running best only if strictly smaller.
 //
 // Numerics: p, d2 and the GN terms are evaluated in the Pallas kernel's
 // order, each product and sum rounded separately (the library is built
@@ -53,8 +66,9 @@
 // it reads 10 floats of source and 10 of payload (80 B) and does ~300
 // FP32 operations; 2048 sources are 164 KB, ~0.05 us at 3.35 TB/s, so a
 // launch (a few us) bounds it in practice. Design: one thread per source,
-// the sweep's grid (N/128, B) and its float64 per-block rows, so per-frame
-// groups (`_acc_groups`) sum as after a sweep.
+// grid (N/128, B), float64 per-block rows like the sweep's, so per-frame
+// groups (`_acc_groups`) sum as after a sweep. It reads the sources the
+// sweep reads, packed once per registration.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,12 +76,16 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // the frozen pass: one source per thread
 constexpr int kWarps = kThreads / 32;
+constexpr int kSweepWarps = 8;  // the sweep: 64 sources x 8 row ranges
+constexpr int kSweepThreads = kSweepWarps * 32;
+constexpr int kSweepSources = 64;  // two per lane
+constexpr int kChunk = 32;  // rows per running minimum in a warp's range
 constexpr int kMaxTile = 1024;
 constexpr int kAcc = 30;
 constexpr int kSrcCols = 10;  // x, y, z, mask, cov6
-constexpr int kTgtCols = 10;  // x, y, z, cov6, penalty
+constexpr int kCovCols = 8;   // cov6, two zeros (32-byte rows)
 constexpr float kBig = 1e30f;
 
 __device__ __forceinline__ float sum3(float a, float b, float c) {
@@ -218,107 +236,209 @@ __device__ void transform_point(const float R[3][3], const float t[3], const flo
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-vgicp_sweep_kernel(const float* __restrict__ T,        // (B, 4, 4)
-                   const float* __restrict__ src,      // (B * N, 10)
-                   const float* __restrict__ tgt,      // (P, 10)
-                   const int* __restrict__ tgt_count,  // (1,) live rows
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d2 = ((pen + dx^2) + dy^2) + dz^2, each op rounded, as the Pallas kernel.
+__device__ __forceinline__ float pair_d2(const float4 m, const float p[3]) {
+  const float dx = __fsub_rn(m.x, p[0]);
+  const float dy = __fsub_rn(m.y, p[1]);
+  const float dz = __fsub_rn(m.z, p[2]);
+  return __fadd_rn(__fadd_rn(__fadd_rn(m.w, __fmul_rn(dx, dx)), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+// After a chunk of a range: a strictly smaller chunk minimum becomes the
+// range's (with its chunk), an equal one flags a tie.
+__device__ __forceinline__ void close_chunk(float cm, int chunk, float& m, int& fc, bool& tie) {
+  if (cm < m) {
+    m = cm;
+    fc = chunk;
+    tie = false;
+  } else if (cm == m) {
+    tie = true;
+  }
+}
+
+__global__ void __launch_bounds__(kSweepThreads, 2)
+vgicp_sweep_kernel(const float* __restrict__ T,          // (B, 4, 4)
+                   const float* __restrict__ src,        // (B * N, 10)
+                   const float4* __restrict__ tgt,       // (P,) [mean, penalty]
+                   const float* __restrict__ tgt_cov,    // (P, 8)
+                   const int* __restrict__ tile_live,    // (ceil(P / tm),)
+                   const int* __restrict__ tgt_count,    // (1,) live rows
                    int N, int src_offset, int P, int tm, int ts, float gate,
                    float eps, double* __restrict__ out,  // (B, nblk, 30)
                    float* __restrict__ best_out) {       // (ns, 10, ts) or null
-  __shared__ float4 s_mean[kMaxTile];      // x, y, z, penalty
-  __shared__ float s_cov[kMaxTile * 6];
+  __shared__ __align__(16) float4 s_mean[kMaxTile];
+  __shared__ float s_min[kSweepWarps][kSweepSources];
+  __shared__ int s_chunk[kSweepWarps][kSweepSources];
+  __shared__ int s_tie[kSweepWarps][kSweepSources];
+  __shared__ double s_red[2][kAcc];
 
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < N;
-  const size_t row = (size_t)b * N + i;
+  const int i0 = blockIdx.x * kSweepSources;  // the block's first source
 
   float R[3][3], t[3];
   load_transform(T + (size_t)b * 16, R, t);
-  float s[kSrcCols];
+  // the sweep's two sources per lane: i0 + lane and i0 + 32 + lane
+  float pa[2][3];
 #pragma unroll
-  for (int k = 0; k < kSrcCols; ++k) s[k] = live ? src[row * kSrcCols + k] : 0.f;
-  float p[3];
-  transform_point(R, t, s, p);
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + h * 32 + lane;
+    float xyz[3] = {0.f, 0.f, 0.f};
+    if (i < N) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xyz[k] = src[((size_t)b * N + i) * kSrcCols + k];
+    }
+    transform_point(R, t, xyz, pa[h]);
+  }
+  // warps 0 and 1 merge, gather and finish source i0 + warp * 32 + lane
+  float pe[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) pe[k] = warp == 0 ? pa[0][k] : pa[1][k];
+  const int col = (warp & 1) * 32 + lane;
 
   // live tiles: tile 0 always, then every tile that starts below the count
   const int cnt = *tgt_count;
   const int nt = (P + tm - 1) / tm;
   const int nt_live = cnt <= 0 ? 1 : min(nt, (cnt + tm - 1) / tm);
 
-  float best_d2 = kBig;
+  float best_d2 = kBig;  // warps 0 and 1 carry the sweep's best
   float bp[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) bp[k] = 0.f;
   for (int j = 0; j < nt_live; ++j) {
     const int base = j * tm;
-    const int rows = min(tm, P - base);  // the padding rows of the last
-                                         // tile (1e30) could never win
-    __syncthreads();  // every thread is done with the previous tile
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      const float* tr = tgt + (size_t)(base + r) * kTgtCols;
-      s_mean[r] = make_float4(tr[0], tr[1], tr[2], tr[9]);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) s_cov[r * 6 + k] = tr[3 + k];
-    }
+    const int lj = tile_live[j];
+    const int n = lj > 0 ? lj : min(tm, P - base);  // rows swept
+    __syncthreads();  // warps 0 and 1 are done with the previous tile
+    for (int r = threadIdx.x; r < n; r += kSweepThreads) cp_async16(&s_mean[r], tgt + base + r);
+    cp_async_wait_all();
     __syncthreads();
-    if (live) {
-      float tmin = INFINITY, tcnt = 0.f;
-      float tsum[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) tsum[k] = 0.f;
+    // this warp's contiguous row range, for both of the lane's sources, in
+    // chunks of 32 rows: a running chunk minimum (one FMNMX a pair), then
+    // the range's (min, first chunk at it, tie flag)
+    const int per = (n + kSweepWarps - 1) / kSweepWarps;
+    const int r0 = min(n, warp * per), r1 = min(n, r0 + per);
+    float m0 = INFINITY, m1 = INFINITY;
+    int c0 = 0, c1 = 0;
+    bool t0 = false, t1 = false;
+    for (int q = r0; q < r1; q += kChunk) {
+      const int qe = min(r1, q + kChunk);
+      float cm0 = INFINITY, cm1 = INFINITY;
 #pragma unroll 4
-      for (int r = 0; r < rows; ++r) {
-        const float4 m = s_mean[r];
-        const float dx = __fsub_rn(m.x, p[0]);
-        const float dy = __fsub_rn(m.y, p[1]);
-        const float dz = __fsub_rn(m.z, p[2]);
-        const float d2 = __fadd_rn(
-            __fadd_rn(__fadd_rn(m.w, __fmul_rn(dx, dx)), __fmul_rn(dy, dy)),
-            __fmul_rn(dz, dz));
-        if (d2 < tmin) {
-          tmin = d2;
-          tcnt = 1.f;
-          tsum[0] = m.x;
-          tsum[1] = m.y;
-          tsum[2] = m.z;
+      for (int r = q; r < qe; ++r) {
+        const float4 mr = s_mean[r];
+        cm0 = fminf(cm0, pair_d2(mr, pa[0]));
+        cm1 = fminf(cm1, pair_d2(mr, pa[1]));
+      }
+      close_chunk(cm0, (q - r0) / kChunk, m0, c0, t0);
+      close_chunk(cm1, (q - r0) / kChunk, m1, c1, t1);
+    }
+    s_min[warp][lane] = m0;
+    s_chunk[warp][lane] = c0;
+    s_tie[warp][lane] = t0;
+    s_min[warp][32 + lane] = m1;
+    s_chunk[warp][32 + lane] = c1;
+    s_tie[warp][32 + lane] = t1;
+    __syncthreads();
+    if (warp >= 2) continue;
+    // merge the ranges in row order: the tile's min, the first (range,
+    // chunk) at it, and whether another chunk reached it
+    float tmin = s_min[0][col];
+    int tw = 0, tc = s_chunk[0][col];
+    bool ttie = s_tie[0][col] != 0;
 #pragma unroll
-          for (int k = 0; k < 6; ++k) tsum[3 + k] = s_cov[r * 6 + k];
-        } else if (d2 == tmin) {  // exact tie inside the tile: average
-          tcnt = __fadd_rn(tcnt, 1.f);
-          tsum[0] = __fadd_rn(tsum[0], m.x);
-          tsum[1] = __fadd_rn(tsum[1], m.y);
-          tsum[2] = __fadd_rn(tsum[2], m.z);
-#pragma unroll
-          for (int k = 0; k < 6; ++k) tsum[3 + k] = __fadd_rn(tsum[3 + k], s_cov[r * 6 + k]);
+    for (int w = 1; w < kSweepWarps; ++w) {
+      const float mw = s_min[w][col];
+      if (mw < tmin) {
+        tmin = mw;
+        tw = w;
+        tc = s_chunk[w][col];
+        ttie = s_tie[w][col] != 0;
+      } else if (mw == tmin) {
+        ttie = true;
+      }
+    }
+    if (tmin < best_d2) {  // across tiles: strictly smaller only
+      // the first row at the minimum, in the chunk that first reached it
+      const int q = min(n, tw * per) + tc * kChunk;
+      const int qe = min(min(n, min(n, tw * per) + per), q + kChunk);
+      int tfirst = n, eq = 0;
+      for (int r = q; r < qe; ++r) {
+        if (pair_d2(s_mean[r], pe) == tmin) {
+          tfirst = tfirst < n ? tfirst : r;
+          ++eq;
         }
       }
-      if (tmin < best_d2) {  // across tiles: strictly smaller only
-        best_d2 = tmin;
-        const float c = fmaxf(tcnt, 1.f);
+      const float4 mf = s_mean[tfirst];
+      const float* cf = tgt_cov + (size_t)(base + tfirst) * kCovCols;
+      float sum[9] = {mf.x, mf.y, mf.z, cf[0], cf[1], cf[2], cf[3], cf[4], cf[5]};
+      float c = 1.f;
+      if (ttie || eq > 1) {  // exact tie inside the tile: average in row order
+        for (int r = tfirst + 1; r < n; ++r) {
+          const float4 mr = s_mean[r];
+          if (pair_d2(mr, pe) == tmin) {
+            const float* cr = tgt_cov + (size_t)(base + r) * kCovCols;
+            c = __fadd_rn(c, 1.f);
+            sum[0] = __fadd_rn(sum[0], mr.x);
+            sum[1] = __fadd_rn(sum[1], mr.y);
+            sum[2] = __fadd_rn(sum[2], mr.z);
 #pragma unroll
-        for (int k = 0; k < 9; ++k) bp[k] = __fdiv_rn(tsum[k], c);
+            for (int k = 0; k < 6; ++k) sum[3 + k] = __fadd_rn(sum[3 + k], cr[k]);
+          }
+        }
       }
+      best_d2 = tmin;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) bp[k] = __fdiv_rn(sum[k], c);
     }
   }
 
-  float acc[kAcc];
-  if (live) {
-    gn_terms(R, p, s[3], s + 4, bp, bp + 3, best_d2, gate, eps, acc);
-    if (best_out != nullptr) {
-      const size_t g = (size_t)src_offset + row;
-      const size_t blk = g / ts, lane = g % ts;
-      best_out[(blk * 10) * ts + lane] = best_d2;
+  // the GN terms of warps 0 and 1's sources, summed in float64: warp
+  // shuffles in a fixed order, then warp 0's sums plus warp 1's
+  if (warp < 2) {
+    const int i = i0 + col;
+    float acc[kAcc];
+    if (i < N) {
+      const size_t row = (size_t)b * N + i;
+      float s[kSrcCols];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) best_out[(blk * 10 + 1 + k) * ts + lane] = bp[k];
+      for (int k = 0; k < kSrcCols; ++k) s[k] = src[row * kSrcCols + k];
+      gn_terms(R, pe, s[3], s + 4, bp, bp + 3, best_d2, gate, eps, acc);
+      if (best_out != nullptr) {
+        const size_t g = (size_t)src_offset + row;
+        const size_t blk = g / ts, ln = g % ts;
+        best_out[(blk * 10) * ts + ln] = best_d2;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) best_out[(blk * 10 + 1 + k) * ts + ln] = bp[k];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
     }
-  } else {
 #pragma unroll
-    for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
+    for (int k = 0; k < kAcc; ++k) {
+      double v = (double)acc[k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) s_red[warp][k] = v;
+    }
   }
-
-  block_sum_store(acc, out + ((size_t)b * gridDim.x + blockIdx.x) * kAcc);
+  __syncthreads();
+  if (threadIdx.x < kAcc) {
+    out[((size_t)b * gridDim.x + blockIdx.x) * kAcc + threadIdx.x] =
+        s_red[0][threadIdx.x] + s_red[1][threadIdx.x];
+  }
 }
 
 // The GN terms re-linearised at T on FROZEN correspondences (K5): no
@@ -360,24 +480,28 @@ vgicp_frozen_kernel(const float* __restrict__ T,     // (B, 4, 4)
 
 }  // namespace
 
-extern "C" int vgicp_sweep_threads() { return kThreads; }
+extern "C" int vgicp_sweep_sources_per_block() { return kSweepSources; }
+extern "C" int vgicp_frozen_threads() { return kThreads; }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). B frames
 // of N sources each (src rows b*N .. b*N+N-1, global source index
-// src_offset + b*N + i for the best layout); B must fit grid.y (<= 65535),
-// the caller splits larger batches. tm <= 1024.
-extern "C" int vgicp_sweep_launch(const float* T, const float* src,
-                                  const float* tgt, const int* tgt_count,
-                                  int B, int N, int src_offset, int P, int tm,
-                                  int ts, float gate, float eps, double* out,
-                                  float* best, void* stream) {
+// src_offset + b*N + i for the best layout) against the packed targets (P
+// rows of [mean, penalty], covariances (P, 8), tiles of tm <= 1024 rows with
+// their live counts); B must fit grid.y (<= 65535), the caller splits larger
+// batches. out gets the per-block float64 rows.
+extern "C" int vgicp_sweep_launch(const float* T, const float* src, const float* tgt,
+                                  const float* tgt_cov, const int* tile_live,
+                                  const int* tgt_count, int B, int N, int src_offset,
+                                  int P, int tm, int ts, float gate, float eps,
+                                  double* out, float* best, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || P <= 0 || tm <= 0 || tm > kMaxTile ||
       ts <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  vgicp_sweep_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      T, src, tgt, tgt_count, N, src_offset, P, tm, ts, gate, eps, out, best);
+  const dim3 grid((N + kSweepSources - 1) / kSweepSources, B);
+  vgicp_sweep_kernel<<<grid, kSweepThreads, 0, (cudaStream_t)stream>>>(
+      T, src, reinterpret_cast<const float4*>(tgt), tgt_cov, tile_live, tgt_count, N,
+      src_offset, P, tm, ts, gate, eps, out, best);
   return (int)cudaGetLastError();
 }
 

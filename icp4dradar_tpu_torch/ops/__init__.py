@@ -4,8 +4,11 @@ versions), the chunked k-NN, masked compaction. The library is built from
 `csrc/` at the first CUDA launch."""
 
 from icp4dradar_tpu_torch.ops.icp_fused import (  # noqa: F401
+    IcpOperands,
     icp_iteration_moments,
     icp_iteration_moments_plain,
+    icp_moments,
+    icp_prepare,
     moments_to_transform,
 )
 from icp4dradar_tpu_torch.ops.compaction import mask_compact  # noqa: F401
@@ -17,10 +20,14 @@ from icp4dradar_tpu_torch.ops.knn import (  # noqa: F401
     nearest_neighbor_with_coords_plain,
 )
 from icp4dradar_tpu_torch.ops.vgicp_fused import (  # noqa: F401
+    VgicpOperands,
     radar_point_covariances_packed,
+    vgicp_frozen,
     vgicp_iteration,
     vgicp_iteration_batch,
     vgicp_iteration_frozen,
     vgicp_iteration_frozen_plain,
     vgicp_iteration_plain,
+    vgicp_prepare,
+    vgicp_sweep,
 )

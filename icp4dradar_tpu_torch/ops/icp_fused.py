@@ -11,21 +11,27 @@ correspondence q of a source point is the mean of every target at exactly
 the minimum f32 distance (the TPU kernel's tie-averaging one-hot,
 `icp_fused.py:74-82`).
 
-- `icp_iteration_moments` dispatches on the device of its inputs: CPU
-  tensors go to the plain version; CUDA tensors launch the hand-written
-  kernel `csrc/icp_moments.cu` or raise. There is no fallback between them.
+- `icp_prepare` checks and lays out a registration's clouds once
+  (`IcpOperands`); on CUDA tensors it also packs them for the kernel (each
+  pair's live rows first, with live counts). `icp_moments` runs one pass
+  over prepared clouds at a transform T, optionally only for the `active`
+  pairs: CPU operands go to the plain version; CUDA operands launch the
+  hand-written kernel `csrc/icp_moments.cu` or raise. There is no fallback
+  between them. `icp_iteration_moments` prepares and runs in one call.
 - `icp_iteration_moments_plain` is plain torch with the kernel's semantics,
   chunked over pairs and target tiles so that the (pairs, N, M) distance
   tile never exists at once (it would be 16 GB at the bench size).
 
-All three take a batch of B pairs, T (B,4,4), src (B,N,3), src_mask (B,N),
-tgt (B,M,3), tgt_mask (B,M) -> (B,19), or one pair without the batch axis
--> (19,).
+All take a batch of B pairs, T (B,4,4), src (B,N,3), src_mask (B,N), tgt
+(B,M,3), tgt_mask (B,M) -> (B,19), or one pair without the batch axis ->
+(19,).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +42,9 @@ from icp4dradar_tpu_torch.geom.se3 import se3_from_rt
 _BIG = 1e30
 NUM_MOMENTS = 19
 
-# Kernel launches of `icp_iteration_moments` in this process; the CUDA path
-# adds one per kernel launch and nowhere else.
+# Kernel launches of the moments pass (`icp_moments` and the calls built on
+# it) in this process; the CUDA path adds one per kernel launch and nowhere
+# else.
 ICP_MOMENTS_LAUNCHES = 0
 
 _GRID_Y_MAX = 65535  # CUDA grid.y limit: pairs per launch
@@ -52,21 +59,117 @@ def correspondence_gate(max_correspondence_dist: float) -> float:
     return float(np.float32(gate))
 
 
-def _batched(T, src, src_mask, tgt, tgt_mask):
+def _batched_clouds(src, src_mask, tgt, tgt_mask):
     unbatched = src.dim() == 2
     if unbatched:
-        T, src, src_mask, tgt, tgt_mask = (
-            x[None] for x in (T, src, src_mask, tgt, tgt_mask))
+        src, src_mask, tgt, tgt_mask = (x[None] for x in (src, src_mask, tgt, tgt_mask))
     B, N, M = src.shape[0], src.shape[1], tgt.shape[1]
-    shapes = {"T": (T.shape, (B, 4, 4)), "src": (src.shape, (B, N, 3)),
-              "src_mask": (src_mask.shape, (B, N)),
+    shapes = {"src": (src.shape, (B, N, 3)), "src_mask": (src_mask.shape, (B, N)),
               "tgt": (tgt.shape, (B, M, 3)), "tgt_mask": (tgt_mask.shape, (B, M))}
     for name, (got, want) in shapes.items():
         if tuple(got) != want:
             raise ValueError(f"{name} has shape {tuple(got)}, expected {want}")
     if N == 0 or M == 0:
         raise ValueError(f"empty clouds: N={N}, M={M}")
-    return unbatched, (T, src, src_mask, tgt, tgt_mask)
+    return unbatched, (src, src_mask, tgt, tgt_mask)
+
+
+def _batched(T, src, src_mask, tgt, tgt_mask):
+    unbatched, clouds = _batched_clouds(src, src_mask, tgt, tgt_mask)
+    T = T[None] if unbatched else T
+    B = clouds[0].shape[0]
+    if tuple(T.shape) != (B, 4, 4):
+        raise ValueError(f"T has shape {tuple(T.shape)}, expected {(B, 4, 4)}")
+    return unbatched, (T, *clouds)
+
+
+@dataclass(frozen=True)
+class IcpOperands:
+    """The two clouds of B frame pairs, prepared once for every moments pass
+    of a registration (`icp_prepare`).
+
+    `src` (B,N,3), `src_mask` (B,N), `tgt` (B,M,3), `tgt_mask` (B,M) are the
+    caller's layout, which the plain version reads. On CUDA tensors
+    `packed` holds the kernel's: sources (B,N,4) [xyz, mask] and targets
+    (B,M,4) [xyz, penalty], each pair's live rows first in row order, and
+    their (B,) int32 live counts (`_pack_live_first`)."""
+
+    src: torch.Tensor
+    src_mask: torch.Tensor
+    tgt: torch.Tensor
+    tgt_mask: torch.Tensor
+    unbatched: bool
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _pack_live_first(xyz, col, live):
+    """(B,K,3) points with a fourth column col (B,K) -> ((B,K,4) rows with
+    each batch's live rows first, both parts in row order; (B,) int32 live
+    counts). A stable sort on the device: no host sync."""
+    order = torch.argsort((~live).to(torch.int32), dim=1, stable=True)
+    rows = torch.cat([xyz, col[..., None]], dim=-1)
+    packed = torch.gather(rows, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    return packed, live.sum(dim=1, dtype=torch.int32)
+
+
+def icp_prepare(src: torch.Tensor, src_mask: torch.Tensor, tgt: torch.Tensor,
+                tgt_mask: torch.Tensor) -> IcpOperands:
+    """Check and lay out B pairs' clouds once: src (B,N,3), src_mask (B,N),
+    tgt (B,M,3), tgt_mask (B,M), or one pair without the batch axis. CUDA
+    tensors (float32, contiguous, one device) are also packed for the
+    kernel; CPU tensors are kept as they are for the plain version."""
+    tensors = (src, src_mask, tgt, tgt_mask)
+    cpu = all(x.device.type == "cpu" for x in tensors)
+    if not cpu and not all(x.is_cuda and x.device == src.device for x in tensors):
+        raise ValueError("icp_iteration_moments: inputs must all be on the "
+                         "CPU or all on one CUDA device, got "
+                         f"{[str(x.device) for x in tensors]}")
+    unbatched, (src, src_mask, tgt, tgt_mask) = _batched_clouds(*tensors)
+    packed = None
+    if not cpu:
+        for name, x in zip(("src", "src_mask", "tgt", "tgt_mask"),
+                           (src, src_mask, tgt, tgt_mask)):
+            if x.dtype != torch.float32 or not x.is_contiguous():
+                raise ValueError(f"icp_moments kernel takes contiguous float32 "
+                                 f"tensors; {name} is {x.dtype}, contiguous="
+                                 f"{x.is_contiguous()}")
+        pen = torch.where(tgt_mask > 0.5, 0.0, _BIG).to(torch.float32)
+        src4, src_live = _pack_live_first(src, src_mask, src_mask != 0)
+        tgt4, tgt_live = _pack_live_first(tgt, pen, tgt_mask > 0.5)
+        packed = (src4, src_live, tgt4, tgt_live)
+    return IcpOperands(src, src_mask, tgt, tgt_mask, unbatched, packed)
+
+
+def icp_moments(T: torch.Tensor, ops: IcpOperands, max_correspondence_dist: float = 1e8,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One fused pass over prepared clouds -> (B, 19) moments (or (19,) for
+    one pair). `active` (B,) bool, on the clouds' device: pairs that are
+    False get zero rows (the kernel does not sweep them).
+
+    CPU operands run the plain version; CUDA operands launch the CUDA
+    kernel or raise."""
+    B = ops.src.shape[0]
+    Tb = T[None] if ops.unbatched else T
+    if tuple(Tb.shape) != (B, 4, 4):
+        raise ValueError(f"T has shape {tuple(T.shape)}, expected {(B, 4, 4)}")
+    if active is not None:
+        active = active.reshape(-1)
+        if active.dtype != torch.bool or active.shape != (B,):
+            raise ValueError(f"active must be a ({B},) bool tensor, got "
+                             f"{active.dtype} {tuple(active.shape)}")
+    tensors = (Tb,) + (() if active is None else (active,))
+    if ops.packed is None:
+        if not all(x.device.type == "cpu" for x in tensors):
+            raise ValueError("icp_moments: T and active must lie with the clouds on the CPU")
+        moments = icp_iteration_moments_plain(Tb, ops.src, ops.src_mask, ops.tgt,
+                                              ops.tgt_mask, max_correspondence_dist,
+                                              active=active)
+    else:
+        if not all(x.device == ops.src.device for x in tensors):
+            raise ValueError("icp_moments: T and active must lie on the clouds' device")
+        moments = _icp_moments_cuda(Tb, ops, correspondence_gate(max_correspondence_dist),
+                                    active)
+    return moments[0] if ops.unbatched else moments
 
 
 def icp_iteration_moments(
@@ -76,19 +179,15 @@ def icp_iteration_moments(
     tgt: torch.Tensor,
     tgt_mask: torch.Tensor,
     max_correspondence_dist: float = 1e8,
+    active: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One fused pass -> (B, 19) moments (or (19,) for one pair).
+    """One fused pass -> (B, 19) moments (or (19,) for one pair):
+    `icp_moments` on the clouds prepared for this call alone.
 
     CPU tensors run the plain version; CUDA tensors launch the CUDA kernel
     (float32, contiguous, all on one device) or raise."""
-    tensors = (T, src, src_mask, tgt, tgt_mask)
-    if all(x.device.type == "cpu" for x in tensors):
-        return icp_iteration_moments_plain(*tensors, max_correspondence_dist)
-    if not all(x.is_cuda and x.device == src.device for x in tensors):
-        raise ValueError("icp_iteration_moments: inputs must all be on the "
-                         "CPU or all on one CUDA device, got "
-                         f"{[str(x.device) for x in tensors]}")
-    return _icp_moments_cuda(*tensors, max_correspondence_dist)
+    return icp_moments(T, icp_prepare(src, src_mask, tgt, tgt_mask),
+                       max_correspondence_dist, active)
 
 
 def _lib() -> ctypes.CDLL:
@@ -96,48 +195,40 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load_library()
     if lib.icp_moments_launch.argtypes is None:
-        p = ctypes.c_void_p
-        lib.icp_moments_launch.argtypes = [p, p, p, p, p, p, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, p]
-        lib.icp_moments_launch.restype = ctypes.c_int
-        lib.icp_moments_threads.argtypes = []
-        lib.icp_moments_threads.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.icp_moments_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, ctypes.c_float, p]
+        lib.icp_moments_launch.restype = i
+        lib.icp_moments_sources_per_block.argtypes = []
+        lib.icp_moments_sources_per_block.restype = i
     return lib
 
 
-def _icp_moments_cuda(T, src, src_mask, tgt, tgt_mask, max_correspondence_dist):
+def _icp_moments_cuda(T, ops, gate, active):
     global ICP_MOMENTS_LAUNCHES
-    unbatched, (T, src, src_mask, tgt, tgt_mask) = _batched(
-        T, src, src_mask, tgt, tgt_mask)
-    for name, x in zip(("T", "src", "src_mask", "tgt", "tgt_mask"),
-                       (T, src, src_mask, tgt, tgt_mask)):
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"icp_moments kernel takes contiguous float32 "
-                             f"tensors; {name} is {x.dtype}, contiguous="
-                             f"{x.is_contiguous()}")
+    if T.dtype != torch.float32 or not T.is_contiguous():
+        raise ValueError(f"icp_moments kernel takes a contiguous float32 T, got "
+                         f"{T.dtype}, contiguous={T.is_contiguous()}")
+    src4, src_live, tgt4, tgt_live = ops.packed
     lib = _lib()
-    B, N, M = src.shape[0], src.shape[1], tgt.shape[1]
-    threads = lib.icp_moments_threads()
-    nblk = -(-N // threads)
-    gate = correspondence_gate(max_correspondence_dist)
+    B, N, M = src4.shape[0], src4.shape[1], tgt4.shape[1]
+    nblk = -(-N // lib.icp_moments_sources_per_block())
+    active = None if active is None else active.contiguous()
     # per-block float64 partials: one deterministic sum over blocks below
-    out = torch.empty((B, nblk, NUM_MOMENTS), dtype=torch.float64,
-                      device=src.device)
-    with torch.cuda.device(src.device):
+    out = torch.empty((B, nblk, NUM_MOMENTS), dtype=torch.float64, device=src4.device)
+    with torch.cuda.device(src4.device):
         stream = torch.cuda.current_stream().cuda_stream
         for b0 in range(0, B, _GRID_Y_MAX):
             nb = min(_GRID_Y_MAX, B - b0)
             rc = lib.icp_moments_launch(
-                T[b0].data_ptr(), src[b0].data_ptr(), src_mask[b0].data_ptr(),
-                tgt[b0].data_ptr(), tgt_mask[b0].data_ptr(),
+                T[b0].data_ptr(), src4[b0].data_ptr(), src_live[b0].data_ptr(),
+                tgt4[b0].data_ptr(), tgt_live[b0].data_ptr(),
+                None if active is None else active[b0].data_ptr(),
                 out[b0].data_ptr(), nb, N, M, gate, stream)
             if rc != 0:
                 raise RuntimeError(f"icp_moments kernel launch failed: CUDA "
                                    f"error {rc} (B={nb}, N={N}, M={M})")
             ICP_MOMENTS_LAUNCHES += 1
-    moments = torch.sum(out, dim=1).to(torch.float32)
-    return moments[0] if unbatched else moments
+    return torch.sum(out, dim=1).to(torch.float32)
 
 
 def icp_iteration_moments_plain(
@@ -149,6 +240,7 @@ def icp_iteration_moments_plain(
     max_correspondence_dist: float = 1e8,
     tile_m: int = 1024,
     max_tile_elems: int = 1 << 24,
+    active: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain-torch twin of the kernel, on any device.
 
@@ -158,7 +250,9 @@ def icp_iteration_moments_plain(
     smaller tile minimum replaces it, an equal one adds to it. p and d2 are
     formed in the kernel's (and the TPU kernel's) order of operations, each
     separately rounded, so exact ties agree. Moments are summed in float64
-    and returned as float32."""
+    and returned as float32. Pairs where `active` (B,) is False get zero
+    rows: every pair is computed and those rows are zeroed, so an active
+    pair's moments do not depend on the mask."""
     unbatched, (T, src, src_mask, tgt, tgt_mask) = _batched(
         T, src, src_mask, tgt, tgt_mask)
     B, N, M = src.shape[0], src.shape[1], tgt.shape[1]
@@ -171,6 +265,8 @@ def icp_iteration_moments_plain(
         for s in range(0, B, pairs)
     ]
     moments = torch.cat(out)
+    if active is not None:
+        moments = torch.where(active.reshape(-1, 1), moments, 0.0)
     return moments[0] if unbatched else moments
 
 

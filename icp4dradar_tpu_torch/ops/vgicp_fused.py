@@ -19,12 +19,20 @@ sum w d2. The tiles are the Pallas kernel's: `tm = min(1024, round_up(P,
 Tiles past the live count `tgt_count` are skipped (valid rows front-packed
 by the sector query's compaction); tile 0 is always swept.
 
-- `vgicp_iteration` / `vgicp_iteration_batch` dispatch on the device of
-  their inputs: CPU tensors go to the plain version; CUDA tensors launch
-  the hand-written kernel `csrc/vgicp_sweep.cu` or raise.
-- `vgicp_iteration_plain` is plain torch with the kernel's semantics,
-  chunked over frames so that the (frames, N, tm) distance tile stays
-  bounded.
+- `vgicp_prepare` packs a registration's operands once (`VgicpOperands`):
+  sources (Np, 10), targets (P, 4) [mean, penalty] and (P, 8) covariances
+  with each tile's live rows first, per-tile live counts, the live count.
+  `vgicp_sweep` runs one GN pass at T over them and `vgicp_frozen` one
+  frozen step (below); the GN loops of `registration/vgicp.py` prepare once
+  and call these. Both dispatch on the operands' device: CPU tensors go to
+  the plain version; CUDA tensors launch the hand-written kernels of
+  `csrc/vgicp_sweep.cu` or raise, and copy nothing from the host (no host
+  sync inside a call).
+- `vgicp_iteration` / `vgicp_iteration_batch` keep the JAX package's
+  signatures and layouts: they prepare the operands for one call and sweep.
+- `vgicp_iteration_plain` is plain torch with the kernel's semantics on the
+  same prepared operands, chunked over frames so that the (frames, N, tm)
+  distance tile stays bounded.
 - `vgicp_iteration_frozen` (the inner GN steps, `gicp.inner_gn_steps >
   0`) re-linearises the same 30 sums at a new T on the payload a sweep
   returned under `return_best`, with no search: the kernel
@@ -39,6 +47,7 @@ no accumulator; `gate_axis` is accepted and only checked for shape.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -48,10 +57,10 @@ _BIG = 1e30
 NUM_ACC = 30
 MAX_TILE = 1024
 
-# Kernel launches of `vgicp_iteration` / `vgicp_iteration_batch` in this
-# process; the CUDA path adds one per kernel launch and nowhere else.
+# Kernel launches of the sweep (`vgicp_sweep` and the calls built on it) in
+# this process; the CUDA path adds one per kernel launch and nowhere else.
 VGICP_SWEEP_LAUNCHES = 0
-# Kernel launches of `vgicp_iteration_frozen`, counted the same way.
+# Kernel launches of the frozen step (`vgicp_frozen`), counted the same way.
 VGICP_FROZEN_LAUNCHES = 0
 
 _GRID_Y_MAX = 65535  # CUDA grid.y limit: frames per launch
@@ -153,14 +162,31 @@ def _gn_accumulators(R, p, w_src, ca, best_pay, gate_d2, gate: float,
     return torch.stack([t.expand(shape) for t in terms], dim=-1)
 
 
+_SYM6_INDEX = {}  # device -> (36,) index of each H entry in the packed 21
+
+
+def _sym6_index(device) -> torch.Tensor:
+    """Index of H[r, c] in the packed upper triangle (row-major, as
+    `triu_indices(6, 6)`), made once per device so that unpacking H copies
+    nothing from the host."""
+    idx = _SYM6_INDEX.get(device)
+    if idx is None:
+        packed = {}
+        for r in range(6):
+            for c in range(r, 6):
+                packed[(r, c)] = len(packed)
+        idx = torch.tensor([packed[(min(r, c), max(r, c))] for r in range(6) for c in range(6)],
+                           device=device)
+        _SYM6_INDEX[device] = idx
+    return idx
+
+
 def _unpack_accumulators(acc: torch.Tensor, dtype=torch.float32):
-    """(..., 30) -> (H (..., 6, 6), g (..., 6), cost, wsum, d2sum)."""
-    iu = torch.triu_indices(6, 6)
-    H = torch.zeros(acc.shape[:-1] + (6, 6), dtype=dtype, device=acc.device)
-    H[..., iu[0], iu[1]] = acc[..., :21].to(dtype)
-    H[..., iu[1], iu[0]] = acc[..., :21].to(dtype)
-    return (H, acc[..., 21:27].to(dtype), acc[..., 27], acc[..., 28],
-            acc[..., 29])
+    """(..., 30) -> (H (..., 6, 6), g (..., 6), cost, wsum, d2sum). One
+    gather on the device: no host sync."""
+    H = acc[..., :21].to(dtype).index_select(-1, _sym6_index(acc.device))
+    return (H.reshape(acc.shape[:-1] + (6, 6)), acc[..., 21:27].to(dtype), acc[..., 27],
+            acc[..., 28], acc[..., 29])
 
 
 def sweep_gate(max_correspondence_dist: float) -> float:
@@ -175,10 +201,54 @@ def target_tile_rows(P: int) -> int:
     return min(MAX_TILE, P + (-P) % 8)
 
 
-def _pack_sources(T, src_xyz, src_mask, src_cov6, ts):
+@dataclass(frozen=True)
+class VgicpOperands:
+    """A registration's sweep operands, packed once (`vgicp_prepare`) and
+    read in place by every sweep (K4) and frozen step (K5) of its GN loop.
+
+    - `src` (frames * per_frame, 10): [xyz, mask, cov6] per source, each
+      frame's sources zero-padded to a multiple of the block size `ts`
+      (blocks never straddle frames); `n` sources before padding.
+    - `tgt` (P, 4): [mean3, penalty] (penalty 1e30 where masked), with the
+      live rows of each tile of `tm` rows first, in row order; `tgt_cov`
+      (P, 8): [cov6, 0, 0] in the same order; `tile_live` (P / tm,) int32
+      live rows per tile; `count` (1,) int32 live rows of the caller's
+      layout (tiles past it are skipped). All None, and tm 0, for
+      sources-only operands (the frozen step).
+    - `dtype`: the caller's dtype of the results."""
+
+    src: torch.Tensor
+    frames: int
+    per_frame: int
+    ts: int
+    n: int
+    dtype: torch.dtype
+    tgt: Optional[torch.Tensor] = None
+    tgt_cov: Optional[torch.Tensor] = None
+    tile_live: Optional[torch.Tensor] = None
+    count: Optional[torch.Tensor] = None
+    tm: int = 0
+
+
+def _check_devices(name, tensors):
+    """All on the CPU (-> False), or all on one CUDA device and float32
+    there (-> True); else raises."""
+    if all(x.device.type == "cpu" for x in tensors):
+        return False
+    dev = tensors[0].device
+    if not all(x.is_cuda and x.device == dev for x in tensors):
+        raise ValueError(f"{name}: inputs must all be on the CPU or all on one CUDA "
+                         f"device, got {[str(x.device) for x in tensors]}")
+    for x in tensors:
+        if x.is_floating_point() and x.dtype != torch.float32:
+            raise ValueError(f"{name}: the CUDA kernels take float32 tensors, got {x.dtype}")
+    return True
+
+
+def _pack_sources(src_xyz, src_mask, src_cov6, ts, frames):
     """Sources padded to a multiple of the block size ts and packed (Np, 10)
-    as [xyz, mask, cov6], grouped by frame: Bk frames of Nf sources, blocks
-    never straddle frames. -> (T (Bk, 4, 4), src, ts, Bk, Nf)."""
+    as [xyz, mask, cov6], grouped by frame: `frames` frames of Np / frames
+    sources, blocks never straddle frames. -> (src, ts, per_frame)."""
     n = src_xyz.shape[0]
     if src_mask.shape != (n,) or src_cov6.shape != (n, 6) or src_xyz.shape != (n, 3):
         raise ValueError(f"sources: xyz {tuple(src_xyz.shape)}, mask "
@@ -192,45 +262,152 @@ def _pack_sources(T, src_xyz, src_mask, src_cov6, ts):
     if pad:
         src = torch.cat([src, src.new_zeros((pad, 10))])
     Np = n + pad
-    T = T.to(f32)
-    Tk = T[None] if T.dim() == 2 else T
-    Bk = Tk.shape[0]
-    if (Np // ts) % Bk:
-        raise ValueError(f"{Np // ts} source blocks do not split over {Bk} frames")
-    return Tk.reshape(Bk, 4, 4).contiguous(), src.contiguous(), ts, Bk, Np // Bk
+    if (Np // ts) % frames:
+        raise ValueError(f"{Np // ts} source blocks do not split over {frames} frames")
+    return src.contiguous(), ts, Np // frames
 
 
-def _prepare(T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask,
-             ts, tgt_count, gate_axis):
-    """Shared layout of the kernel and its plain version: the sources of
-    `_pack_sources`, targets packed (P, 10) as [mean3, cov6, penalty], the
-    live count as an int32 (1,) tensor."""
+def _pack_targets(tgt_mean, tgt_cov6, tgt_mask, tgt_count, device):
+    """Targets (P,4) [mean3, penalty] and (P,8) [cov6, 0, 0] with each tile's
+    live rows first in row order (a stable sort on the device), the per-tile
+    live counts, the live count and the tile rows."""
     P = tgt_mean.shape[0]
     if tgt_cov6.shape != (P, 6) or tgt_mask.shape != (P,) or tgt_mean.shape != (P, 3):
         raise ValueError(f"targets: mean {tuple(tgt_mean.shape)}, cov "
                          f"{tuple(tgt_cov6.shape)}, mask {tuple(tgt_mask.shape)}")
     if P == 0:
         raise ValueError("empty target cloud")
+    f32 = torch.float32
+    tm = target_tile_rows(P)
+    live = tgt_mask > 0.5
+    tile = torch.arange(P, device=device) // tm
+    order = torch.argsort(2 * tile + (~live).to(tile.dtype), stable=True)
+    pen = torch.where(live, 0.0, _BIG).to(f32)
+    tgt = torch.cat([tgt_mean.to(f32), pen[:, None]], dim=-1)[order].contiguous()
+    cov = torch.cat([tgt_cov6.to(f32), tgt_cov6.new_zeros((P, 2), dtype=f32)], dim=-1)
+    tile_live = torch.zeros(-(-P // tm), dtype=torch.int32, device=device).index_add_(
+        0, tile, live.to(torch.int32))
+    if tgt_count is None:
+        count = torch.full((1,), P, dtype=torch.int32, device=device)
+    else:
+        count = torch.as_tensor(tgt_count, device=device).to(torch.int32).reshape(1)
+    return tgt, cov[order].contiguous(), tile_live, count, tm
+
+
+def vgicp_prepare(
+    src_xyz: torch.Tensor,
+    src_mask: torch.Tensor,
+    src_cov6: torch.Tensor,
+    tgt_mean: Optional[torch.Tensor] = None,
+    tgt_cov6: Optional[torch.Tensor] = None,
+    tgt_mask: Optional[torch.Tensor] = None,
+    *,
+    frames: int = 1,
+    ts: int = 2048,
+    tgt_count: Optional[torch.Tensor] = None,
+    gate_axis: Optional[torch.Tensor] = None,
+) -> VgicpOperands:
+    """Pack a registration's operands once (`VgicpOperands`).
+
+    Sources: (n,3) / (n,) / (n,6) for `frames` frames of equal block counts,
+    or (B,N,3) / (B,N) / (B,N,6) for B frames (N a multiple of the block
+    size min(ts, N)). Targets (P,3) / (P,6) / (P,); leave them out for a
+    frozen step's sources-only operands. `tgt_count`: live target rows when
+    front-packed (tiles past it are skipped). `gate_axis` (2,) is checked
+    for shape only. All on the CPU or all on one CUDA device (float32
+    there); nothing is read on the host."""
+    tgts = (tgt_mean, tgt_cov6, tgt_mask)
+    if any(x is None for x in tgts) and not all(x is None for x in tgts):
+        raise ValueError("give all of tgt_mean, tgt_cov6 and tgt_mask, or none")
+    tensors = (src_xyz, src_mask, src_cov6) + tuple(x for x in tgts if x is not None) + tuple(
+        x for x in (tgt_count, gate_axis) if torch.is_tensor(x))
+    _check_devices("vgicp_prepare", tensors)
     if gate_axis is not None and tuple(gate_axis.shape) != (2,):
         raise ValueError(f"gate_axis has shape {tuple(gate_axis.shape)}, expected (2,)")
-    f32 = torch.float32
-    Tk, src, ts, Bk, Nf = _pack_sources(T, src_xyz, src_mask, src_cov6, ts)
-    pen = torch.where(tgt_mask > 0.5, 0.0, _BIG).to(f32)
-    tgt10 = torch.cat([tgt_mean.to(f32), tgt_cov6.to(f32), pen[:, None]], dim=-1)
-    if tgt_count is None:
-        cnt = torch.full((1,), P, dtype=torch.int32, device=src.device)
-    else:
-        cnt = torch.as_tensor(tgt_count, device=src.device).to(torch.int32).reshape(1)
-    return Tk, src, tgt10.contiguous(), cnt, ts, Bk, Nf
+    dtype = src_xyz.dtype
+    if src_xyz.dim() == 3:
+        B, N = src_xyz.shape[0], src_xyz.shape[1]
+        ts = min(ts, max(8, N))
+        if N % ts:
+            raise ValueError(f"batched sweep needs N % ts == 0, got {N}, {ts}")
+        src_xyz, src_mask, src_cov6 = (src_xyz.reshape(B * N, 3), src_mask.reshape(B * N),
+                                       src_cov6.reshape(B * N, 6))
+        frames = B
+    src, ts, per_frame = _pack_sources(src_xyz, src_mask, src_cov6, ts, frames)
+    ops = VgicpOperands(src=src, frames=frames, per_frame=per_frame, ts=ts,
+                        n=src_xyz.shape[0], dtype=dtype)
+    if tgt_mean is None:
+        return ops
+    tgt, cov, tile_live, count, tm = _pack_targets(tgt_mean, tgt_cov6, tgt_mask, tgt_count,
+                                                   src.device)
+    return replace(ops, tgt=tgt, tgt_cov=cov, tile_live=tile_live, count=count, tm=tm)
 
 
-def _finish(acc_frames, groups, dtype, best, return_best):
-    """(Bk, 30) float64 per-frame sums -> unpacked f32 results, summed over
-    `groups` consecutive frame groups (1 group: one result)."""
-    Bk = acc_frames.shape[0]
-    acc = acc_frames.reshape(groups, Bk // groups, NUM_ACC).sum(dim=1).to(torch.float32)
+def _frames_T(T, ops, groups):
+    """T (4,4) or (frames,4,4) -> (frames,4,4) float32, contiguous."""
+    Tk = T[None] if T.dim() == 2 else T
+    if tuple(Tk.shape) != (ops.frames, 4, 4):
+        raise ValueError(f"T has shape {tuple(T.shape)}; the operands hold {ops.frames} frames")
+    if ops.frames % groups:
+        raise ValueError(f"{ops.frames} frames do not split into {groups} groups")
+    return Tk.to(torch.float32).contiguous()
+
+
+def _finish(acc_rows, groups, dtype, best, return_best):
+    """(frames, rows, 30) or (frames, 30) float64 partial sums -> unpacked
+    f32 results, summed over `groups` consecutive frame groups (1 group:
+    one result). One sum, a cast and a gather on the device."""
+    acc = acc_rows.reshape(groups, -1, NUM_ACC).sum(dim=1).to(torch.float32)
     out = _unpack_accumulators(acc if groups > 1 else acc[0], dtype)
     return out + (best,) if return_best else out
+
+
+def vgicp_sweep(
+    T: torch.Tensor,
+    ops: VgicpOperands,
+    max_correspondence_dist: float = 2.0,
+    cov_eps: float = 1e-3,
+    return_best: bool = False,
+    _acc_groups: int = 1,
+):
+    """One fused GN pass at T over prepared operands -> (H (6,6), g (6,),
+    cost, wsum, d2sum) [+ the (ns, 10, ts) matched payload [d2, mean3,
+    cov6] when `return_best`]; with `_acc_groups` = B, per-group results
+    with a leading (B,) axis. T: (4,4), or (frames,4,4) mapping frame b to
+    its sources. CPU operands run the plain version; CUDA operands launch
+    the CUDA kernel or raise. No host sync on the card."""
+    if ops.tgt is None:
+        raise ValueError("vgicp_sweep: the operands hold no targets")
+    Tk = _frames_T(T, ops, _acc_groups)
+    gate, eps = sweep_gate(max_correspondence_dist), float(np.float32(cov_eps))
+    # the operands' tensors share src's device (vgicp_prepare)
+    if not _check_devices("vgicp_sweep", (T, ops.src)):
+        return _sweep_plain(Tk, ops, gate, eps, return_best, _acc_groups)
+    return _vgicp_sweep_cuda(Tk, ops, gate, eps, return_best, _acc_groups)
+
+
+def vgicp_frozen(
+    T: torch.Tensor,
+    ops: VgicpOperands,
+    best: torch.Tensor,
+    max_correspondence_dist: float = 2.0,
+    cov_eps: float = 1e-3,
+    _acc_groups: int = 1,
+):
+    """GN pass re-linearised at T on FROZEN correspondences: the (ns, 10,
+    ts) payload `best` of an earlier sweep over the same prepared sources,
+    no search -> (H, g, cost, wsum, d2sum) as a sweep gives them. Each source
+    is gated on its fresh |q - p|^2; a source the sweep never matched (stale
+    d2 >= 2.5e29) gets 1e30 and no weight. CPU operands run the plain
+    version; CUDA operands launch the CUDA kernel or raise."""
+    _check_payload(ops, best)
+    Tk = _frames_T(T, ops, _acc_groups)
+    gate, eps = sweep_gate(max_correspondence_dist), float(np.float32(cov_eps))
+    if not _check_devices("vgicp_frozen", (T, best, ops.src)):
+        return _frozen_plain(Tk, ops, best, gate, eps, _acc_groups)
+    if not best.is_contiguous():
+        raise ValueError("vgicp_frozen kernel takes a contiguous best payload")
+    return _vgicp_frozen_cuda(Tk, ops, best, gate, eps, _acc_groups)
 
 
 def vgicp_iteration(
@@ -250,24 +427,18 @@ def vgicp_iteration(
     _acc_groups: int = 1,
 ):
     """One fused GN pass -> (H (6,6), g (6,), cost, wsum, d2sum) [+ the
-    (ns, 10, ts) matched payload [d2, mean3, cov6] when `return_best`].
+    (ns, 10, ts) matched payload [d2, mean3, cov6] when `return_best`]:
+    `vgicp_sweep` on operands prepared for this call alone.
 
     T: (4,4), or (B,4,4) mapping frame b to its ns/B consecutive source
     blocks of ts points. `tgt_count`: live target rows when they are packed
     to the front (tiles past it are skipped). CPU tensors run the plain
     version; CUDA tensors launch the CUDA kernel (all on one device) or
     raise."""
-    args = (T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask)
-    kw = dict(max_correspondence_dist=max_correspondence_dist, cov_eps=cov_eps,
-              ts=ts, tgt_count=tgt_count, return_best=return_best,
-              gate_axis=gate_axis, _acc_groups=_acc_groups)
-    tensors = args + tuple(x for x in (tgt_count, gate_axis) if torch.is_tensor(x))
-    if all(x.device.type == "cpu" for x in tensors):
-        return vgicp_iteration_plain(*args, **kw)
-    if not all(x.is_cuda and x.device == src_xyz.device for x in tensors):
-        raise ValueError("vgicp_iteration: inputs must all be on the CPU or all "
-                         f"on one CUDA device, got {[str(x.device) for x in tensors]}")
-    return _vgicp_sweep_cuda(*args, **kw)
+    ops = vgicp_prepare(src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask,
+                        frames=1 if T.dim() == 2 else T.shape[0], ts=ts,
+                        tgt_count=tgt_count, gate_axis=gate_axis)
+    return vgicp_sweep(T, ops, max_correspondence_dist, cov_eps, return_best, _acc_groups)
 
 
 def vgicp_iteration_batch(
@@ -289,16 +460,10 @@ def vgicp_iteration_batch(
     g (B,6), cost (B,), wsum (B,), d2sum (B,)) [+ best]. T: (B,4,4);
     src_xyz/src_mask/src_cov6: (B,N,...); N must be a multiple of the
     source block size (blocks never straddle frames)."""
-    B, N = src_xyz.shape[0], src_xyz.shape[1]
-    ts = min(ts, max(8, N))
-    if N % ts:
-        raise ValueError(f"batched sweep needs N % ts == 0, got {N}, {ts}")
-    return vgicp_iteration(
-        T, src_xyz.reshape(B * N, 3), src_mask.reshape(B * N),
-        src_cov6.reshape(B * N, 6), tgt_mean, tgt_cov6, tgt_mask,
-        max_correspondence_dist=max_correspondence_dist, cov_eps=cov_eps,
-        ts=ts, tgt_count=tgt_count, return_best=return_best,
-        gate_axis=gate_axis, _acc_groups=B)
+    ops = vgicp_prepare(src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask, ts=ts,
+                        tgt_count=tgt_count, gate_axis=gate_axis)
+    return vgicp_sweep(T, ops, max_correspondence_dist, cov_eps, return_best,
+                       src_xyz.shape[0])
 
 
 def vgicp_iteration_frozen(
@@ -311,36 +476,29 @@ def vgicp_iteration_frozen(
     cov_eps: float = 1e-3,
     _acc_groups: int = 1,
 ):
-    """GN pass re-linearised at T on FROZEN correspondences: the (ns, 10,
-    ts) payload `best` of an earlier `vgicp_iteration(..., return_best=True)`
-    over the same sources, no search -> (H, g, cost, wsum, d2sum) as a
-    sweep gives them. Each source is gated on its fresh |q - p|^2; a source
-    the sweep never matched (stale d2 >= 2.5e29) gets 1e30 and no weight.
-    The source block size is `best`'s own ts. CPU tensors run the plain
-    version; CUDA tensors launch the CUDA kernel or raise."""
-    args = (T, src_xyz, src_mask, src_cov6, best)
-    kw = dict(max_correspondence_dist=max_correspondence_dist, cov_eps=cov_eps,
-              _acc_groups=_acc_groups)
-    if all(x.device.type == "cpu" for x in args):
-        return vgicp_iteration_frozen_plain(*args, **kw)
-    if not all(x.is_cuda and x.device == src_xyz.device for x in args):
-        raise ValueError("vgicp_iteration_frozen: inputs must all be on the CPU or all "
-                         f"on one CUDA device, got {[str(x.device) for x in args]}")
-    return _vgicp_frozen_cuda(*args, **kw)
+    """GN pass re-linearised at T on FROZEN correspondences (`vgicp_frozen`
+    on sources prepared for this call alone): the (ns, 10, ts) payload
+    `best` of an earlier `vgicp_iteration(..., return_best=True)` over the
+    same sources, no search -> (H, g, cost, wsum, d2sum). The source block
+    size is `best`'s own ts. CPU tensors run the plain version; CUDA tensors
+    launch the CUDA kernel or raise."""
+    return vgicp_frozen(T, _frozen_operands(T, src_xyz, src_mask, src_cov6, best), best,
+                        max_correspondence_dist, cov_eps, _acc_groups)
 
 
-def _prepare_frozen(T, src_xyz, src_mask, src_cov6, best, _acc_groups):
-    """`_pack_sources` at the payload's block size; checks that the payload
-    covers exactly the padded sources."""
+def _check_payload(ops, best):
+    """best must be the (ns, 10, ts) payload of exactly these sources."""
+    if best.dim() != 3 or best.shape[1] != 10 or best.shape[2] != ops.ts or \
+            best.shape[0] * ops.ts != ops.frames * ops.per_frame:
+        raise ValueError(f"best {tuple(best.shape)} does not match {ops.n} sources in "
+                         f"blocks of {ops.ts}")
+
+
+def _frozen_operands(T, src_xyz, src_mask, src_cov6, best):
     if best.dim() != 3 or best.shape[1] != 10:
         raise ValueError(f"best has shape {tuple(best.shape)}, expected (ns, 10, ts)")
-    Tk, src, ts, Bk, Nf = _pack_sources(T, src_xyz, src_mask, src_cov6, best.shape[2])
-    if ts != best.shape[2] or Bk * Nf != best.shape[0] * ts:
-        raise ValueError(f"best {tuple(best.shape)} does not match {src_xyz.shape[0]} "
-                         f"sources in blocks of {best.shape[2]}")
-    if Bk % _acc_groups:
-        raise ValueError(f"{Bk} frames do not split into {_acc_groups} groups")
-    return Tk, src, ts, Bk, Nf
+    return vgicp_prepare(src_xyz, src_mask, src_cov6, frames=1 if T.dim() == 2 else T.shape[0],
+                         ts=best.shape[2])
 
 
 def best_payload_to_rows(best: torch.Tensor, n: int) -> torch.Tensor:
@@ -363,10 +521,17 @@ def vgicp_iteration_frozen_plain(
     """Plain-torch twin of the frozen kernel, on any device: the kernel's
     p, fresh distance and GN terms (`_gn_accumulators`), summed in float64
     per frame and returned as float32."""
-    Tk, src, ts, Bk, Nf = _prepare_frozen(T, src_xyz, src_mask, src_cov6, best,
-                                          _acc_groups)
+    ops = _frozen_operands(T, src_xyz, src_mask, src_cov6, best)
+    _check_payload(ops, best)
+    return _frozen_plain(_frames_T(T, ops, _acc_groups), ops, best,
+                         sweep_gate(max_correspondence_dist), float(np.float32(cov_eps)),
+                         _acc_groups)
+
+
+def _frozen_plain(Tk, ops, best, gate, eps, groups):
+    Bk, Nf = ops.frames, ops.per_frame
     rows = best_payload_to_rows(best.to(torch.float32), Bk * Nf).reshape(Bk, Nf, 10)
-    src = src.reshape(Bk, Nf, 10)
+    src = ops.src.reshape(Bk, Nf, 10)
     R = [[Tk[:, r, c, None] for c in range(3)] for r in range(3)]
     s = [src[..., k] for k in range(10)]
     p = [R[r][0] * s[0] + R[r][1] * s[1] + R[r][2] * s[2] + Tk[:, r, 3, None]
@@ -375,10 +540,8 @@ def vgicp_iteration_frozen_plain(
     d = [pay[1 + k] - p[k] for k in range(3)]
     fresh = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
     gate_d2 = torch.where(pay[0] < 2.5e29, fresh, _BIG)
-    terms = _gn_accumulators(R, p, s[3], s[4:10], pay[1:], gate_d2,
-                             sweep_gate(max_correspondence_dist), float(np.float32(cov_eps)))
-    return _finish(terms.sum(dim=1, dtype=torch.float64), _acc_groups, src_xyz.dtype,
-                   None, False)
+    terms = _gn_accumulators(R, p, s[3], s[4:10], pay[1:], gate_d2, gate, eps)
+    return _finish(terms.sum(dim=1, dtype=torch.float64), groups, ops.dtype, None, False)
 
 
 def _lib() -> ctypes.CDLL:
@@ -386,85 +549,75 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load_library()
     if lib.vgicp_sweep_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vgicp_sweep_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                           ctypes.c_float, ctypes.c_float, p, p, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.vgicp_sweep_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, f, p, p, p]
         lib.vgicp_sweep_launch.restype = i
-        lib.vgicp_sweep_threads.argtypes = []
-        lib.vgicp_sweep_threads.restype = i
-        lib.vgicp_frozen_launch.argtypes = [p, p, p, i, i, i, i, ctypes.c_float,
-                                            ctypes.c_float, p, p]
+        lib.vgicp_sweep_sources_per_block.argtypes = []
+        lib.vgicp_sweep_sources_per_block.restype = i
+        lib.vgicp_frozen_threads.argtypes = []
+        lib.vgicp_frozen_threads.restype = i
+        lib.vgicp_frozen_launch.argtypes = [p, p, p, i, i, i, i, f, f, p, p]
         lib.vgicp_frozen_launch.restype = i
     return lib
 
 
-def _vgicp_sweep_cuda(T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6,
-                      tgt_mask, max_correspondence_dist, cov_eps, ts,
-                      tgt_count, return_best, gate_axis, _acc_groups):
-    global VGICP_SWEEP_LAUNCHES
-    for name, x in (("T", T), ("src_xyz", src_xyz), ("src_mask", src_mask),
-                    ("src_cov6", src_cov6), ("tgt_mean", tgt_mean),
-                    ("tgt_cov6", tgt_cov6), ("tgt_mask", tgt_mask)):
-        if x.dtype != torch.float32:
-            raise ValueError(f"vgicp_sweep kernel takes float32 tensors; {name} "
-                             f"is {x.dtype}")
-    Tk, src, tgt10, cnt, ts, Bk, Nf = _prepare(
-        T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask, ts,
-        tgt_count, gate_axis)
-    if Bk % _acc_groups:
-        raise ValueError(f"{Bk} frames do not split into {_acc_groups} groups")
+def _row_ptr(x, row):
+    """Address of x[row] without making a view (contiguous x)."""
+    return x.data_ptr() + row * x.stride(0) * x.element_size()
+
+
+def _vgicp_sweep_cuda(Tk, ops, gate, eps, return_best, groups):
     lib = _lib()
-    P = tgt10.shape[0]
-    nblk = -(-Nf // lib.vgicp_sweep_threads())
-    # per-block float64 partials: one deterministic sum over blocks below
-    out = torch.empty((Bk, nblk, NUM_ACC), dtype=torch.float64, device=src.device)
-    best = (torch.empty((Bk * Nf // ts, 10, ts), dtype=torch.float32, device=src.device)
-            if return_best else None)
-    with torch.cuda.device(src.device):
+    nblk = -(-ops.per_frame // lib.vgicp_sweep_sources_per_block())
+    dev = ops.src.device
+    # per-block float64 partials, summed on the device by _finish
+    out = torch.empty((ops.frames, nblk, NUM_ACC), dtype=torch.float64, device=dev)
+    best = (torch.empty((ops.frames * ops.per_frame // ops.ts, 10, ops.ts),
+                        dtype=torch.float32, device=dev) if return_best else None)
+    _launch_sweep(Tk, ops, gate, eps, out, best)
+    return _finish(out, groups, ops.dtype, best, return_best)
+
+
+def _launch_sweep(Tk, ops, gate, eps, out, best=None):
+    """The sweep kernel's launches alone, on prepared operands: per-block
+    float64 sums into out (frames, nblk, 30) and, if given, the payload
+    into best. Counts each launch."""
+    global VGICP_SWEEP_LAUNCHES
+    lib = _lib()
+    Nf, P = ops.per_frame, ops.tgt.shape[0]
+    with torch.cuda.device(ops.src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for b0 in range(0, Bk, _GRID_Y_MAX):
-            nb = min(_GRID_Y_MAX, Bk - b0)
+        for b0 in range(0, ops.frames, _GRID_Y_MAX):
+            nb = min(_GRID_Y_MAX, ops.frames - b0)
             rc = lib.vgicp_sweep_launch(
-                Tk[b0].data_ptr(), src[b0 * Nf].data_ptr(), tgt10.data_ptr(),
-                cnt.data_ptr(), nb, Nf, b0 * Nf, P, target_tile_rows(P), ts,
-                sweep_gate(max_correspondence_dist), float(np.float32(cov_eps)),
-                out[b0].data_ptr(), best.data_ptr() if best is not None else None,
-                stream)
+                _row_ptr(Tk, b0), _row_ptr(ops.src, b0 * Nf), ops.tgt.data_ptr(),
+                ops.tgt_cov.data_ptr(), ops.tile_live.data_ptr(), ops.count.data_ptr(), nb,
+                Nf, b0 * Nf, P, ops.tm, ops.ts, gate, eps, _row_ptr(out, b0),
+                best.data_ptr() if best is not None else None, stream)
             if rc != 0:
                 raise RuntimeError(f"vgicp_sweep kernel launch failed: CUDA error "
                                    f"{rc} (B={nb}, N={Nf}, P={P})")
             VGICP_SWEEP_LAUNCHES += 1
-    return _finish(out.sum(dim=1), _acc_groups, src_xyz.dtype, best, return_best)
 
 
-def _vgicp_frozen_cuda(T, src_xyz, src_mask, src_cov6, best, max_correspondence_dist,
-                       cov_eps, _acc_groups):
+def _vgicp_frozen_cuda(Tk, ops, best, gate, eps, groups):
     global VGICP_FROZEN_LAUNCHES
-    for name, x in (("T", T), ("src_xyz", src_xyz), ("src_mask", src_mask),
-                    ("src_cov6", src_cov6), ("best", best)):
-        if x.dtype != torch.float32:
-            raise ValueError(f"vgicp_frozen kernel takes float32 tensors; {name} "
-                             f"is {x.dtype}")
-    if not best.is_contiguous():
-        raise ValueError("vgicp_frozen kernel takes a contiguous best payload")
-    Tk, src, ts, Bk, Nf = _prepare_frozen(T, src_xyz, src_mask, src_cov6, best,
-                                          _acc_groups)
     lib = _lib()
-    nblk = -(-Nf // lib.vgicp_sweep_threads())
-    out = torch.empty((Bk, nblk, NUM_ACC), dtype=torch.float64, device=src.device)
-    with torch.cuda.device(src.device):
+    Nf = ops.per_frame
+    nblk = -(-Nf // lib.vgicp_frozen_threads())
+    out = torch.empty((ops.frames, nblk, NUM_ACC), dtype=torch.float64, device=ops.src.device)
+    with torch.cuda.device(ops.src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for b0 in range(0, Bk, _GRID_Y_MAX):
-            nb = min(_GRID_Y_MAX, Bk - b0)
+        for b0 in range(0, ops.frames, _GRID_Y_MAX):
+            nb = min(_GRID_Y_MAX, ops.frames - b0)
             rc = lib.vgicp_frozen_launch(
-                Tk[b0].data_ptr(), src[b0 * Nf].data_ptr(), best.data_ptr(), nb, Nf,
-                b0 * Nf, ts, sweep_gate(max_correspondence_dist),
-                float(np.float32(cov_eps)), out[b0].data_ptr(), stream)
+                Tk[b0].data_ptr(), ops.src[b0 * Nf].data_ptr(), best.data_ptr(), nb, Nf,
+                b0 * Nf, ops.ts, gate, eps, out[b0].data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(f"vgicp_frozen kernel launch failed: CUDA error "
-                                   f"{rc} (B={nb}, N={Nf}, ts={ts})")
+                                   f"{rc} (B={nb}, N={Nf}, ts={ops.ts})")
             VGICP_FROZEN_LAUNCHES += 1
-    return _finish(out.sum(dim=1), _acc_groups, src_xyz.dtype, None, False)
+    return _finish(out, groups, ops.dtype, None, False)
 
 
 def vgicp_iteration_plain(
@@ -484,37 +637,42 @@ def vgicp_iteration_plain(
     _acc_groups: int = 1,
     max_tile_elems: int = 1 << 24,
 ):
-    """Plain-torch twin of the kernel, on any device: the same tiles, ties
-    averaged within a tile, strict-less across tiles, the same live-tile
-    skip, `max_tile_elems // (Nf * tm)` frames at a time. Sums run in
-    float64 and return as float32. Reads the live count on the host."""
-    Tk, src, tgt10, cnt, ts, Bk, Nf = _prepare(
-        T, src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask, ts,
-        tgt_count, gate_axis)
-    if Bk % _acc_groups:
-        raise ValueError(f"{Bk} frames do not split into {_acc_groups} groups")
-    P = tgt10.shape[0]
-    tm = target_tile_rows(P)
-    live_tiles = max(1, min(-(-P // tm), -(-int(cnt.item()) // tm)))
-    gate = sweep_gate(max_correspondence_dist)
-    eps = float(np.float32(cov_eps))
-    src = src.reshape(Bk, Nf, 10)
-    frames = max(1, max_tile_elems // (Nf * tm))
+    """Plain-torch twin of the kernel, on any device, on the operands the
+    kernel reads (`vgicp_prepare`): the same tiles, every row of a tile
+    swept (masked rows at the penalty), ties averaged within a tile,
+    strict-less across tiles, the same live-tile skip, `max_tile_elems //
+    (Nf * tm)` frames at a time. Sums run in float64 and return as float32.
+    Reads the live count on the host."""
+    ops = vgicp_prepare(src_xyz, src_mask, src_cov6, tgt_mean, tgt_cov6, tgt_mask,
+                        frames=1 if T.dim() == 2 else T.shape[0], ts=ts,
+                        tgt_count=tgt_count, gate_axis=gate_axis)
+    return _sweep_plain(_frames_T(T, ops, _acc_groups), ops,
+                        sweep_gate(max_correspondence_dist), float(np.float32(cov_eps)),
+                        return_best, _acc_groups, max_tile_elems)
+
+
+def _sweep_plain(Tk, ops, gate, eps, return_best, groups, max_tile_elems=1 << 24):
+    P, tm = ops.tgt.shape[0], ops.tm
+    live_tiles = max(1, min(-(-P // tm), -(-int(ops.count.item()) // tm)))
+    payload = torch.cat([ops.tgt[:, :3], ops.tgt_cov[:, :6]], dim=-1)
+    src = ops.src.reshape(ops.frames, ops.per_frame, 10)
+    frames = max(1, max_tile_elems // (ops.per_frame * tm))
     accs, bests = [], []
-    for f0 in range(0, Bk, frames):
-        acc, best = _plain_chunk(Tk[f0:f0 + frames], src[f0:f0 + frames], tgt10,
+    for f0 in range(0, ops.frames, frames):
+        acc, best = _plain_chunk(Tk[f0:f0 + frames], src[f0:f0 + frames], ops.tgt, payload,
                                  tm, live_tiles, gate, eps)
         accs.append(acc)
         bests.append(best)
     best = None
     if return_best:
-        best = torch.cat(bests).reshape(-1, ts, 10).transpose(1, 2).contiguous()
-    return _finish(torch.cat(accs), _acc_groups, src_xyz.dtype, best, return_best)
+        best = torch.cat(bests).reshape(-1, ops.ts, 10).transpose(1, 2).contiguous()
+    return _finish(torch.cat(accs), groups, ops.dtype, best, return_best)
 
 
-def _plain_chunk(T, src, tgt10, tm, live_tiles, gate, eps):
-    """(b,4,4), (b,Nf,10) sources -> ((b,30) float64 sums, (b,Nf,10) best
-    rows [d2, mean3, cov6])."""
+def _plain_chunk(T, src, tgt, payload, tm, live_tiles, gate, eps):
+    """(b,4,4), (b,Nf,10) sources against targets (P,4) [mean3, penalty]
+    with payloads (P,9) [mean3, cov6] -> ((b,30) float64 sums, (b,Nf,10)
+    best rows [d2, mean3, cov6])."""
     R = [[T[:, r, c, None] for c in range(3)] for r in range(3)]
     s = [src[..., k] for k in range(10)]
     # p = R s + t, summed left to right: (b, Nf) per coordinate
@@ -523,15 +681,16 @@ def _plain_chunk(T, src, tgt10, tm, live_tiles, gate, eps):
     best_d2 = torch.full_like(p[0], _BIG)
     best_pay = torch.zeros(p[0].shape + (9,), dtype=p[0].dtype, device=p[0].device)
     for j in range(live_tiles):
-        t = tgt10[j * tm:(j + 1) * tm]                        # (rows, 10)
-        d2 = t[:, 9]
+        t = tgt[j * tm:(j + 1) * tm]                          # (rows, 4)
+        d2 = t[:, 3]
         for k in range(3):
             diff = t[:, k] - p[k][..., None]                  # (b, Nf, rows)
             d2 = d2 + diff * diff
         dmin = torch.amin(d2, dim=-1)
         onehot = (d2 <= dmin[..., None]).to(d2.dtype)
         del d2
-        pay = (onehot @ t[:, :9]) / torch.clamp(onehot.sum(dim=-1), min=1.0)[..., None]
+        pay = ((onehot @ payload[j * tm:(j + 1) * tm])
+               / torch.clamp(onehot.sum(dim=-1), min=1.0)[..., None])
         del onehot
         better = dmin < best_d2
         best_d2 = torch.where(better, dmin, best_d2)

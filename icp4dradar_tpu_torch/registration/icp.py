@@ -6,13 +6,16 @@ Behavioral spec: PCL `pcl::IterativeClosestPoint` as used by the reference
 rigid update per iteration, fitness = mean squared correspondence distance
 (`getFitnessScore`, :516, :520).
 
-B frame pairs register together: each iteration is ONE moments launch over
-all pairs (`ops/icp_fused.py`), with the rigid update recovered from 19
-scalars per pair by Horn's method. Pairs freeze once converged, as the JAX
-package's vmapped `lax.while_loop` freezes finished lanes: each pair keeps
-its own transform, step and iteration count, so a pair's result equals the
-unbatched call. The loop ends when no pair is active, which costs one host
-sync per iteration.
+B frame pairs register together: the clouds are prepared once
+(`icp_prepare`: packed for the kernel on the card), and each iteration is
+ONE moments launch over all pairs (`ops/icp_fused.py`), with the rigid
+update recovered from 19 scalars per pair by Horn's method. Pairs freeze
+once converged, as the JAX package's vmapped `lax.while_loop` freezes
+finished lanes: each pair keeps its own transform, step and iteration
+count, so a pair's result equals the unbatched call. A frozen pair is not
+swept again (the pass takes the active mask, on the device); the final
+fitness pass sweeps every pair. The loop ends when no pair is active,
+which costs one host sync per iteration.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 from icp4dradar_tpu_torch.config import IcpConfig
 from icp4dradar_tpu_torch.geom.se3 import se3_log
 from icp4dradar_tpu_torch.ops.icp_fused import (
-    icp_iteration_moments,
+    icp_moments,
+    icp_prepare,
     moments_to_transform,
 )
 
@@ -63,12 +67,11 @@ def icp_point_to_point(
         tgt_mask = torch.ones(tgt_xyz.shape[:2], dtype=dt, device=dev)
     if init_transform is None:
         init_transform = torch.eye(4, dtype=dt, device=dev).expand(B, 4, 4)
-    src_xyz, tgt_xyz = src_xyz.contiguous(), tgt_xyz.contiguous()
-    src_mask, tgt_mask = src_mask.contiguous(), tgt_mask.contiguous()
+    ops = icp_prepare(src_xyz.contiguous(), src_mask.contiguous(), tgt_xyz.contiguous(),
+                      tgt_mask.contiguous())
 
-    def moments(T):
-        return icp_iteration_moments(T, src_xyz, src_mask, tgt_xyz, tgt_mask,
-                                     cfg.max_correspondence_dist)
+    def moments(T, active=None):
+        return icp_moments(T, ops, cfg.max_correspondence_dist, active)
 
     T = init_transform.to(dt).contiguous()
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -77,7 +80,8 @@ def icp_point_to_point(
     for _ in range(cfg.max_iterations):
         if not bool(active.any()):
             break
-        dT, _ = moments_to_transform(moments(T))
+        # frozen pairs get zero moments (an identity step) and keep T anyway
+        dT, _ = moments_to_transform(moments(T, active))
         T = torch.where(active[:, None, None], dT @ T, T).contiguous()
         delta = torch.where(active, torch.sum(torch.abs(se3_log(dT)), dim=-1),
                             delta)

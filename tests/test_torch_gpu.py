@@ -75,6 +75,51 @@ def test_exact_ties_average(cuda):
     assert m[16].item() == 5.0
 
 
+def test_three_way_ties_and_inactive_pairs(cuda):
+    """Pair 0: four targets at d2 = 5 from source 0 at the origin (rows 1,
+    40, 900 and 2000: two in the kernel's first 64-row chunk, then two
+    chunks later) average to (0.25, 0.75, 0.5); two at d2 = 5 from source 1
+    at (30, 0, 0), only in different chunks, to (31.5, 1.5, 0). Pair 1:
+    sources masked in between; pair 2 inactive: a zero row, and the other
+    rows identical to the call without the mask."""
+    B, N, M = 3, 600, 2048
+    T, src, sm, tgt, tm = _case(np.random.default_rng(7), B, N, M, cuda)
+    tgt[0] = 60.0
+    for row, v in ((1, (2., 1., 0.)), (40, (1., 2., 0.)), (900, (-2., 1., 0.)),
+                   (2000, (0., -1., 2.)), (100, (32., 1., 0.)), (1500, (31., 2., 0.))):
+        tgt[0, row] = torch.tensor(v, device=cuda)
+    tm[0] = 1.0
+    tm[0, 500:700] = 0.0
+    T[0] = torch.eye(4, device=cuda)
+    src[0, 0] = 0.0
+    src[0, 1] = torch.tensor([30.0, 0.0, 0.0], device=cuda)
+    sm[0, :2] = 1.0
+    sm[1, ::3] = 0.0
+    k = icp_iteration_moments(T, src, sm, tgt, tm)
+    torch.testing.assert_close(k, icp_iteration_moments_plain(T, src, sm, tgt, tm),
+                               rtol=RTOL, atol=ATOL)
+    two = icp_iteration_moments(T[0], src[0, :2], sm[0, :2], tgt[0], tm[0])
+    assert two[4:7].tolist() == [31.75, 2.25, 0.5] and two[16].item() == 10.0
+    active = torch.tensor([True, True, False], device=cuda)
+    ka = icp_iteration_moments(T, src, sm, tgt, tm, active=active)
+    assert torch.equal(ka[:2], k[:2]) and ka[2].abs().max().item() == 0.0
+    pa = icp_iteration_moments_plain(T, src, sm, tgt, tm, active=active)
+    torch.testing.assert_close(ka, pa, rtol=RTOL, atol=ATOL)
+
+
+def test_prepared_clouds_match_per_call(cuda):
+    from icp4dradar_tpu_torch.ops.icp_fused import icp_moments, icp_prepare
+
+    T, src, sm, tgt, tm = _case(np.random.default_rng(9), 4, 700, 3000, cuda)
+    ops = icp_prepare(src, sm, tgt, tm)
+    src4, src_live, tgt4, tgt_live = ops.packed
+    assert torch.equal(src_live, (sm != 0).sum(1, dtype=torch.int32))
+    assert torch.equal(tgt4[0, :int(tgt_live[0]), :3], tgt[0][tm[0] > 0.5])
+    for step in (0.0, 0.01):
+        Ts = (se3_exp(torch.full((4, 6), step)) @ T.cpu()).to(cuda).contiguous()
+        assert torch.equal(icp_moments(Ts, ops), icp_iteration_moments(Ts, src, sm, tgt, tm))
+
+
 def test_rejects_what_the_kernel_does_not_take(cuda):
     T, src, sm, tgt, tm = _case(np.random.default_rng(2), 2, 64, 64, cuda)
     with pytest.raises(ValueError):
@@ -166,6 +211,66 @@ def test_vgicp_kernel_exact_ties(cuda):
     assert best[:4, 1].tolist() == [2.0, 20.0, 0.0, 0.0]
     p = vgicp_iteration_plain(*args, max_correspondence_dist=3.0, ts=8, return_best=True)
     _assert_vgicp_close(k, p)
+
+
+def test_vgicp_kernel_three_way_ties_across_row_ranges(cuda):
+    """Three rows of one tile at d2 = 5 from source 0, in three different
+    warps' row ranges (rows 3, 400, 1000 of 1024 live), average in row
+    order; masked rows between them are skipped."""
+    P = 1024
+    tgt = torch.full((P, 3), 90.0)
+    for row, v in ((3, (2., 1., 0.)), (400, (1., 2., 0.)), (1000, (-2., 1., 0.))):
+        tgt[row] = torch.tensor(v)
+    tcov = torch.zeros((P, 6))
+    tcov[:, :3] = torch.arange(P, dtype=torch.float32)[:, None] / 64.0
+    tmask = torch.ones(P)
+    tmask[100:300] = 0.0
+    src = torch.tensor([[0.0, 0.0, 0.0], [20.0, 0.0, 0.0]])
+    args = [x.to(cuda) for x in (torch.eye(4), src, torch.ones(2),
+                                 radar_point_covariances_packed(src), tgt, tcov, tmask)]
+    k = vgicp_iteration(*args, max_correspondence_dist=3.0, ts=8, return_best=True)
+    best = k[5][0].cpu()
+    three = np.float32(3.0)
+    assert best[:4, 0].tolist() == [5.0, float(np.float32(1.0) / three),
+                                    float(np.float32(4.0) / three), 0.0]
+    want = float(np.float32((3 + 400 + 1000) / 64.0) / three)
+    assert best[4, 0].item() == want
+    p = vgicp_iteration_plain(*args, max_correspondence_dist=3.0, ts=8, return_best=True)
+    _assert_vgicp_close(k, p)
+
+
+def test_vgicp_prepared_operands_match_per_call(cuda):
+    """The prepared path (operands packed once, swept at several T) gives
+    what the per-call path gives, for the sweep, the batched sweep and the
+    frozen step; neither call copies anything from the host."""
+    from icp4dradar_tpu_torch.ops.vgicp_fused import vgicp_frozen, vgicp_prepare, vgicp_sweep
+
+    B, N, P = 4, 512, 3000
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _vgicp_case(
+        np.random.default_rng(17), B, N, P, 2500, cuda)
+    ops = vgicp_prepare(src, sm, scov, tgt, tcov, tmask, ts=128, tgt_count=cnt)
+    one = vgicp_prepare(src[0], sm[0], scov[0], tgt, tcov, tmask, ts=128, tgt_count=cnt)
+    for step in (0.0, 0.02):
+        Ts = (se3_exp(torch.full((B, 6), step)) @ T.cpu()).to(cuda).contiguous()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            kb = vgicp_sweep(Ts, ops, return_best=True, _acc_groups=B)
+            k1 = vgicp_sweep(Ts[0], one, return_best=True)
+            f1 = vgicp_frozen(Ts[0], one, k1[5])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        wb = vgicp_iteration_batch(Ts, src, sm, scov, tgt, tcov, tmask, ts=128, tgt_count=cnt,
+                                   return_best=True)
+        w1 = vgicp_iteration(Ts[0], src[0], sm[0], scov[0], tgt, tcov, tmask, ts=128,
+                             tgt_count=cnt, return_best=True)
+        g1 = vgicp_iteration_frozen(Ts[0], src[0], sm[0], scov[0], k1[5])
+        for a, b in zip(kb + k1 + f1, wb + w1 + g1):
+            assert torch.equal(a, b)
+    # all frames summed into one result: the per-block rows summed by torch
+    ka = vgicp_sweep(T, ops, _acc_groups=1)
+    pa = vgicp_iteration_plain(T, src.reshape(B * N, 3), sm.reshape(B * N),
+                               scov.reshape(B * N, 6), tgt, tcov, tmask, ts=128, tgt_count=cnt)
+    _assert_vgicp_close(ka, pa)
 
 
 def test_vgicp_kernel_rejects_what_it_does_not_take(cuda):

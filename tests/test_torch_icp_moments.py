@@ -79,6 +79,100 @@ def test_exact_ties_average_like_pallas(tile_m):
     np.testing.assert_allclose(m_port[16], 5.0, rtol=1e-6)
 
 
+def test_four_way_ties_with_masked_rows_like_pallas():
+    """Four targets at exactly d2 = 5 from source 0 (masked rows between
+    them) and two from source 1, dyadic coordinates: every summation order
+    gives the same mean, so the Pallas kernel and the port agree exactly."""
+    tgt = np.full((300, 3), 60.0, np.float32)
+    for row, v in ((1, (2, 1, 0)), (40, (1, 2, 0)), (150, (-2, 1, 0)), (290, (0, -1, 2)),
+                   (100, (32, 1, 0)), (250, (31, 2, 0))):
+        tgt[row] = v
+    tm = np.ones(300, np.float32)
+    tm[50:90] = 0.0
+    src = np.asarray([[0, 0, 0], [30, 0, 0]], np.float32)
+    m_pal, m_port = _moments_both(np.eye(4, dtype=np.float32), src, np.ones(2, np.float32),
+                                  tgt, tm, tile_m=64)
+    np.testing.assert_array_equal(m_port, m_pal)
+    np.testing.assert_array_equal(m_port[4:7], [31.75, 2.25, 0.5])
+    assert m_port[16] == 10.0
+
+
+def test_active_mask_zeroes_inactive_pairs():
+    rng = np.random.default_rng(13)
+    pairs = [_pair(rng, 90, 120) for _ in range(3)]
+    stacked = [torch.tensor(np.stack([p[i] for p in pairs])) for i in range(5)]
+    full = pf.icp_iteration_moments(*stacked)
+    active = torch.tensor([True, False, True])
+    part = pf.icp_iteration_moments(*stacked, active=active)
+    assert torch.equal(part[active], full[active])
+    assert part[1].abs().max().item() == 0.0
+    ops = pf.icp_prepare(*stacked[1:])
+    assert ops.packed is None                      # the CPU keeps the caller's layout
+    assert torch.equal(pf.icp_moments(stacked[0], ops, active=active), part)
+    with pytest.raises(ValueError):
+        pf.icp_moments(stacked[0], ops, active=torch.ones(2, dtype=torch.bool))
+
+
+def test_pack_live_first_keeps_row_order():
+    rng = np.random.default_rng(1)
+    xyz = torch.tensor(rng.normal(size=(3, 50, 3)).astype(np.float32))
+    mask = torch.tensor((rng.uniform(size=(3, 50)) > 0.4).astype(np.float32))
+    mask[2] = 0.0                                   # nothing live: original order
+    packed, live = pf._pack_live_first(xyz, mask, mask > 0.5)
+    assert live.tolist() == [int(m.sum()) for m in mask] and live.dtype == torch.int32
+    for b in range(3):
+        on = mask[b] > 0.5
+        order = torch.cat([torch.nonzero(on).flatten(), torch.nonzero(~on).flatten()])
+        assert torch.equal(packed[b, :, :3], xyz[b, order])
+        assert torch.equal(packed[b, :, 3], mask[b, order])
+
+
+def _seed_icp_loop(src, tgt, sm, tm, cfg):
+    """The ICP loop as it ran before frozen pairs were skipped: every pair
+    swept at every iteration, frozen pairs' moments thrown away."""
+    from icp4dradar_tpu_torch.geom.se3 import se3_log
+
+    B = src.shape[0]
+    T = torch.eye(4).expand(B, 4, 4).contiguous()
+    iters = torch.zeros(B, dtype=torch.int32)
+    delta = torch.full((B,), float("inf"))
+    active = torch.ones(B, dtype=torch.bool)
+    for _ in range(cfg.max_iterations):
+        if not bool(active.any()):
+            break
+        dT, _ = pf.moments_to_transform(pf.icp_iteration_moments(
+            T, src, sm, tgt, tm, cfg.max_correspondence_dist))
+        T = torch.where(active[:, None, None], dT @ T, T).contiguous()
+        delta = torch.where(active, torch.sum(torch.abs(se3_log(dT)), dim=-1), delta)
+        iters = iters + active.to(torch.int32)
+        active = (iters < cfg.max_iterations) & (delta > cfg.transformation_epsilon)
+    gm = pf.icp_iteration_moments(T, src, sm, tgt, tm, cfg.max_correspondence_dist)
+    return T, iters, gm
+
+
+def test_icp_frozen_pair_skip_is_bit_exact():
+    """Skipping converged pairs changes no bit of the CPU result: the
+    transforms, iteration counts and final moments of the loop that swept
+    every pair at every iteration."""
+    rng = np.random.default_rng(11)
+    B, n = 3, 120
+    cfg = IcpConfig()
+    tgt = (rng.normal(size=(B, n, 3)) * 8.0).astype(np.float32)
+    xi = (rng.normal(size=(B, 6)) * [1.0, 1.0, 0.3, 0.05, 0.05, 0.1]).astype(np.float32)
+    xi[2] *= 0.001                                   # converges first
+    T_true = np.asarray(j_se3_exp(jnp.asarray(xi)))
+    src = np.einsum("bij,bnj->bni", T_true[:, :3, :3].transpose(0, 2, 1),
+                    tgt - T_true[:, None, :3, 3]).astype(np.float32)
+    sm = (rng.uniform(size=(B, n)) > 0.1).astype(np.float32)
+    tm = np.ones((B, n), np.float32)
+    args = _t(src, tgt, sm, tm)
+    res = p_icp(*args, cfg=cfg)
+    T, iters, gm = _seed_icp_loop(args[0], args[1], args[2], args[3], cfg)
+    assert len(set(res.iterations.tolist())) > 1
+    assert torch.equal(res.transform, T) and torch.equal(res.iterations, iters)
+    assert torch.equal(res.fitness, gm[:, 17] / torch.clamp(gm[:, 18], min=1e-9))
+
+
 def test_duplicated_target_rows_like_pallas():
     src = np.asarray([[0.2, -0.1, 0.3]], np.float32)
     t_near = np.asarray([0.5, 0.0, 0.2], np.float32)

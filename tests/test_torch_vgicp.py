@@ -155,6 +155,104 @@ def test_exact_ties_within_and_across_tiles():
     np.testing.assert_array_equal(best[4:, 1], (tcov[1100] + tcov[1800]) / 2)
 
 
+def test_three_way_ties_with_masked_rows():
+    """Three rows of one tile at d2 = 5 from source 0, masked rows between
+    them (the port packs each tile's live rows first), dyadic means and
+    covariances: every summation order gives the same payload, so the
+    Pallas kernel and the port agree exactly."""
+    P = 1024
+    tgt = np.full((P, 3), 90.0, np.float32)
+    tgt[3], tgt[400], tgt[1000] = (2, 1, 0), (1, 2, 0), (-2, 1, 0)
+    tcov = np.zeros((P, 6), np.float32)
+    tcov[:, :3] = np.arange(P, dtype=np.float32)[:, None] / 64.0
+    tmask = np.ones(P, np.float32)
+    tmask[100:300] = 0.0
+    src = np.asarray([[0, 0, 0], [20, 0, 0]], np.float32)
+    scov = np.asarray(jv.radar_point_covariances_packed(jnp.asarray(src)))
+    jo, po = _both(np.eye(4, dtype=np.float32), src, np.ones(2, np.float32), scov, tgt, tcov,
+                   tmask, P, ts=8, max_correspondence_dist=3.0)
+    _assert_sweep(jo, po)
+    best = po[5].numpy()[0]
+    three = np.float32(3.0)
+    np.testing.assert_array_equal(best[:4, 0], [5.0, np.float32(1.0) / three,
+                                                np.float32(4.0) / three, 0.0])
+    np.testing.assert_array_equal(best[4:7, 0], np.float32(1403 / 64.0) / three)
+
+
+def test_prepared_targets_pack_each_tile_live_first():
+    rng = np.random.default_rng(8)
+    P = 2100                                            # tiles of 1024, 1024, 52
+    mean = torch.tensor(rng.uniform(-9, 9, (P, 3)).astype(np.float32))
+    cov = torch.tensor(_covs(rng, P))
+    mask = torch.tensor((rng.uniform(size=P) > 0.3).astype(np.float32))
+    mask[1024:2048] = 0.0                               # tile 1: nothing live
+    src = torch.zeros((4, 3))
+    ops = pv.vgicp_prepare(src, torch.ones(4), torch.zeros((4, 6)), mean, cov, mask,
+                           tgt_count=torch.tensor(1500))
+    assert ops.tm == 1024 and ops.count.tolist() == [1500]
+    assert ops.tile_live.tolist() == [int(mask[:1024].sum()), 0, int(mask[2048:].sum())]
+    for j in range(3):
+        rows = torch.arange(j * 1024, min(P, (j + 1) * 1024))
+        on = mask[rows] > 0.5
+        order = torch.cat([rows[on], rows[~on]])
+        assert torch.equal(ops.tgt[rows, :3], mean[order])
+        assert torch.equal(ops.tgt[rows, 3], torch.where(mask[order] > 0.5, 0.0, 1e30))
+        assert torch.equal(ops.tgt_cov[rows, :6], cov[order])
+    assert float(ops.tgt_cov[:, 6:].abs().max()) == 0.0
+
+
+def test_unpack_accumulators_is_symmetric_upper_packing():
+    acc = torch.arange(2 * 30, dtype=torch.float64).reshape(2, 30)
+    H, g, cost, wsum, d2sum = pv._unpack_accumulators(acc)
+    iu = torch.triu_indices(6, 6)
+    want = torch.zeros((2, 6, 6))
+    want[:, iu[0], iu[1]] = acc[:, :21].float()
+    want[:, iu[1], iu[0]] = acc[:, :21].float()
+    assert torch.equal(H, want) and torch.equal(g, acc[:, 21:27].float())
+    assert torch.equal(cost, acc[:, 27]) and torch.equal(d2sum, acc[:, 29])
+
+
+@pytest.mark.parametrize("path", ["single", "batch", "frozen"])
+def test_prepared_operands_match_per_call(path):
+    """Operands packed once and swept at several transforms give what the
+    per-call functions give (they prepare for one call and sweep)."""
+    rng = np.random.default_rng(31)
+    B, N, P = 3, 256, 1500
+    src = torch.tensor(rng.uniform(-20, 20, (B, N, 3)).astype(np.float32))
+    sm = torch.tensor((rng.uniform(size=(B, N)) > 0.2).astype(np.float32))
+    scov = pv.radar_point_covariances_packed(src)
+    tgt = torch.tensor(rng.uniform(-20, 20, (P, 3)).astype(np.float32))
+    tcov = torch.tensor(_covs(rng, P))
+    tmask = torch.tensor((rng.uniform(size=P) > 0.25).astype(np.float32))
+    cnt = torch.tensor(1400, dtype=torch.int32)
+    kw = dict(max_correspondence_dist=3.0)
+    if path == "batch":
+        ops = pv.vgicp_prepare(src, sm, scov, tgt, tcov, tmask, ts=128, tgt_count=cnt)
+    else:
+        ops = pv.vgicp_prepare(src[0], sm[0], scov[0], tgt, tcov, tmask, ts=128,
+                               tgt_count=cnt)
+    for step in (0.0, 0.03):
+        T = torch.tensor(np.stack([_pose([0.1 * b + step, -0.2, 0.05, 0.02, step, 0.1 * b])
+                                   for b in range(B)]))
+        if path == "batch":
+            got = pv.vgicp_sweep(T, ops, return_best=True, _acc_groups=B, **kw)
+            want = pv.vgicp_iteration_batch(T, src, sm, scov, tgt, tcov, tmask, ts=128,
+                                            tgt_count=cnt, return_best=True, **kw)
+        else:
+            got = pv.vgicp_sweep(T[0], ops, return_best=True, **kw)
+            want = pv.vgicp_iteration(T[0], src[0], sm[0], scov[0], tgt, tcov, tmask,
+                                      ts=128, tgt_count=cnt, return_best=True, **kw)
+        if path == "frozen":
+            T1 = T[0] @ torch.tensor(_pose([0.01, 0.0, 0.0, 0.0, 0.002, 0.0]))
+            got = pv.vgicp_frozen(T1, ops, want[5], **kw)
+            want = pv.vgicp_iteration_frozen(T1, src[0], sm[0], scov[0], want[5], **kw)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError):                     # operands of one frame
+        pv.vgicp_sweep(T, ops if path != "batch" else pv.vgicp_prepare(src[0], sm[0],
+                                                                       scov[0]), **kw)
+
+
 def test_batch_matches_separate_calls():
     rng = np.random.default_rng(2)
     B, N, P = 3, 256, 1500
