@@ -3,7 +3,7 @@
 NVIDIA GPU: the quickest proof that the port builds, agrees with its plain
 versions and runs its main path at full size.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 1. device  — requires CUDA; prints torch/CUDA versions and the card's name
@@ -60,9 +60,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 7. gicp    — the kNN-GICP tracker: the first 64 frames of the bench
              sequence through run_scan_to_map(gicp.use_vgicp=False,
              use_const_velocity_rot=True): warm-up, then one timed run with
-             the 1-NN launch count reset just before and read just after (it
-             must equal the GN iterations plus one fitness search per
-             frame). Fails on non-finite outputs, on a lost frame (fitness
+             the 1-NN launch counts reset just before and read just after
+             (searches must equal the GN iterations plus one fitness
+             search per frame, packings one per frame). Fails on
+             non-finite outputs, on a lost frame (fitness
              1e6, or nothing matched after the first frame) or on an ATE
              (align=False) above 0.09 m. A third run prints the host-clock
              phase split. Also checks CUDA against CPU on a 12 x 256 scene
@@ -70,32 +71,50 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              ATE within 0.01 m, and the registration alone on identical
              inputs within 5e-3 (its float32 round-off, measured against
              float64 on the CPU).
-8. knn     — the 1-NN kernels (index and coordinate forms) against their
-             plain version on the card: a bench scan at its tracked pose
-             against the 16,384-row sector submap of phase 7's final map, a
-             fully live 16,384-row submap, a ragged masked case, exact ties
-             within and across row ranges, and all targets masked; indices,
-             distances and coordinates must be equal. Times both at the path
-             shape (CUDA events, in turns plain / kernel / kernel / plain),
-             and the search's two launches alone on buffers made once.
+8. knn     — the 1-NN search (K2: the per-call `nearest_neighbor`, and
+             `nn_search` on targets packed once by `nn_prepare`) and its
+             coordinate form (K3) against their plain versions on the card:
+             a bench scan at its tracked pose against the 16,384-row sector
+             submap of phase 7's final map, a fully live 16,384-row submap,
+             a ragged masked case, exact ties within and across cluster
+             ranks, all targets masked, and one live row 2e15 m away among
+             masked rows (the fallback re-scan: masked row 0 wins);
+             indices, distances and coordinates must be equal, and the
+             packing kernel's rows equal to its plain version's stable
+             sort. Times at the path shape (CUDA events, in turns): the
+             call on prepared targets, its one launch alone, the packing
+             and its plain version, the per-call search, K3 and the plain
+             search; a prepared search must launch one nn_search_kernel and
+             a packing one nn_pack_kernel, and nothing else (profiler).
 9. inner   — the per-frame VGICP tracker on the same 64 frames, with
              gicp.inner_gn_steps 0 and then 1 (warm-up, then one timed run
              each, counts reset before it): ATE within 0.0252 +- 0.01 m
              without inner steps; with one, frozen-pass launches must equal
              sweep launches, GN iterations their sum, no frame lost, and the
              ATE at most 1.5 x the first run's + 0.005 m.
-10. frozen — the frozen-payload GN kernel against its plain version on the
-             card, on real sweep payloads of phase 9's map (one frame, and
-             8 frames in per-frame groups) under perturbed transforms, with
-             rows marked never matched and an empty payload; tolerance rtol
-             1e-5 / atol 1e-4. Times both at one 2048-point frame, the call
-             on prepared sources and the launch alone.
-11. profile — one torch.profiler run of each tracker: device kernel time,
-             kernel launches, the top kernels, and the device's idle share
-             against the unprofiled run time. Then the host synchronisations
-             (stream / device synchronise calls and host-to-device copies)
-             per K4 and K5 call on prepared operands, which must be none,
-             and per K4 call of the per-call wrapper.
+10. frozen — the frozen-payload GN step (K5) against its plain version on
+             the card, on real sweep payloads of phase 9's map (one frame,
+             and 8 frames in per-frame groups and in one group) under
+             perturbed transforms, with rows marked never matched and an
+             empty payload; tolerance rtol 1e-5 / atol 1e-4; two launches
+             on the same inputs bit-identical. Times at one 2048-point
+             frame: the call on prepared sources, which must launch one
+             vgicp_frozen_kernel and nothing else (profiler), and the
+             launch alone.
+11. profile — one torch.profiler run of each tracker (s2s, s2m, kNN GICP,
+             and the inner-step run): device kernel time, kernel launches,
+             the top kernels, and the device's idle share against the
+             unprofiled run time; the kNN-GICP and inner-step runs list
+             every kernel they launched (no nn_merge_kernel on the kNN-GICP
+             path). Then the host synchronisations (stream / device
+             synchronise calls and host-to-device copies) per K4, K5 and K2
+             call on prepared operands and per K2 packing, which must be
+             none, and per K4 call of the per-call wrapper.
+12. ab     — only with `--parent DIR` (a `git archive` of the parent commit
+             unpacked at DIR): the K2 and K5 calls of both trees at the path
+             shapes, each tree in its own process, in turns (parent, this
+             tree, this tree, parent), with each call's kernels and device
+             time (profiler).
 
 The kernels' bounds come from the shapes and this run's data (bytes over
 3.35 TB/s, FP32 operations over 67 TFLOP/s, the H100 SXM data sheet). The
@@ -105,6 +124,7 @@ card's name and power limit; the last line is
 """
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -226,9 +246,10 @@ def time_cuda(torch, fn, reps=10, warmup=2):
 
 
 def kernel_device_ms(torch, fn, keys, calls=20):
-    """Device time per call of fn spent in the kernels whose names hold one
-    of `keys`, from a torch.profiler trace of `calls` calls (None when the
-    profiler saw no device time)."""
+    """Device time per launch of the kernels whose names hold one of
+    `keys`, from a torch.profiler trace of `calls` calls of fn: their time
+    over the launches the trace holds (it may miss a few at its start;
+    None when it saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -238,9 +259,68 @@ def kernel_device_ms(torch, fn, keys, calls=20):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == cuda and any(k in e.key for k in keys))
-    return us / 1e3 / calls if us > 0 else None
+    ev = [e for e in prof.key_averages()
+          if e.device_type == cuda and any(k in e.key for k in keys)]
+    us, n = sum(e.self_device_time_total for e in ev), sum(e.count for e in ev)
+    return us / 1e3 / n if us > 0 else None
+
+
+def call_kernels(torch, fn, calls=20):
+    """{kernel name: (launches per call, device ms per launch)} of fn, from
+    a torch.profiler trace of `calls` calls (None when the profiler saw no
+    device time). The launches read low when the trace misses one at its
+    start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    res = {}
+    for e in prof.key_averages():
+        if e.device_type == cuda and e.self_device_time_total > 0:
+            name = kernel_name(e.key)
+            n, t = res.get(name, (0, 0.0))
+            res[name] = (n + e.count, t + e.self_device_time_total / 1e3)
+    return {k: (n / calls, t / n) for k, (n, t) in res.items()} or None
+
+
+def call_device_ms(kernels):
+    """Device time of one call: each kernel's time a launch times its
+    launches a call, rounded to whole launches."""
+    return sum(t * max(1, round(n)) for n, t in kernels.values())
+
+
+def kernel_name(key):
+    """A short name for a profiler kernel key: the word holding `_kernel`
+    (the port's kernels, torch's elementwise and reduce kernels), else the
+    last part of the qualified name."""
+    m = re.search(r"\w*_kernel\w*", key)
+    if m:
+        return m.group(0)
+    m = re.match(r"[A-Za-z_][\w:]*", re.sub(r"^void ", "", key))
+    name = m.group(0).split("::")[-1] if m else ""
+    return name or key[:60]
+
+
+def fmt_kernels(kernels):
+    if kernels is None:
+        return "not measured"
+    return ", ".join(f"{k} x{n:g} {t:.4f} ms a launch"
+                     for k, (n, t) in sorted(kernels.items()))
+
+
+def check_one_kernel(tag, kernels, name):
+    """Raises unless the calls launched `name`, at most once a call, and no
+    other kernel (no check when the profiler saw no device time; the trace
+    may miss a few launches at its start, the launch counters count
+    them)."""
+    if kernels is not None and (set(kernels) != {name} or kernels[name][0] > 1.0):
+        raise RuntimeError(f"[{tag}] one call launched {fmt_kernels(kernels)}; expected one "
+                           f"{name} and nothing else")
 
 
 def fmt_ms(x):
@@ -745,7 +825,7 @@ def phase_vgicp(torch, state, out, s2m):
     bound_ms, bound_by = roofline(nbytes, flops)
     log(f"[vgicp] time at B={B} x {N} x {P} rows ({count} live): the call on prepared "
         f"operands {c1:.4f} / {c2:.4f} ms, the launch alone {l1:.4f} / {l2:.4f} ms (device "
-        f"time {fmt_ms(None if dev_ms is None else dev_ms / calls)} a launch, profiler), the "
+        f"time {fmt_ms(dev_ms)} a launch, profiler), the "
         f"per-call wrapper (packing included) {w1:.4f} / {w2:.4f} ms, plain {p1:.4f} / "
         f"{p2:.4f} ms; bound {bound_ms:.5f} ms ({bound_by})")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -812,18 +892,20 @@ def phase_gicp(torch, seq, scans):
 
     def reset():
         nn.NN_SEARCH_LAUNCHES = 0
+        nn.NN_PACK_LAUNCHES = 0
 
     (state, out), dt, peak = _timed_tracker(torch, "gicp", run, reset)
-    launches = nn.NN_SEARCH_LAUNCHES
+    launches, packs = nn.NN_SEARCH_LAUNCHES, nn.NN_PACK_LAUNCHES
     its = out.iterations.cpu().numpy()
     log(f"[gicp] {F} frames in {dt * 1e3:.2f} ms = {F / dt:.2f} scans/s; peak device "
         f"memory {peak:.2f} GiB")
     log(f"[gicp] nn_search launches {launches}, expected {int(its.sum()) + F} (GN "
-        f"iterations {int(its.sum())} + {F} fitness searches); GN iterations per frame "
-        f"mean {its.mean():.2f}, max {int(its.max())}")
-    if launches <= 0 or launches != int(its.sum()) + F:
-        raise RuntimeError(f"[gicp] launch count {launches} != iterations "
-                           f"{int(its.sum())} + {F}")
+        f"iterations {int(its.sum())} + {F} fitness searches); nn_pack launches {packs}, "
+        f"expected {F} (one a registration); GN iterations per frame mean "
+        f"{its.mean():.2f}, max {int(its.max())}")
+    if launches <= 0 or launches != int(its.sum()) + F or packs != F:
+        raise RuntimeError(f"[gicp] launch counts {launches} / {packs} != iterations "
+                           f"{int(its.sum())} + {F} / {F}")
     _check_track("gicp", torch, out, F)
     poses = out.world_T.cpu().numpy()
     ate = ate_rmse(poses[:, :3, 3], seq.poses[:F, :3, 3], align=False)
@@ -889,7 +971,7 @@ def phase_gicp(torch, seq, scans):
         "float64: " + ", ".join(f"{e:.2e} ({a}/{b}) and {f:.2e}" for e, a, b, f in reg))
     if max(e for e, _, _, _ in reg) > 5e-3:
         raise RuntimeError("[gicp] CUDA and CPU registrations disagree")
-    return launches, state, out, track
+    return (launches, packs), state, out, track
 
 
 def phase_knn(torch, state, out, track):
@@ -906,15 +988,26 @@ def phase_knn(torch, state, out, track):
     nn.NN_COORDS_LAUNCHES = 0
 
     def both(name, src, tgt, mask):
+        """The per-call search, the prepared search and the coordinate form
+        against the all-rows plain version and the prepared plain version:
+        all equal."""
         ki, kd = nn.nearest_neighbor(src, tgt, mask)
         kd2, kq = nn.nearest_neighbor_with_coords(src, tgt, mask)
+        ops = nn.nn_prepare(tgt, mask)
+        si, sd = nn.nn_search(src, ops)
         torch.cuda.synchronize()
         pi, pd = nn.nearest_neighbor_plain(src, tgt, mask)
+        qi, qd = nn.nn_search_plain(src, ops)
         pq = tgt[pi.long()]
-        eq = (torch.equal(ki, pi), torch.equal(kd, pd), torch.equal(kd2, pd),
-              torch.equal(kq, pq))
-        log(f"[knn] {name}: indices equal {eq[0]}, d2 equal {eq[1] and eq[2]}, "
-            f"coordinates equal {eq[3]}; max |d2| diff {(kd - pd).abs().max().item():.3e}")
+        packed = nn.nn_pack_plain(tgt, mask)
+        eq = (torch.equal(ki, pi) and torch.equal(si, pi) and torch.equal(qi, pi),
+              torch.equal(kd, pd) and torch.equal(kd2, pd) and torch.equal(sd, pd)
+              and torch.equal(qd, pd),
+              torch.equal(kq, pq),
+              all(torch.equal(a, b) for a, b in zip((ops.rows, ops.orig, ops.count), packed)))
+        log(f"[knn] {name}: indices equal {eq[0]}, d2 equal {eq[1]}, coordinates equal "
+            f"{eq[2]} (prepared and per call), packing equal {eq[3]}; max |d2| diff "
+            f"{(sd - pd).abs().max().item():.3e}")
         if not all(eq):
             raise RuntimeError(f"[knn] {name}: kernel and plain version differ")
         return ki, kd
@@ -944,7 +1037,7 @@ def phase_knn(torch, state, out, track):
     rm = torch.from_numpy((rng.uniform(size=5001) > 0.3).astype(np.float32)).to(dev)
     both("ragged 1000 x 5001 masked", rs, rt, rm)
 
-    # exact ties: rows 3 and 9000 (different row ranges) at d2 = 5, the
+    # exact ties: rows 3 and 9000 (different cluster ranks) at d2 = 5, the
     # first wins; rows 12000 and 15000 at d2 = 2 beat row 5's d2 = 9
     tt = torch.full((M, 3), 90.0, device=dev)
     for row, v in ((3, (1., 2., 0.)), (9000, (1., -2., 0.)), (5, (20., 3., 0.)),
@@ -954,17 +1047,40 @@ def phase_knn(torch, state, out, track):
     ki, kd = both("exact ties", ts_, tt, torch.ones(M, device=dev))
     if ki.tolist() != [3, 12000] or kd.tolist() != [5.0, 2.0]:
         raise RuntimeError(f"[knn] exact ties: {ki.tolist()} {kd.tolist()}")
+    big = torch.tensor(1e30, device=dev)
     ki, kd = both("all masked", src, submap, torch.zeros(M, device=dev))
-    if bool((ki != 0).any()) or not bool((kd == torch.tensor(1e30, device=dev)).all()):
+    if bool((ki != 0).any()) or not bool((kd == big).all()):
         raise RuntimeError("[knn] all masked: expected index 0 and d2 1e30")
+    # the fallback: one live row 2e15 m away, the rest masked; masked row 0
+    # wins at 1e30 for every source
+    far, fmask = submap.clone(), torch.zeros(M, device=dev)
+    far[7] = torch.tensor([2e15, 0.0, 0.0], device=dev)
+    fmask[7] = 1.0
+    ki, kd = both("one live row 2e15 m away, the rest masked", src, far, fmask)
+    if bool((ki != 0).any()) or not bool((kd == big).all()):
+        raise RuntimeError("[knn] far live row: expected masked row 0 at d2 1e30")
     coords_launches = nn.NN_COORDS_LAUNCHES
 
     # time the path shape in turns; 20 calls per event window
     calls = 20
+    ops = nn.nn_prepare(submap, submask)
+    lib = nn._lib()
 
-    def kernel():
+    def prepared():
+        for _ in range(calls):
+            nn.nn_search(src, ops)
+
+    def per_call():
         for _ in range(calls):
             nn.nearest_neighbor(src, submap, submask)
+
+    def packing():
+        for _ in range(calls):
+            nn.nn_prepare(submap, submask)
+
+    def packing_plain():
+        for _ in range(calls):
+            nn.nn_pack_plain(submap, submask)
 
     def kernel_coords():
         for _ in range(calls):
@@ -972,57 +1088,75 @@ def phase_knn(torch, state, out, track):
 
     def plain():
         for _ in range(calls):
-            nn.nearest_neighbor_plain(src, submap, submask)
+            nn.nn_search_plain(src, ops)
+
+    def plain_coords():
+        for _ in range(calls):
+            nn.nearest_neighbor_with_coords_plain(src, submap, submask)
 
     def cdist():
         for _ in range(calls):
             torch.cdist(src, submap[:live]).min(dim=1)
 
-    # the search's split and merge launches alone, on buffers made once
-    # (the wrapper's own split of the rows)
-    lib = nn._lib()
-    nblk = -(-N // lib.nn_search_threads())
-    splits = max(1, min(-(-M // nn._MIN_SPLIT_ROWS), -(-nn._TARGET_BLOCKS // nblk)))
-    rows = -(-M // splits)
-    splits = -(-M // rows)
-    bufs = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in
-            (((splits, N), torch.float32), ((splits, N), torch.int32), (N, torch.float32),
-             (N, torch.int32))]
-    stream = torch.cuda.current_stream().cuda_stream
+    # the search's one launch alone, on buffers made once
+    bufs = (torch.empty(N, dtype=torch.float32, device=dev),
+            torch.empty(N, dtype=torch.int32, device=dev))
+    launch_args = (src.data_ptr(), ops.rows.data_ptr(), ops.orig.data_ptr(),
+                   ops.count.data_ptr(), ops.tgt.data_ptr(), ops.mask.data_ptr(), N, M,
+                   ops.cluster, bufs[0].data_ptr(), bufs[1].data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
 
     def launch_only():
         for _ in range(calls):
-            rc = lib.nn_search_launch(src.data_ptr(), submap.data_ptr(), submask.data_ptr(),
-                                      N, M, rows, splits, *(x.data_ptr() for x in bufs), stream)
+            rc = lib.nn_search_launch(*launch_args)
             if rc != 0:
                 raise RuntimeError(f"[knn] launch failed: CUDA error {rc}")
 
-    p1, k1, c1, l1, l2, c2, k2, p2 = (
-        time_cuda(torch, f) / calls for f in
-        (plain, kernel, kernel_coords, launch_only, launch_only, kernel_coords, kernel, plain))
+    order = (plain, packing_plain, per_call, prepared, launch_only, packing, kernel_coords,
+             kernel_coords, packing, launch_only, prepared, per_call, packing_plain, plain)
+    p1, b1, w1, k1, l1, a1, c1, c2, a2, l2, k2, w2, b2, p2 = (time_cuda(torch, f) / calls
+                                                              for f in order)
     cd = time_cuda(torch, cdist) / calls
-    dev_ms = kernel_device_ms(torch, kernel, ("nn_split_kernel", "nn_merge_kernel"))
+    pc = time_cuda(torch, plain_coords, reps=3) / calls
+    dev_ms = kernel_device_ms(torch, prepared, ("nn_search_kernel",))
+    full_ops = nn.nn_prepare(full, torch.ones(M, device=dev))
+    full_ms = kernel_device_ms(torch, lambda: nn.nn_search(src, full_ops), ("nn_search_kernel",))
+    kernels = call_kernels(torch, lambda: nn.nn_search(src, ops))
+    log(f"[knn] kernels of one prepared search (profiler): {fmt_kernels(kernels)}")
+    check_one_kernel("knn", kernels, "nn_search_kernel")
+    pack_kernels = call_kernels(torch, lambda: nn.nn_prepare(submap, submask))
+    log(f"[knn] kernels of one packing (profiler): {fmt_kernels(pack_kernels)}")
+    check_one_kernel("knn", pack_kernels, "nn_pack_kernel")
     # bytes: sources, every target row and mask once, (index, d2) out; work:
     # the live rows this submap holds (masked rows cannot win)
     nbytes = 4 * (3 * N + 4 * M + 2 * N)
     bound_ms, bound_by = roofline(nbytes, NN_FLOPS_PER_PAIR * N * live)
     all_rows_ms, _ = roofline(nbytes, NN_FLOPS_PER_PAIR * N * M)
     cbound_ms, cbound_by = roofline(4 * (3 * N + 4 * M + 4 * N), NN_FLOPS_PER_PAIR * N * live)
-    log(f"[knn] time at {N} x {M} rows ({live} live), per call: nn_search "
-        f"{k1:.4f} / {k2:.4f} ms, its {splits} x {rows}-row split and merge launches "
-        f"alone {l1:.4f} / {l2:.4f} ms (device time "
-        f"{fmt_ms(None if dev_ms is None else dev_ms / calls)} a search, profiler), "
-        f"nn_coords {c1:.4f} / {c2:.4f} ms, plain "
-        f"{p1:.4f} / {p2:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, live rows; "
-        f"{all_rows_ms:.5f} ms over all {M} rows)")
+    # the packing: tgt and mask read once, rows, orig and count written
+    pbound_ms, pbound_by = roofline(4 * (4 * M + 5 * M + 1), 0)
+    log(f"[knn] time at {N} x {M} rows ({live} live, a cluster of {ops.cluster}): the "
+        f"call on prepared targets {k1:.4f} / {k2:.4f} ms, its one launch alone "
+        f"{l1:.4f} / {l2:.4f} ms (device time {fmt_ms(dev_ms)} a search, profiler; "
+        f"{fmt_ms(full_ms)} against {M} live rows), the packing (nn_prepare) {a1:.4f} / "
+        f"{a2:.4f} ms, the per-call nearest_neighbor {w1:.4f} / {w2:.4f} ms, nn_coords "
+        f"{c1:.4f} / {c2:.4f} ms, plain (prepared) {p1:.4f} / {p2:.4f} ms, plain all-rows "
+        f"coordinate form {pc:.4f} ms; bound "
+        f"{bound_ms:.5f} ms ({bound_by}, live rows; {all_rows_ms:.5f} ms over all {M} rows)")
+    log(f"[knn] packing at {M} rows: the call {a1:.4f} / {a2:.4f} ms (device time "
+        f"{fmt_ms(kernel_device_ms(torch, packing, ('nn_pack_kernel',)))} a launch), plain "
+        f"(a stable sort) {b1:.4f} / {b2:.4f} ms; bound {pbound_ms:.5f} ms ({pbound_by})")
     log(f"[knn] context, not a port path: torch.cdist(src, live rows).min(dim=1) "
         f"{cd:.4f} ms per call")
     plain_ms = (p1 + p2) / 2
     return (dict(max_abs_err=0.0, ms=(k1 + k2) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=None),
             coords_launches,
-            dict(max_abs_err=0.0, ms=(c1 + c2) / 2, plain_ms=plain_ms, bound_ms=cbound_ms,
-                 bound_by=cbound_by, library_ms=None))
+            dict(max_abs_err=0.0, ms=(c1 + c2) / 2, plain_ms=pc, bound_ms=cbound_ms,
+                 bound_by=cbound_by, library_ms=None),
+            dict(max_abs_err=0.0, ms=(a1 + a2) / 2, plain_ms=(b1 + b2) / 2,
+                 bound_ms=pbound_ms, bound_by=pbound_by, library_ms=None),
+            (src, ops, submap, submask))
 
 
 def phase_inner(torch, seq, scans):
@@ -1145,11 +1279,15 @@ def phase_frozen(torch, state, out, track):
     flat = (src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6))
     TB = perturbed(T, 0.05)
     both(f"B={B} x {N} in per-frame groups", TB, *flat, bestB, groups=B)
+    both(f"B={B} x {N} summed into one group", TB, *flat, bestB)
     marked = bestB.clone()
     marked[::3, 0, :] = 1e30                  # every third frame never matched
     k = both(f"B={B}, frames 0, 3, 6 never matched", TB, *flat, marked, groups=B)
     if float(k[3][::3].abs().sum()) != 0.0:
         raise RuntimeError("[frozen] never-matched rows carried weight")
+    k1 = both(f"B={B}, frames 0, 3, 6 never matched, one group", TB, *flat, marked)
+    if float(k1[3]) != float(k[3].sum()):
+        raise RuntimeError("[frozen] one group's weight differs from the per-frame sum")
     empty = vgicp_iteration(T[-1], src[-1], sm[-1], scov[-1], tgt, sub_cov,
                             torch.zeros_like(submask), tgt_count=torch.tensor(0, device=dev),
                             return_best=True, **kw)[5]
@@ -1161,11 +1299,19 @@ def phase_frozen(torch, state, out, track):
     calls = 20
     T1 = perturbed(T[-1:], 0.01)[0]
     ops = vf.vgicp_prepare(src[-1], sm[-1], scov[-1], ts=best1.shape[2])
+    # two launches on the same inputs: the same bits (fixed-order sums)
+    a, b = vf.vgicp_frozen(T1, ops, best1, **kw), vf.vgicp_frozen(T1, ops, best1, **kw)
+    opsB = vf.vgicp_prepare(src, sm, scov, ts=bestB.shape[2])
+    aB, bB = (vf.vgicp_frozen(TB, opsB, bestB, _acc_groups=B, **kw) for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(a + aB, b + bB)):
+        raise RuntimeError("[frozen] two launches on the same inputs differ")
+    log("[frozen] two launches on the same inputs: bit-identical (one frame, and B=8 "
+        "in per-frame groups)")
     lib = vf._lib()
-    part = torch.empty((1, -(-ops.per_frame // lib.vgicp_frozen_threads()), vf.NUM_ACC),
-                       dtype=torch.float64, device=dev)
+    part = torch.empty((1, vf.NUM_FROZEN_OUT), dtype=torch.float32, device=dev)
     gate, eps = vf.sweep_gate(g.max_correspondence_dist), float(np.float32(g.cov_epsilon))
-    stream = torch.cuda.current_stream().cuda_stream
+    launch_args = (T1.data_ptr(), ops.src.data_ptr(), best1.data_ptr(), 1, 1, ops.per_frame,
+                   ops.ts, gate, eps, part.data_ptr(), torch.cuda.current_stream().cuda_stream)
 
     def kernel():
         for _ in range(calls):
@@ -1181,9 +1327,7 @@ def phase_frozen(torch, state, out, track):
 
     def launch_only():
         for _ in range(calls):
-            rc = lib.vgicp_frozen_launch(T1.data_ptr(), ops.src.data_ptr(), best1.data_ptr(),
-                                         1, ops.per_frame, 0, ops.ts, gate, eps,
-                                         part.data_ptr(), stream)
+            rc = lib.vgicp_frozen_launch(*launch_args)
             if rc != 0:
                 raise RuntimeError(f"[frozen] launch failed: CUDA error {rc}")
 
@@ -1191,13 +1335,17 @@ def phase_frozen(torch, state, out, track):
         time_cuda(torch, f) / calls for f in
         (plain, kernel, prepared, launch_only, launch_only, prepared, kernel, plain))
     dev_ms = kernel_device_ms(torch, prepared, ("vgicp_frozen_kernel",))
+    kernels = call_kernels(torch, lambda: vf.vgicp_frozen(T1, ops, best1, **kw))
+    log(f"[frozen] kernels of one call on prepared sources (profiler): "
+        f"{fmt_kernels(kernels)}")
+    check_one_kernel("frozen", kernels, "vgicp_frozen_kernel")
     # inputs read once: T, the sources (xyz, mask, cov6) and the (10, N)
-    # payload; 30 sums out
-    bound_ms, bound_by = roofline(4 * (16 + 10 * N + 10 * N + 30),
+    # payload; 45 finished values out
+    bound_ms, bound_by = roofline(4 * (16 + 10 * N + 10 * N + vf.NUM_FROZEN_OUT),
                                   FROZEN_FLOPS_PER_SOURCE * N)
     log(f"[frozen] time at one frame of {N} points: the call on prepared sources "
         f"{c1:.4f} / {c2:.4f} ms, the launch alone {l1:.4f} / {l2:.4f} ms (device time "
-        f"{fmt_ms(None if dev_ms is None else dev_ms / calls)} a launch, profiler), the per-call "
+        f"{fmt_ms(dev_ms)} a launch, profiler), the per-call "
         f"wrapper (packing included) {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
         f"bound {bound_ms:.6f} ms ({bound_by})")
     return dict(max_abs_err=max_err, ms=(c1 + c2) / 2, plain_ms=(p1 + p2) / 2,
@@ -1224,18 +1372,26 @@ def count_syncs(torch, fn, calls=20):
     return tuple((f - b) / calls for f, b in zip(full, base))
 
 
-def phase_syncs(torch, sweep, frozen):
-    """K4 and K5 calls on prepared operands copy nothing from the host and
-    never wait for the device; the per-call wrapper is measured beside."""
+def phase_syncs(torch, sweep, frozen, search):
+    """K4, K5 and K2 calls on prepared operands copy nothing from the host
+    and never wait for the device; the per-call K4 wrapper is measured
+    beside."""
+    import importlib
+
     from icp4dradar_tpu_torch.config import PipelineConfig
     from icp4dradar_tpu_torch.ops import vgicp_fused as vf
+
+    nn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
 
     g = PipelineConfig().gicp
     kw = dict(max_correspondence_dist=g.max_correspondence_dist, cov_eps=g.cov_epsilon)
     Tc, ops, bench, sub_n, axis2 = sweep
     T1, fops, best1 = frozen
+    nsrc, nops, ntgt, nmask = search
     B = Tc.shape[0]
     res = {
+        "K2 call on prepared operands": count_syncs(torch, lambda: nn.nn_search(nsrc, nops)),
+        "K2 packing": count_syncs(torch, lambda: nn.nn_prepare(ntgt, nmask)),
         "K4 call on prepared operands": count_syncs(
             torch, lambda: vf.vgicp_sweep(Tc, ops, _acc_groups=B, **kw)),
         "K4 call with the payload": count_syncs(
@@ -1248,7 +1404,7 @@ def phase_syncs(torch, sweep, frozen):
     }
     log("[profile] host syncs per call (synchronise calls, host-to-device copies): " +
         "; ".join(f"{k} {a:.2f}, {c:.2f}" for k, (a, c) in res.items()))
-    for k, (a, c) in list(res.items())[:3]:
+    for k, (a, c) in list(res.items())[:5]:
         if a or c:
             raise RuntimeError(f"[profile] {k}: {a} synchronise calls and {c} host-to-device "
                                f"copies per call, expected none")
@@ -1257,8 +1413,10 @@ def phase_syncs(torch, sweep, frozen):
 def phase_profile(torch, scans, s2m, track):
     """One profiled run of each tracker: device kernel time and launches
     from torch.profiler, the idle share against the median unprofiled run
-    (three unprofiled runs; one for the kNN-GICP tracker, whose run is the
-    longest)."""
+    (three unprofiled runs; one for the kNN-GICP and inner-step trackers,
+    whose runs are the longest). The kNN-GICP and inner-step runs also
+    print every kernel they launched: K2's search is one nn_search_kernel
+    (no nn_merge_kernel), K5's step one vgicp_frozen_kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from icp4dradar_tpu_torch.config import PipelineConfig
@@ -1268,12 +1426,18 @@ def phase_profile(torch, scans, s2m, track):
 
     cfg = PipelineConfig()
     knn_cfg = cfg.override(**{"gicp.use_vgicp": False})
+    inner_cfg = cfg.override(**{"gicp.inner_gn_steps": 1})
     runs = {
         "s2s": (3, lambda: run_scan_to_scan(scans, cfg, use_doppler_prior=True)),
         "s2m": (3, lambda: run_scan_to_map_blocked(s2m, cfg, block=S2M_BLOCK,
                                                    use_const_velocity_rot=True)),
         "gicp": (1, lambda: run_scan_to_map(track, knn_cfg, use_const_velocity_rot=True)),
+        "inner": (1, lambda: run_scan_to_map(track, inner_cfg, use_const_velocity_rot=True)),
     }
+    # kernels each named run must launch, and kernels it must not
+    expect = {"gicp": ({"nn_search_kernel", "nn_pack_kernel"},
+                       {"nn_merge_kernel", "nn_split_kernel"}),
+              "inner": ({"vgicp_sweep_kernel", "vgicp_frozen_kernel"}, set())}
     cuda_type = torch.autograd.DeviceType.CUDA
     for name, (n_walls, fn) in runs.items():
         walls = []
@@ -1301,9 +1465,120 @@ def phase_profile(torch, scans, s2m, track):
         for e in top:
             log(f"[profile] {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
                 f"x{e.count:<6d} {e.key[:90]}")
+        if name in expect:
+            counts = {}
+            for e in kern:
+                k = kernel_name(e.key)
+                counts[k] = counts.get(k, 0) + e.count
+            log(f"[profile] {name}: kernels launched: " + ", ".join(
+                f"{k} x{n}" for k, n in sorted(counts.items(), key=lambda kv: -kv[1])))
+            need, banned = expect[name]
+            if not need <= set(counts) or banned & set(counts):
+                raise RuntimeError(f"[profile] {name}: expected {sorted(need)} and none of "
+                                   f"{sorted(banned)} among the kernels launched")
 
 
-def main() -> int:
+def ab_child(tree):
+    """Times the K2 and K5 calls of the package in `tree` (this tree or the
+    parent commit's) at the path shapes, on inputs made from a seed, and
+    prints one JSON line. K2: 2048 sources against 16,384 rows whose first
+    542 are live (the sector query front-packs them); K5: one 2048-point
+    frame on a sweep's payload. A tree without `nn_search` is timed through
+    its per-call `nearest_neighbor`, the call its tracker makes."""
+    import importlib
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    nn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
+    vf = importlib.import_module("icp4dradar_tpu_torch.ops.vgicp_fused")
+    if not nn.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"[ab] imported {nn.__file__}, not the package in {tree}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    M, live, N, calls = 16384, 542, 2048, 20
+    rows = rng.uniform([-60, -60, -2], [60, 60, 4], (live, 3)).astype(np.float32)
+    src = (rows[rng.integers(live, size=N)] + rng.normal(0, 0.5, (N, 3))).astype(np.float32)
+    tgt = np.zeros((M, 3), np.float32)
+    tgt[:live] = rows
+    mask = (np.arange(M) < live).astype(np.float32)
+    src, tgt, mask = (torch.from_numpy(x).to(dev) for x in (src, tgt, mask))
+    res = {"tree": tree, "package": os.path.dirname(nn.__file__)}
+    def per_call():
+        return nn.nearest_neighbor(src, tgt, mask)
+
+    if hasattr(nn, "nn_search"):
+        ops = nn.nn_prepare(tgt, mask)
+        k2 = lambda: nn.nn_search(src, ops)  # noqa: E731
+    else:
+        k2 = per_call
+
+    # K5: one frame of 2048 sources near 800 voxels, a sweep's payload
+    vox = rng.uniform([-40, -40, -2], [40, 40, 3], (800, 3)).astype(np.float32)
+    fsrc = (vox[rng.integers(800, size=N)] + rng.normal(0, 0.3, (N, 3))).astype(np.float32)
+    vcov = np.zeros((800, 6), np.float32)
+    vcov[:, :3] = np.abs(rng.normal(0.05, 0.02, (800, 3))) + 0.01
+    fsrc, vox, vcov = (torch.from_numpy(x).to(dev) for x in (fsrc, vox, vcov))
+    fsm = torch.ones(N, device=dev)
+    scov = vf.radar_point_covariances_packed(fsrc).contiguous()
+    T = torch.eye(4, device=dev)
+    best = vf.vgicp_iteration(T, fsrc, fsm, scov, vox, vcov, torch.ones(800, device=dev),
+                              return_best=True)[5]
+    fops = vf.vgicp_prepare(fsrc, fsm, scov, ts=best.shape[2])
+    T1 = T.clone()
+    T1[:3, 3] = torch.tensor([0.05, -0.03, 0.01], device=dev)
+
+    def k5():
+        return vf.vgicp_frozen(T1, fops, best)
+
+    def many(fn):
+        def run():
+            for _ in range(calls):
+                fn()
+        return run
+
+    t = [time_cuda(torch, many(f)) / calls for f in (k2, per_call, k5, k5, per_call, k2)]
+    res.update(k2_call_ms=(t[0] + t[5]) / 2, k2_per_call_ms=(t[1] + t[4]) / 2,
+               k5_call_ms=(t[2] + t[3]) / 2, k2_kernels=call_kernels(torch, k2),
+               k5_kernels=call_kernels(torch, k5))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def phase_ab(parent):
+    """A/B of the K2 and K5 calls against the parent commit's tree (a `git
+    archive` unpacked at `parent`), each tree in its own process, in turns:
+    parent, this tree, this tree, parent."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for tree in (parent, here, here, parent):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-tree", tree],
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"[ab] {tree} failed:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        runs.append(res)
+        dev = {k: call_device_ms(res[k] or {}) for k in ("k2_kernels", "k5_kernels")}
+        log(f"[ab] {'parent' if tree == parent else 'this tree'} ({res['package']}): K2 call "
+            f"{res['k2_call_ms']:.4f} ms (per-call nearest_neighbor "
+            f"{res['k2_per_call_ms']:.4f} ms), device {dev['k2_kernels']:.4f} ms "
+            f"({fmt_kernels(res['k2_kernels'])}); K5 call {res['k5_call_ms']:.4f} ms, "
+            f"device {dev['k5_kernels']:.4f} ms ({fmt_kernels(res['k5_kernels'])})")
+    return runs
+
+
+def main(argv) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="a tree of the parent commit: time its K2 and K5 "
+                                     "calls beside this tree's (A/B, phase 12)")
+    ap.add_argument("--ab-tree", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.ab_tree:
+        return ab_child(args.ab_tree)
+    parent = args.parent
+
     import torch
 
     card = phase_device(torch)
@@ -1328,12 +1603,14 @@ def main() -> int:
     icp_launches, scans_per_s, ate = phase_slice(torch, seq, scans)
     vg_launches, state, out, s2m = phase_s2m(torch, seq, scans)
     vg, sweep_ops = phase_vgicp(torch, state, out, s2m)
-    nn_launches, state, out, track = phase_gicp(torch, seq, scans)
-    nn, coords_launches, coords = phase_knn(torch, state, out, track)
+    (nn_launches, pack_launches), state, out, track = phase_gicp(torch, seq, scans)
+    nn, coords_launches, coords, pack, search_ops = phase_knn(torch, state, out, track)
     frozen_launches, state, out, track = phase_inner(torch, seq, scans)
     frozen, frozen_ops = phase_frozen(torch, state, out, track)
     phase_profile(torch, scans, s2m, track)
-    phase_syncs(torch, sweep_ops, frozen_ops)
+    phase_syncs(torch, sweep_ops, frozen_ops, search_ops)
+    if parent is not None:
+        phase_ab(parent)
 
     log(json.dumps({"kernels": [
         {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1342,6 +1619,8 @@ def main() -> int:
          "replaces": VGICP_REPLACES, "launches": vg_launches, **vg},
         {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_REPLACES, "launches": nn_launches, **nn},
+        {"name": "nn_pack", "route": "cuda", "source": NN_SOURCE,
+         "replaces": NN_REPLACES, "launches": pack_launches, **pack},
         {"name": "nn_coords", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_COORDS_REPLACES, "launches": coords_launches, **coords},
         {"name": "vgicp_frozen", "route": "cuda", "source": VGICP_SOURCE,
@@ -1355,4 +1634,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

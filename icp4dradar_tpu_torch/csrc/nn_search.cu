@@ -13,35 +13,292 @@
 // the exact minima, and the reported distance is max(d2, 0). nn_search
 // writes (index, d2), nn_coords (d2, tgt[index]).
 //
-// What bounds it on an H100: per (source, target) pair 3 subtractions, 3
-// FMAs and a compare on one float4 broadcast from shared memory; the bytes
-// (N*12 + M*16 in, N*8 out) are negligible. At the kNN-GICP path's shape
-// (2048 sources against a 16,384-row sector submap) that is 3.4e7 pairs,
-// ~3e8 FP32 operations: ~4.5 us at the 67 TFLOP/s FP32 peak. Launch latency
-// is of the same order.
+// nn_search_launch (K2) reads targets packed once per registration
+// (ops/knn.py::nn_prepare): the rows as float4 (x, y, z, 0), live rows first
+// in their original order, each packed row's original index, and the live
+// count on the device. A masked row's d2 is >= 1e30, so it can win only
+// where no live row gives d2 < 1e30: the search sweeps the live rows alone
+// (pen = 0, so fma(dx, dx, 0) is dx * dx rounded once), and a source whose
+// best is not < 1e30 (no live row, or live rows at NaN, inf or beyond ~1e15
+// m) re-scans all M rows in original order with the penalty: the old
+// all-rows result, kept exactly.
 //
-// Design: one source point per thread, 128 threads per block. At 2048
-// sources that is only 16 blocks for 132 SMs, so the target rows are split
-// over a second grid axis (blockIdx.y), each split a contiguous range of
-// rows: the wrapper picks the split count so that the grid holds ~4 blocks
-// per SM. Each block stages its rows through shared memory in tiles of
-// 1024 float4 (x, y, z, pen) and scans them in ascending order with a
-// strictly-less update, so within a split the smallest index among the
-// exact minima wins. Each block writes its (d2, index) per source into a
-// (splits, N) scratch; a second small kernel merges the splits in ascending
-// order with the same strictly-less rule, which keeps the global tie rule
-// (the Pallas kernel's smallest row at the tile minimum, replaced only by a
-// strictly smaller later tile) and is deterministic: no atomics.
+// What bounds it on an H100: per (source, live row) pair 3 subtractions, 3
+// multiply-adds and a compare on one float4; the bytes (N*12 + M*16 in, N*8
+// out) are ~0.3 MB. At the kNN-GICP path's shape (2048 sources against a
+// 16,384-row sector submap with ~542 live rows) that is 1.1e6 pairs, ~1e7
+// FP32 operations: ~0.15 us at the 67 TFLOP/s FP32 peak, far below a
+// launch (a few us). Over all 16,384 rows (a fully live submap) the bound
+// is ~4.5 us. So latency bounds the path's search: the design spends one
+// launch a search, no scratch in device memory, and a short dependent chain
+// per thread.
+//
+// Design (nn_search_kernel): one launch, grid (source blocks, C); the C
+// blocks along y form a thread block cluster (runtime cluster dims through
+// cudaLaunchKernelEx; the wrapper picks C from M, the row capacity, so a
+// small or a large live count needs no host sync). A block holds 128
+// sources, four per lane, so that one float4 row load feeds four pairs.
+// Rank r of the cluster takes a contiguous 1/C of the live rows (read from
+// the device count) and stages them with cp.async in tiles of 2048 rows
+// (32 KB): one bulk copy in flight instead of each warp waiting on L2 for
+// its rows, row by row (measured: 0.0327 ms against 16,384 live rows when
+// read from L2, above the old kernel's 0.021). Each of the 8 warps sweeps a
+// contiguous 1/8 of a tile. A lane keeps (best, index) per source with a
+// strictly-less update over ascending rows. The warps merge in shared
+// memory by (d2, index), the smaller index first among equal d2 (tiles
+// interleave the warps' rows), then rank 0 merges the C ranks' results in
+// rank order, strictly-less, through distributed shared memory
+// (cluster.map_shared_rank): rows ascend with rank, so the smallest index
+// among the exact minima wins. Rank 0
+// writes orig[best] and max(d2, 0), or runs the fallback scan. There is no
+// scratch tensor, no second kernel and no atomic. Two cluster.sync()s: one
+// before rank 0 reads the other ranks' shared memory, one before any block
+// exits (a block's shared memory must outlive its readers).
+//
+// The packing (nn_pack_launch, behind nn_prepare on the card) is one launch
+// of one block: a stable partition of the rows, live first, equal to the
+// plain version's stable sort. It moves ~0.6 MB at M = 16,384 (~0.2 us of
+// bytes); latency bounds it, and one launch replaces the dozen torch
+// launches (~0.3 ms of host time) of a sort-based packing. Rows go one a
+// thread in tiles of 1024, so loads and stores coalesce (a contiguous run
+// of rows a thread measured 0.052 ms: uncoalesced, through one SM's L1).
+//
+// nn_coords_launch (K3) keeps the earlier design: one source per thread,
+// the target rows split over a second grid axis so that 2048 sources fill
+// the card, each block staging its rows through shared memory in tiles of
+// 1024 float4 (x, y, z, pen), a (splits, N) scratch and a second kernel
+// that merges the splits in ascending order with the same strictly-less
+// rule, then gathers tgt[index].
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr float kBig = 1e30f;
+
+// ---- K2: the search on prepared targets
+
+constexpr int kSearchWarps = 8;
+constexpr int kSearchThreads = kSearchWarps * 32;
+constexpr int kPerLane = 4;                      // sources a lane holds
+constexpr int kSearchSources = 32 * kPerLane;    // sources a block holds
+constexpr int kMaxCluster = 8;                   // portable cluster size
+constexpr int kSearchTile = 2048;                // rows staged per pass: 32 KB
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kSearchThreads)
+nn_search_kernel(const float* __restrict__ src,    // (N, 3)
+                 const float4* __restrict__ rows,  // (M,) [x, y, z, 0], live rows first
+                 const int* __restrict__ orig,     // (M,) original index of each row
+                 const int* __restrict__ count,    // (1,) live rows
+                 const float* __restrict__ tgt,    // (M, 3) as given (fallback)
+                 const float* __restrict__ mask,   // (M,) as given (fallback)
+                 int N, int M,
+                 float* __restrict__ d2_out,       // (N,)
+                 int* __restrict__ idx_out) {      // (N,)
+  __shared__ __align__(16) float4 s_rows[kSearchTile];
+  __shared__ float s_wd[kSearchWarps][kSearchSources];
+  __shared__ int s_wi[kSearchWarps][kSearchSources];
+  __shared__ float s_rd[kSearchSources];
+  __shared__ int s_ri[kSearchSources];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i0 = blockIdx.x * kSearchSources;
+
+  // the lane's sources i0 + h * 32 + lane
+  float sx[kPerLane], sy[kPerLane], sz[kPerLane];
+#pragma unroll
+  for (int h = 0; h < kPerLane; ++h) {
+    const int i = i0 + h * 32 + lane;
+    const bool on = i < N;
+    sx[h] = on ? src[3 * (size_t)i] : 0.f;
+    sy[h] = on ? src[3 * (size_t)i + 1] : 0.f;
+    sz[h] = on ? src[3 * (size_t)i + 2] : 0.f;
+  }
+
+  // this rank's contiguous share of the live rows, staged in tiles; each
+  // warp sweeps a contiguous 1/8 of a tile
+  const int cnt = min(max(*count, 0), M);
+  const int per_rank = (cnt + C - 1) / C;
+  const int ra = min(cnt, rank * per_rank);
+  const int rb = min(cnt, ra + per_rank);
+
+  float best[kPerLane];
+  int bi[kPerLane];
+#pragma unroll
+  for (int h = 0; h < kPerLane; ++h) {
+    best[h] = INFINITY;
+    bi[h] = INT_MAX;
+  }
+  for (int base = ra; base < rb; base += kSearchTile) {
+    const int n = min(kSearchTile, rb - base);
+    __syncthreads();  // every warp is done with the previous tile
+    for (int r = threadIdx.x; r < n; r += kSearchThreads) cp_async16(&s_rows[r], rows + base + r);
+    cp_async_wait_all();
+    __syncthreads();
+    const int per_warp = (n + kSearchWarps - 1) / kSearchWarps;
+    const int r0 = min(n, warp * per_warp), r1 = min(n, r0 + per_warp);
+#pragma unroll 4
+    for (int r = r0; r < r1; ++r) {
+      const float4 t = s_rows[r];
+#pragma unroll
+      for (int h = 0; h < kPerLane; ++h) {
+        const float dx = __fsub_rn(t.x, sx[h]);
+        const float dy = __fsub_rn(t.y, sy[h]);
+        const float dz = __fsub_rn(t.z, sz[h]);
+        const float d = __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+        if (d < best[h]) {  // ascending rows, strictly less: smallest index wins
+          best[h] = d;
+          bi[h] = base + r;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < kPerLane; ++h) {
+    s_wd[warp][h * 32 + lane] = best[h];
+    s_wi[warp][h * 32 + lane] = bi[h];
+  }
+  __syncthreads();
+  const int t = threadIdx.x;  // threads 0..127 merge source i0 + t
+  if (t < kSearchSources) {
+    float d = s_wd[0][t];
+    int ix = s_wi[0][t];
+#pragma unroll
+    for (int w = 1; w < kSearchWarps; ++w) {  // tiles interleave the warps' rows
+      const float dw = s_wd[w][t];
+      const int iw = s_wi[w][t];
+      if (dw < d || (dw == d && iw < ix)) {
+        d = dw;
+        ix = iw;
+      }
+    }
+    s_rd[t] = d;
+    s_ri[t] = ix;
+  }
+  cluster.sync();  // every rank's result is in its shared memory
+  if (rank == 0 && t < kSearchSources) {
+    float d = s_rd[t];
+    int ix = s_ri[t];
+    for (int q = 1; q < C; ++q) {  // ranks ascend in rows
+      const float dq = cluster.map_shared_rank(s_rd, q)[t];
+      if (dq < d) {
+        d = dq;
+        ix = cluster.map_shared_rank(s_ri, q)[t];
+      }
+    }
+    const int i = i0 + t;
+    if (i < N) {
+      int out_i;
+      if (d < kBig) {
+        out_i = orig[ix];
+      } else {
+        // no live row below 1e30: every row in original order, with the
+        // penalty, as the all-rows search
+        const float px = src[3 * (size_t)i], py = src[3 * (size_t)i + 1],
+                    pz = src[3 * (size_t)i + 2];
+        d = INFINITY;
+        out_i = 0;
+        for (int j = 0; j < M; ++j) {
+          const float dx = __fsub_rn(__ldg(tgt + 3 * (size_t)j), px);
+          const float dy = __fsub_rn(__ldg(tgt + 3 * (size_t)j + 1), py);
+          const float dz = __fsub_rn(__ldg(tgt + 3 * (size_t)j + 2), pz);
+          const float pen = __ldg(mask + j) > 0.5f ? 0.f : kBig;
+          const float dj = __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmaf_rn(dx, dx, pen)));
+          if (dj < d) {
+            d = dj;
+            out_i = j;
+          }
+        }
+      }
+      d2_out[i] = fmaxf(d, 0.f);
+      idx_out[i] = out_i;
+    }
+  }
+  cluster.sync();  // rank 0 is done reading the other ranks
+}
+
+// ---- K2's operands: the targets packed once per registration
+
+constexpr int kPackThreads = 1024;
+
+// rows (M,) [x, y, z, 0] with the live rows (mask > 0.5) first and the
+// masked rows after them, both in original order; orig (M,) each packed
+// row's original index; count (1,) the live rows. One block: a first pass
+// counts the live rows; a second walks the rows in tiles of 1024, one row
+// a thread (coalesced), and places each row by a block-wide scan of the
+// tile's live flags (warp ballots, then the warps' counts in order): a
+// stable partition, as the plain version's stable sort.
+__global__ void __launch_bounds__(kPackThreads)
+nn_pack_kernel(const float* __restrict__ tgt,   // (M, 3)
+               const float* __restrict__ mask,  // (M,)
+               int M,
+               float4* __restrict__ rows,       // (M,)
+               int* __restrict__ orig,          // (M,)
+               int* __restrict__ count) {       // (1,)
+  constexpr int kPackWarps = kPackThreads / 32;
+  __shared__ int s_warp[kPackWarps];
+  __shared__ int s_total;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int live = 0;
+  for (int j = t; j < M; j += kPackThreads) live += __ldg(mask + j) > 0.5f;
+  live = __reduce_add_sync(0xffffffffu, live);
+  if (lane == 0) s_warp[warp] = live;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = __reduce_add_sync(0xffffffffu, s_warp[lane]);
+    if (lane == 0) s_total = v;
+  }
+  int placed = 0;  // live rows of the earlier tiles
+  for (int base = 0; base < M; base += kPackThreads) {
+    const int j = base + t;
+    const bool on = j < M;
+    const bool f = on && __ldg(mask + j) > 0.5f;
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    __syncthreads();  // every thread is done with the previous tile's counts
+    if (lane == 0) s_warp[warp] = __popc(bal);
+    __syncthreads();
+    int before = 0, tile_live = 0;
+#pragma unroll
+    for (int w = 0; w < kPackWarps; ++w) {
+      const int c = s_warp[w];
+      before += w < warp ? c : 0;
+      tile_live += c;
+    }
+    if (on) {
+      const int p = placed + before + __popc(bal & ((1u << lane) - 1));  // live rows before j
+      const int dst = f ? p : s_total + (j - p);  // masked rows before j: j - p
+      rows[dst] = make_float4(__ldg(tgt + 3 * (size_t)j), __ldg(tgt + 3 * (size_t)j + 1),
+                              __ldg(tgt + 3 * (size_t)j + 2), 0.f);
+      orig[dst] = j;
+    }
+    placed += tile_live;
+  }
+  if (t == 0) *count = s_total;
+}
+
+// ---- K3: the coordinate form, target rows split over grid.y
 
 constexpr int kThreads = 128;
 constexpr int kTile = 1024;  // rows staged per pass: 16 KB of float4
-constexpr float kBig = 1e30f;
 
 __global__ void __launch_bounds__(kThreads)
 nn_split_kernel(const float* __restrict__ src,   // (N, 3)
@@ -94,8 +351,7 @@ __global__ void __launch_bounds__(kThreads)
 nn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
                 int N, int splits, const float* __restrict__ tgt,
                 float* __restrict__ d2_out,
-                int* __restrict__ idx_out,   // (N,) or null
-                float* __restrict__ q_out) { // (N, 3) or null
+                float* __restrict__ q_out) {  // (N, 3)
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= N) return;
   float best = part_d[i];
@@ -108,17 +364,65 @@ nn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i
     }
   }
   d2_out[i] = fmaxf(best, 0.f);
-  if (idx_out != nullptr) idx_out[i] = best_i;
-  if (q_out != nullptr) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) q_out[3 * (size_t)i + k] = tgt[3 * (size_t)best_i + k];
-  }
+  for (int k = 0; k < 3; ++k) q_out[3 * (size_t)i + k] = tgt[3 * (size_t)best_i + k];
 }
 
-int launch(const float* src, const float* tgt, const float* mask, int N, int M,
-           int rows, int splits, float* part_d, int* part_i, float* d2,
-           int* idx, float* q, void* stream) {
-  if (N <= 0 || M <= 0 || rows <= 0 || splits <= 0 || splits > 65535 ||
+}  // namespace
+
+extern "C" int nn_search_sources_per_block() { return kSearchSources; }
+extern "C" int nn_search_max_cluster() { return kMaxCluster; }
+extern "C" int nn_coords_threads() { return kThreads; }
+
+// K2 on prepared targets: one launch on `stream` of grid (ceil(N / 128),
+// cluster), the `cluster` blocks along y one thread block cluster (1 to 8).
+// rows (M, 4) / orig (M,) / count (1,) as ops/knn.py::nn_prepare packs
+// them, tgt (M, 3) and mask (M,) as given. Returns the launch's error (0 on
+// success).
+extern "C" int nn_search_launch(const float* src, const float* rows, const int* orig,
+                                const int* count, const float* tgt, const float* mask,
+                                int N, int M, int cluster, float* d2, int* idx,
+                                void* stream) {
+  if (N <= 0 || M <= 0 || cluster < 1 || cluster > kMaxCluster) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kSearchSources - 1) / kSearchSources, cluster, 1);
+  cfg.blockDim = dim3(kSearchThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, nn_search_kernel, src,
+                                             reinterpret_cast<const float4*>(rows), orig,
+                                             count, tgt, mask, N, M, d2, idx);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K2's packing on `stream`: tgt (M, 3) and mask (M,) -> rows (M, 4), orig
+// (M,), count (1,) as nn_search_launch reads them. Returns the launch's
+// error (0 on success).
+extern "C" int nn_pack_launch(const float* tgt, const float* mask, int M, float* rows,
+                              int* orig, int* count, void* stream) {
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  nn_pack_kernel<<<1, kPackThreads, 0, (cudaStream_t)stream>>>(
+      tgt, mask, M, reinterpret_cast<float4*>(rows), orig, count);
+  return (int)cudaGetLastError();
+}
+
+// K3: launches on `stream` and returns cudaGetLastError() (0 on success).
+// Target rows split into `splits` ranges of `rows` rows (the last one
+// ragged, none empty); part_d / part_i are (splits, N) scratch.
+extern "C" int nn_coords_launch(const float* src, const float* tgt, const float* mask,
+                                int N, int M, int rows, int splits, float* part_d,
+                                int* part_i, float* d2, float* q, void* stream) {
+  if (q == nullptr || N <= 0 || M <= 0 || rows <= 0 || splits <= 0 || splits > 65535 ||
       (long long)rows * splits < M || (long long)rows * (splits - 1) >= M) {
     return (int)cudaErrorInvalidValue;
   }
@@ -128,29 +432,6 @@ int launch(const float* src, const float* tgt, const float* mask, int N, int M,
                                                           part_d, part_i);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  nn_merge_kernel<<<nblk, kThreads, 0, s>>>(part_d, part_i, N, splits, tgt, d2, idx, q);
+  nn_merge_kernel<<<nblk, kThreads, 0, s>>>(part_d, part_i, N, splits, tgt, d2, q);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int nn_search_threads() { return kThreads; }
-
-// Both launch on `stream` and return cudaGetLastError() (0 on success).
-// Target rows split into `splits` ranges of `rows` rows (the last one
-// ragged, none empty); part_d / part_i are (splits, N) scratch.
-extern "C" int nn_search_launch(const float* src, const float* tgt, const float* mask,
-                                int N, int M, int rows, int splits, float* part_d,
-                                int* part_i, float* d2, int* idx, void* stream) {
-  if (idx == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(src, tgt, mask, N, M, rows, splits, part_d, part_i, d2, idx, nullptr,
-                stream);
-}
-
-extern "C" int nn_coords_launch(const float* src, const float* tgt, const float* mask,
-                                int N, int M, int rows, int splits, float* part_d,
-                                int* part_i, float* d2, float* q, void* stream) {
-  if (q == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(src, tgt, mask, N, M, rows, splits, part_d, part_i, d2, nullptr, q,
-                stream);
 }

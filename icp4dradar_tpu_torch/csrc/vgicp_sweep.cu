@@ -61,23 +61,36 @@
 // icp4dradar_tpu/ops/vgicp_fused.py::_make_vgicp_frozen_kernel (behind
 // vgicp_iteration_frozen, the inner GN steps of gicp.inner_gn_steps > 0):
 // the same 30 sums re-linearised at a new T on the payload a sweep matched,
-// gated on the fresh |q - p|^2. It lives in this file to share gn_terms and
-// the block reduction. Bound on an H100: bytes, not operations. Per source
-// it reads 10 floats of source and 10 of payload (80 B) and does ~300
-// FP32 operations; 2048 sources are 164 KB, ~0.05 us at 3.35 TB/s, so a
-// launch (a few us) bounds it in practice. Design: one thread per source,
-// grid (N/128, B), float64 per-block rows like the sweep's, so per-frame
-// groups (`_acc_groups`) sum as after a sweep. It reads the sources the
-// sweep reads, packed once per registration.
+// gated on the fresh |q - p|^2. It lives in this file to share gn_terms.
+// Bound on an H100: bytes, not operations. Per source it reads 10 floats of
+// source and 10 of payload (80 B) and does ~300 FP32 operations; 2048
+// sources are 164 KB, ~0.05 us at 3.35 TB/s, so a launch (a few us) bounds
+// it, and the host work around the launch bounds the call. Design
+// (vgicp_frozen_kernel): one launch finishes the step. Each group of
+// frames (`_acc_groups`) is one thread block cluster of 8 blocks x 256
+// threads (one source a thread at one 2048-point frame; a thread loops over
+// a larger group's sources). Each thread sums its sources' 30 terms in
+// float64; the sums run in a fixed order (warp shuffles, the block's warps
+// in order, then rank 0 adds the 8 ranks' sums in rank order through
+// distributed shared memory), so two launches on the same inputs give the
+// same bits, with no atomics. Rank 0 casts to float32 and writes the
+// group's finished row of 45: H unpacked (36), g (6), cost, sum w, sum w d2.
+// It reads the sources the sweep reads, packed once per registration.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;  // the frozen pass: one source per thread
-constexpr int kWarps = kThreads / 32;
+constexpr int kFrozenWarps = 8;  // the frozen pass: 8 x 256 threads a group
+constexpr int kFrozenThreads = kFrozenWarps * 32;
+constexpr int kFrozenCluster = 8;
+constexpr int kOut = 45;  // H (36), g (6), cost, sum w, sum w d2
 constexpr int kSweepWarps = 8;  // the sweep: 64 sources x 8 row ranges
 constexpr int kSweepThreads = kSweepWarps * 32;
 constexpr int kSweepSources = 64;  // two per lane
@@ -191,28 +204,6 @@ __device__ void gn_terms(const float R[3][3], const float p[3], float w_src,
   acc[27] = __fmul_rn(w, cost);
   acc[28] = w;
   acc[29] = __fmul_rn(w, d2);
-}
-
-// Sums acc over the block's threads in float64 (warp shuffles, then a
-// fixed-order sum over warps) and writes the 30 sums to out_row.
-__device__ void block_sum_store(const float acc[kAcc], double* out_row) {
-  __shared__ double red[kWarps][kAcc];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kAcc; ++k) {
-    double v = (double)acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kAcc) {
-    double v = 0.0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += red[w][threadIdx.x];
-    out_row[threadIdx.x] = v;
-  }
 }
 
 // T_b of the launch's frame b: R (3x3) and t (3).
@@ -445,43 +436,89 @@ vgicp_sweep_kernel(const float* __restrict__ T,          // (B, 4, 4)
 // search; each source reads the payload [d2, mean3, cov6] that a sweep
 // matched it to, in the (ns, 10, ts) layout, and gates on the FRESH
 // distance |q - p|^2 (a row whose stale d2 is >= 2.5e29 never matched and
-// gets 1e30, above any gate).
-__global__ void __launch_bounds__(kThreads)
+// gets 1e30, above any gate). Group g of the launch is the sources
+// g * per_group .. (g + 1) * per_group - 1 (whole frames of N sources); the
+// cluster of 8 blocks that covers it writes out[g] = [H (36, row-major), g
+// (6), cost, sum w, sum w d2] in float32.
+__global__ void __launch_bounds__(kFrozenThreads)
 vgicp_frozen_kernel(const float* __restrict__ T,     // (B, 4, 4)
                     const float* __restrict__ src,   // (B * N, 10)
                     const float* __restrict__ best,  // (ns, 10, ts)
-                    int N, int src_offset, int ts, float gate, float eps,
-                    double* __restrict__ out) {      // (B, nblk, 30)
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const size_t row = (size_t)b * N + i;
-  float acc[kAcc];
-  if (i < N) {
-    float R[3][3], t[3], s[kSrcCols], p[3], pay[10];
-    load_transform(T + (size_t)b * 16, R, t);
+                    int per_group, int N, int ts, float gate, float eps,
+                    float* __restrict__ out) {       // (groups, 45)
+  __shared__ double s_red[kFrozenWarps][kAcc];
+  __shared__ double s_blk[kAcc];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t row0 = (size_t)(blockIdx.x / C) * per_group;
+
+  double sum[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) sum[k] = 0.0;
+  float R[3][3], t[3];
+  int frame = -1;
+  for (int j = rank * kFrozenThreads + threadIdx.x; j < per_group;
+       j += C * kFrozenThreads) {
+    const size_t row = row0 + j;
+    const int b = (int)(row / N);
+    if (b != frame) {
+      load_transform(T + (size_t)b * 16, R, t);
+      frame = b;
+    }
+    float s[kSrcCols], p[3], pay[10], acc[kAcc];
 #pragma unroll
     for (int k = 0; k < kSrcCols; ++k) s[k] = src[row * kSrcCols + k];
     transform_point(R, t, s, p);
-    const size_t g = (size_t)src_offset + row;
-    const size_t blk = g / ts, lane = g % ts;
+    const size_t blk = row / ts, ln = row % ts;
 #pragma unroll
-    for (int k = 0; k < 10; ++k) pay[k] = best[(blk * 10 + k) * ts + lane];
+    for (int k = 0; k < 10; ++k) pay[k] = best[(blk * 10 + k) * ts + ln];
     const float d0 = __fsub_rn(pay[1], p[0]), d1 = __fsub_rn(pay[2], p[1]),
                 d2 = __fsub_rn(pay[3], p[2]);
     const float fresh = sum3(__fmul_rn(d0, d0), __fmul_rn(d1, d1), __fmul_rn(d2, d2));
     const float gate_d2 = pay[0] < 2.5e29f ? fresh : kBig;
     gn_terms(R, p, s[3], s + 4, pay + 1, pay + 4, gate_d2, gate, eps, acc);
-  } else {
 #pragma unroll
-    for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
+    for (int k = 0; k < kAcc; ++k) sum[k] += (double)acc[k];
   }
-  block_sum_store(acc, out + ((size_t)b * gridDim.x + blockIdx.x) * kAcc);
+
+  // the block's sums: warp shuffles in a fixed order, then warps in order
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) {
+    double v = sum[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) s_red[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kAcc) {
+    double v = 0.0;
+#pragma unroll
+    for (int w = 0; w < kFrozenWarps; ++w) v += s_red[w][threadIdx.x];
+    s_blk[threadIdx.x] = v;
+  }
+  cluster.sync();  // every rank's sums are in its shared memory
+  if (rank == 0 && threadIdx.x < kOut) {
+    // output o reads packed sum k: H[r][c] is entry (min, max) of the
+    // row-major upper triangle (`_sym6_index`), then g, cost, w, w d2
+    const int o = threadIdx.x;
+    int k = o - 36 + 21;
+    if (o < 36) {
+      const int a = min(o / 6, o % 6), c = max(o / 6, o % 6);
+      k = a * 6 - a * (a - 1) / 2 + (c - a);
+    }
+    double v = 0.0;
+    for (int q = 0; q < C; ++q) v += cluster.map_shared_rank(s_blk, q)[k];
+    out[(size_t)(blockIdx.x / C) * kOut + o] = (float)v;
+  }
+  cluster.sync();  // rank 0 is done reading the other ranks
 }
 
 }  // namespace
 
 extern "C" int vgicp_sweep_sources_per_block() { return kSweepSources; }
-extern "C" int vgicp_frozen_threads() { return kThreads; }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). B frames
 // of N sources each (src rows b*N .. b*N+N-1, global source index
@@ -505,15 +542,33 @@ extern "C" int vgicp_sweep_launch(const float* T, const float* src, const float*
   return (int)cudaGetLastError();
 }
 
-// Launches the frozen-payload GN pass on `stream`; returns
-// cudaGetLastError(). B frames of N sources as for vgicp_sweep_launch; best
-// is the (ns, 10, ts) payload of the sweep that matched these sources.
+// Launches the frozen-payload GN step on `stream`, one thread block cluster
+// of 8 blocks per group; returns the launch's error (0 on success). B frames
+// of N sources (src rows b*N .. b*N+N-1, T (B, 4, 4)) in `groups` groups of
+// B / groups consecutive frames; best is the (ns, 10, ts) payload of the
+// sweep that matched these sources; out (groups, 45) gets each group's
+// finished float32 results.
 extern "C" int vgicp_frozen_launch(const float* T, const float* src, const float* best,
-                                   int B, int N, int src_offset, int ts, float gate,
-                                   float eps, double* out, void* stream) {
-  if (B <= 0 || B > 65535 || N <= 0 || ts <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  vgicp_frozen_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      T, src, best, N, src_offset, ts, gate, eps, out);
+                                   int B, int groups, int N, int ts, float gate, float eps,
+                                   float* out, void* stream) {
+  if (B <= 0 || groups <= 0 || B % groups || N <= 0 || ts <= 0 ||
+      (long long)B * N > INT_MAX || (long long)groups * kFrozenCluster > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * kFrozenCluster, 1, 1);
+  cfg.blockDim = dim3(kFrozenThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kFrozenCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, vgicp_frozen_kernel, T, src, best,
+                                             B / groups * N, N, ts, gate, eps, out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,16 @@ from icp4dradar_tpu_torch.ops.icp_fused import (  # noqa: F401
 )
 from icp4dradar_tpu_torch.ops.compaction import mask_compact  # noqa: F401
 from icp4dradar_tpu_torch.ops.knn import (  # noqa: F401
+    NnOperands,
     knn,
     nearest_neighbor,
     nearest_neighbor_plain,
     nearest_neighbor_with_coords,
     nearest_neighbor_with_coords_plain,
+    nn_pack_plain,
+    nn_prepare,
+    nn_search,
+    nn_search_plain,
 )
 from icp4dradar_tpu_torch.ops.vgicp_fused import (  # noqa: F401
     VgicpOperands,

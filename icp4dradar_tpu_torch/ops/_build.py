@@ -116,3 +116,16 @@ def load_library() -> ctypes.CDLL:
     if _LIB is None:
         _LIB = ctypes.CDLL(str(build_library()))
     return _LIB
+
+
+def launch(device, fn, *args) -> int:
+    """fn(*args, stream) on the current stream of CUDA `device` (a
+    torch.device), entering the device only when it is not the current one;
+    returns fn's CUDA error code."""
+    import torch
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)

@@ -2,13 +2,22 @@
 `icp4dradar_tpu/ops/knn.py`): the kNN-GICP inner loop's 1-NN and the
 k-NN behind its covariances.
 
-- `nearest_neighbor` -> (index (N,) int32, d2 (N,)) of the nearest valid
-  target per source; `nearest_neighbor_with_coords` -> (d2 (N,), matched
-  coordinates (N, 3)). Both dispatch on the device of their inputs: CPU
-  tensors go to the plain version, CUDA tensors launch the hand-written
-  kernel `csrc/nn_search.cu` or raise.
+- `nn_prepare(tgt, tgt_mask)` packs a registration's targets once
+  (`NnOperands`; on the card one launch of the packing kernel, elsewhere
+  its plain version `nn_pack_plain`): the rows as float4 (x, y, z, 0) with
+  the live rows first in their original order, each packed row's original
+  index, the live count on the device, and the rows and mask as given.
+  `nn_search(src, ops)` -> (index (N,) int32, d2 (N,)) of the nearest
+  valid target per source; `gicp_align` prepares once and searches in
+  every GN iteration. CPU operands run the plain version on the same
+  packed layout; CUDA operands launch the hand-written kernel
+  `csrc/nn_search.cu` (one launch a search, no host sync) or raise.
+- `nearest_neighbor(src, tgt, tgt_mask)` prepares for one call and
+  searches. `nearest_neighbor_with_coords` -> (d2 (N,), matched
+  coordinates (N, 3)) runs the coordinate kernel of the same source on
+  CUDA tensors, its plain version on CPU tensors.
 - `nearest_neighbor_plain` / `nearest_neighbor_with_coords_plain`: plain
-  torch with the kernel's semantics, on any device.
+  torch over all rows with the kernels' semantics, on any device.
 - `knn`: the chunked k-NN, plain torch on every device (the JAX package
   leaves it to XLA everywhere).
 
@@ -18,27 +27,45 @@ pen))) with d = t - s and pen = 1e30 on masked targets, each fused
 multiply-add rounded once, as XLA evaluates the Pallas body on the CPU;
 the smallest index among the exact minima wins; the reported d2 is
 max(d2, 0). With every target masked all d2 are 1e30 and the index is 0.
+
+The prepared search keeps these semantics exactly. A masked row's d2 is
+>= 1e30, so it can win only where no live row gives d2 < 1e30: the search
+sweeps the live rows alone (pen = 0), and a source whose best there is not
+< 1e30 (no live row, or live rows at NaN, inf or beyond ~1e15 m) re-scans
+all rows in their original order with the penalty, as the all-rows search
+does. A live row beyond 1e15 m with the rest masked therefore loses to
+masked row 0, as in the Pallas kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+from icp4dradar_tpu_torch.ops import _build
+
 _BIG = 1e30
 
-# Kernel launches of `nearest_neighbor` / `nearest_neighbor_with_coords`
-# on CUDA tensors in this process; each wrapper adds one per launch of its
-# kernel and nowhere else.
+# Kernel launches of `nn_search` (and `nearest_neighbor`, built on it) and
+# of `nearest_neighbor_with_coords` on CUDA tensors in this process; each
+# wrapper adds one per launch of its kernel and nowhere else.
 NN_SEARCH_LAUNCHES = 0
 NN_COORDS_LAUNCHES = 0
+# Kernel launches of the packing (`nn_prepare` on CUDA tensors).
+NN_PACK_LAUNCHES = 0
 
-# The CUDA kernel splits the target rows over a second grid axis so that a
-# 2048-source search (16 source blocks) still fills the card's 132 SMs.
+# The coordinate kernel splits the target rows over a second grid axis so
+# that a 2048-source search (16 source blocks) still fills the card's 132
+# SMs.
 _TARGET_BLOCKS = 4 * 132
 _MIN_SPLIT_ROWS = 256
+# The search kernel's cluster takes one block per 2048 rows of capacity, a
+# power of two up to the kernel's limit of 8.
+_ROWS_PER_RANK = 2048
+_MAX_CLUSTER = 8
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -72,7 +99,112 @@ def _check_args(name, src, tgt, tgt_mask):
     if not all(x.is_cuda and x.device == src.device for x in tensors):
         raise ValueError(f"{name}: inputs must all be on the CPU or all on one CUDA "
                          f"device, got {[str(x.device) for x in tensors]}")
+    _check_kernel_tensors(name, (("src", src), ("tgt", tgt), ("tgt_mask", tgt_mask)))
     return tgt_mask, True
+
+
+def _check_kernel_tensors(name, named):
+    for arg, x in named:
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernels take contiguous float32 tensors; "
+                             f"{arg} is {x.dtype}, contiguous={x.is_contiguous()}")
+
+
+@dataclass(frozen=True)
+class NnOperands:
+    """A registration's 1-NN targets, packed once (`nn_prepare`) and read in
+    place by every search (`nn_search`).
+
+    - `rows` (M, 4) float32: [x, y, z, 0] of the live rows first, in their
+      original order, then the masked rows; `orig` (M,) int32: each packed
+      row's original index; `count` (1,) int32: the live rows, on the
+      operands' device.
+    - `tgt` (M, 3) float32 and `mask` (M,) float32: the rows and mask as
+      given, which the fallback re-scan reads.
+    - `cluster`: thread blocks that share a search's rows on the card,
+      chosen from M."""
+
+    rows: torch.Tensor
+    orig: torch.Tensor
+    count: torch.Tensor
+    tgt: torch.Tensor
+    mask: torch.Tensor
+    cluster: int
+
+
+def nn_prepare(tgt: torch.Tensor, tgt_mask: Optional[torch.Tensor] = None) -> NnOperands:
+    """Pack targets (M, 3) with their mask (M,) once for every search of a
+    registration: a stable partition of the live rows to the front, on the
+    device; nothing is read on the host. CUDA tensors (contiguous float32)
+    launch the packing kernel of `csrc/nn_search.cu`, one launch; CPU
+    tensors run its plain version (`nn_pack_plain`), which gives the same
+    layout."""
+    if tgt_mask is None:
+        tgt_mask = torch.ones(tgt.shape[0], dtype=torch.float32, device=tgt.device)
+    if tgt.dim() != 2 or tgt.shape[-1] != 3 or tuple(tgt_mask.shape) != (tgt.shape[0],):
+        raise ValueError(f"nn_prepare: tgt {tuple(tgt.shape)}, tgt_mask "
+                         f"{tuple(tgt_mask.shape)}; expected (M, 3), (M,)")
+    M = tgt.shape[0]
+    if M == 0:
+        raise ValueError("nn_prepare: empty target cloud")
+    if tgt.device != tgt_mask.device:
+        raise ValueError(f"nn_prepare: tgt on {tgt.device}, tgt_mask on {tgt_mask.device}")
+    if tgt.is_cuda:
+        _check_kernel_tensors("nn_prepare", (("tgt", tgt), ("tgt_mask", tgt_mask)))
+    elif tgt.device.type != "cpu":
+        raise ValueError(f"nn_prepare: tensors on {tgt.device}; expected the CPU or CUDA")
+    f32 = torch.float32
+    tgt, mask = tgt.to(f32).contiguous(), tgt_mask.to(f32).contiguous()
+    rows, orig, count = (_nn_pack_cuda if tgt.is_cuda else nn_pack_plain)(tgt, mask)
+    cluster = 1
+    while cluster < _MAX_CLUSTER and cluster * _ROWS_PER_RANK < M:
+        cluster *= 2
+    return NnOperands(rows=rows, orig=orig, count=count, tgt=tgt, mask=mask, cluster=cluster)
+
+
+def nn_pack_plain(tgt: torch.Tensor, mask: torch.Tensor):
+    """Plain-torch twin of the packing kernel, on any device: targets (M, 3)
+    float32 and mask (M,) -> (rows (M, 4) [x, y, z, 0] with the live rows
+    first, orig (M,) int32, count (1,) int32), by a stable sort."""
+    live = mask > 0.5
+    order = torch.argsort((~live).to(torch.int32), stable=True)
+    rows = torch.cat([tgt, tgt.new_zeros((tgt.shape[0], 1))], dim=-1)[order].contiguous()
+    return rows, order.to(torch.int32), live.sum(dtype=torch.int32).reshape(1)
+
+
+def nn_search(src: torch.Tensor, ops: NnOperands) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest valid target per source over prepared targets: src (N, 3) ->
+    (indices (N,) int32 into the targets as given, squared distances (N,)).
+    CPU operands run the plain version; CUDA operands (src contiguous
+    float32 on their device) launch the kernel or raise."""
+    if src.dim() != 2 or src.shape[-1] != 3 or src.shape[0] == 0:
+        raise ValueError(f"nn_search: src has shape {tuple(src.shape)}, expected (N, 3), N > 0")
+    if src.device != ops.rows.device:
+        raise ValueError(f"nn_search: src on {src.device}, the operands on {ops.rows.device}")
+    if not src.is_cuda:
+        return nn_search_plain(src, ops)
+    _check_kernel_tensors("nn_search", (("src", src),))
+    return _nn_search_cuda(src, ops)
+
+
+def nn_search_plain(src: torch.Tensor, ops: NnOperands) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of the search kernel on the same packed layout, on
+    any device: the first minimum over the live rows, mapped back to the
+    original index; where that is not < 1e30, the all-rows search over the
+    rows and mask as given. Reads the live count on the host."""
+    src = src.to(torch.float32)
+    live = int(ops.count.item())
+    idx = torch.zeros(src.shape[0], dtype=torch.int32, device=src.device)
+    d2 = torch.full((src.shape[0],), float("inf"), dtype=torch.float32, device=src.device)
+    if live:
+        rows = ops.rows[:live]
+        i, d2 = _first_min(src, rows[:, :3], rows[:, 3])
+        idx = ops.orig[i.long()]
+    fb = ~(d2 < _BIG)
+    if bool(fb.any()):
+        pen = torch.where(ops.mask > 0.5, 0.0, _BIG).to(torch.float32)
+        idx[fb], d2[fb] = _first_min(src[fb], ops.tgt, pen)
+    return idx, torch.clamp(d2, min=0.0)
 
 
 def nearest_neighbor(
@@ -81,14 +213,10 @@ def nearest_neighbor(
     tgt_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest valid target per source: src (N, 3), tgt (M, 3), tgt_mask
-    (M,) -> (indices (N,) int32, squared distances (N,)). CPU tensors run
-    the plain version; CUDA tensors (float32, contiguous) launch the kernel
-    or raise."""
-    tgt_mask, on_cuda = _check_args("nearest_neighbor", src, tgt, tgt_mask)
-    if not on_cuda:
-        return nearest_neighbor_plain(src, tgt, tgt_mask)
-    idx, d2, _ = _nn_cuda(src, tgt, tgt_mask, coords=False)
-    return idx, d2
+    (M,) -> (indices (N,) int32, squared distances (N,)): `nn_search` on
+    targets prepared for this call. CPU tensors run the plain version; CUDA
+    tensors (float32, contiguous) launch the kernel or raise."""
+    return nn_search(src, nn_prepare(tgt, tgt_mask))
 
 
 def nearest_neighbor_with_coords(
@@ -101,24 +229,29 @@ def nearest_neighbor_with_coords(
     tgt_mask, on_cuda = _check_args("nearest_neighbor_with_coords", src, tgt, tgt_mask)
     if not on_cuda:
         return nearest_neighbor_with_coords_plain(src, tgt, tgt_mask)
-    _, d2, q = _nn_cuda(src, tgt, tgt_mask, coords=True)
-    return d2, q
+    return _nn_coords_cuda(src, tgt, tgt_mask)
 
 
 def nearest_neighbor_plain(
     src: torch.Tensor,
     tgt: torch.Tensor,
     tgt_mask: Optional[torch.Tensor] = None,
-    max_tile_elems: int = 1 << 22,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-torch twin of the kernel, on any device: the (sources, M)
-    distances `max_tile_elems // M` sources at a time, the first argmin of
-    each row (the smallest index among the exact minima)."""
+    """Plain-torch all-rows 1-NN with the kernels' semantics, on any device:
+    the first minimum of each source's distances to every row, masked rows
+    at the penalty."""
     f32 = torch.float32
     if tgt_mask is None:
         tgt_mask = torch.ones(tgt.shape[0], dtype=f32, device=tgt.device)
-    src, tgt = src.to(f32), tgt.to(f32)
     pen = torch.where(tgt_mask > 0.5, 0.0, _BIG).to(f32)
+    idx, d2 = _first_min(src.to(f32), tgt.to(f32), pen)
+    return idx, torch.clamp(d2, min=0.0)
+
+
+def _first_min(src, tgt, pen, max_tile_elems: int = 1 << 22):
+    """(index int32, d2) of the first minimum of d2 = fma(dz, dz, fma(dy,
+    dy, fma(dx, dx, pen))) over the rows of tgt (M, 3) per source, the
+    (sources, M) distances `max_tile_elems // M` sources at a time."""
     M = tgt.shape[0]
     rows = max(1, max_tile_elems // M)
     idx, d2 = [], []
@@ -131,7 +264,7 @@ def nearest_neighbor_plain(
         i = torch.argmin(d, dim=1)
         idx.append(i.to(torch.int32))
         d2.append(torch.gather(d, 1, i[:, None])[:, 0])
-    return torch.cat(idx), torch.clamp(torch.cat(d2), min=0.0)
+    return torch.cat(idx), torch.cat(d2)
 
 
 def nearest_neighbor_with_coords_plain(
@@ -145,28 +278,55 @@ def nearest_neighbor_with_coords_plain(
 
 
 def _lib() -> ctypes.CDLL:
-    from icp4dradar_tpu_torch.ops import _build
-
     lib = _build.load_library()
     if lib.nn_search_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.nn_search_launch, lib.nn_coords_launch):
-            fn.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
-            fn.restype = i
-        lib.nn_search_threads.argtypes = []
-        lib.nn_search_threads.restype = i
+        lib.nn_search_launch.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p]
+        lib.nn_search_launch.restype = i
+        lib.nn_pack_launch.argtypes = [p, p, i, p, p, p, p]
+        lib.nn_pack_launch.restype = i
+        lib.nn_coords_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
+        lib.nn_coords_launch.restype = i
+        lib.nn_coords_threads.argtypes = []
+        lib.nn_coords_threads.restype = i
     return lib
 
 
-def _nn_cuda(src, tgt, tgt_mask, coords: bool):
-    global NN_SEARCH_LAUNCHES, NN_COORDS_LAUNCHES
-    for name, x in (("src", src), ("tgt", tgt), ("tgt_mask", tgt_mask)):
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"nn_search kernel takes contiguous float32 tensors; "
-                             f"{name} is {x.dtype}, contiguous={x.is_contiguous()}")
+def _nn_pack_cuda(tgt, mask):
+    global NN_PACK_LAUNCHES
+    M, dev = tgt.shape[0], tgt.device
+    rows = torch.empty((M, 4), dtype=torch.float32, device=dev)
+    orig = torch.empty(M, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = _build.launch(dev, _lib().nn_pack_launch, tgt.data_ptr(), mask.data_ptr(), M,
+                       rows.data_ptr(), orig.data_ptr(), count.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"nn_pack kernel launch failed: CUDA error {rc} (M={M})")
+    NN_PACK_LAUNCHES += 1
+    return rows, orig, count
+
+
+def _nn_search_cuda(src, ops):
+    global NN_SEARCH_LAUNCHES
+    N, M = src.shape[0], ops.rows.shape[0]
+    d2 = torch.empty(N, dtype=torch.float32, device=src.device)
+    idx = torch.empty(N, dtype=torch.int32, device=src.device)
+    rc = _build.launch(src.device, _lib().nn_search_launch, src.data_ptr(),
+                       ops.rows.data_ptr(), ops.orig.data_ptr(), ops.count.data_ptr(),
+                       ops.tgt.data_ptr(), ops.mask.data_ptr(), N, M, ops.cluster,
+                       d2.data_ptr(), idx.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"nn_search kernel launch failed: CUDA error {rc} "
+                           f"(N={N}, M={M}, cluster={ops.cluster})")
+    NN_SEARCH_LAUNCHES += 1
+    return idx, d2
+
+
+def _nn_coords_cuda(src, tgt, tgt_mask):
+    global NN_COORDS_LAUNCHES
     lib = _lib()
     N, M = src.shape[0], tgt.shape[0]
-    nblk = -(-N // lib.nn_search_threads())
+    nblk = -(-N // lib.nn_coords_threads())
     splits = max(1, min(-(-M // _MIN_SPLIT_ROWS), -(-_TARGET_BLOCKS // nblk)))
     rows = -(-M // splits)
     splits = -(-M // rows)
@@ -174,22 +334,15 @@ def _nn_cuda(src, tgt, tgt_mask, coords: bool):
     part_d = torch.empty((splits, N), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits, N), dtype=torch.int32, device=dev)
     d2 = torch.empty(N, dtype=torch.float32, device=dev)
-    idx = None if coords else torch.empty(N, dtype=torch.int32, device=dev)
-    q = torch.empty((N, 3), dtype=torch.float32, device=dev) if coords else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = lib.nn_coords_launch if coords else lib.nn_search_launch
-        rc = fn(src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(), N, M, rows, splits,
-                part_d.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
-                (q if coords else idx).data_ptr(), stream)
+    q = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    rc = _build.launch(dev, lib.nn_coords_launch, src.data_ptr(), tgt.data_ptr(),
+                       tgt_mask.data_ptr(), N, M, rows, splits, part_d.data_ptr(),
+                       part_i.data_ptr(), d2.data_ptr(), q.data_ptr())
     if rc != 0:
-        raise RuntimeError(f"nn_search kernel launch failed: CUDA error {rc} "
+        raise RuntimeError(f"nn_coords kernel launch failed: CUDA error {rc} "
                            f"(N={N}, M={M}, splits={splits})")
-    if coords:
-        NN_COORDS_LAUNCHES += 1
-    else:
-        NN_SEARCH_LAUNCHES += 1
-    return idx, d2, q
+    NN_COORDS_LAUNCHES += 1
+    return d2, q
 
 
 def knn(

@@ -36,8 +36,10 @@ by the sector query's compaction); tile 0 is always swept.
 - `vgicp_iteration_frozen` (the inner GN steps, `gicp.inner_gn_steps >
   0`) re-linearises the same 30 sums at a new T on the payload a sweep
   returned under `return_best`, with no search: the kernel
-  `vgicp_frozen_launch` of the same source on CUDA tensors, or
-  `vgicp_iteration_frozen_plain` on CPU tensors.
+  `vgicp_frozen_launch` of the same source on CUDA tensors, one launch that
+  writes each frame group's finished float32 row (H unpacked, g, cost,
+  wsum, d2sum) and returns views of it, or `vgicp_iteration_frozen_plain`
+  on CPU tensors, which sums in float64 and lays out the same rows.
 
 The band-gate tile skip of the Pallas kernel (`:137-144`) is not ported: a
 tile it skips holds no voxel within the correspondence gate, so it changes
@@ -53,8 +55,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from icp4dradar_tpu_torch.ops import _build
+
 _BIG = 1e30
 NUM_ACC = 30
+NUM_FROZEN_OUT = 45  # a frozen step's finished row: H (36), g (6), cost, wsum, d2sum
 MAX_TILE = 1024
 
 # Kernel launches of the sweep (`vgicp_sweep` and the calls built on it) in
@@ -354,9 +359,9 @@ def _frames_T(T, ops, groups):
 
 
 def _finish(acc_rows, groups, dtype, best, return_best):
-    """(frames, rows, 30) or (frames, 30) float64 partial sums -> unpacked
-    f32 results, summed over `groups` consecutive frame groups (1 group:
-    one result). One sum, a cast and a gather on the device."""
+    """A sweep's (frames, rows, 30) or (frames, 30) float64 partial sums ->
+    unpacked f32 results, summed over `groups` consecutive frame groups (1
+    group: one result). One sum, a cast and a gather on the device."""
     acc = acc_rows.reshape(groups, -1, NUM_ACC).sum(dim=1).to(torch.float32)
     out = _unpack_accumulators(acc if groups > 1 else acc[0], dtype)
     return out + (best,) if return_best else out
@@ -398,8 +403,9 @@ def vgicp_frozen(
     ts) payload `best` of an earlier sweep over the same prepared sources,
     no search -> (H, g, cost, wsum, d2sum) as a sweep gives them. Each source
     is gated on its fresh |q - p|^2; a source the sweep never matched (stale
-    d2 >= 2.5e29) gets 1e30 and no weight. CPU operands run the plain
-    version; CUDA operands launch the CUDA kernel or raise."""
+    d2 >= 2.5e29) gets 1e30 and no weight. The results are views of one
+    (groups, 45) float32 tensor. CPU operands run the plain version; CUDA
+    operands launch the CUDA kernel (one launch, no host sync) or raise."""
     _check_payload(ops, best)
     Tk = _frames_T(T, ops, _acc_groups)
     gate, eps = sweep_gate(max_correspondence_dist), float(np.float32(cov_eps))
@@ -541,12 +547,23 @@ def _frozen_plain(Tk, ops, best, gate, eps, groups):
     fresh = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
     gate_d2 = torch.where(pay[0] < 2.5e29, fresh, _BIG)
     terms = _gn_accumulators(R, p, s[3], s[4:10], pay[1:], gate_d2, gate, eps)
-    return _finish(terms.sum(dim=1, dtype=torch.float64), groups, ops.dtype, None, False)
+    acc = (terms.sum(dim=1, dtype=torch.float64).reshape(groups, -1, NUM_ACC).sum(dim=1)
+           .to(torch.float32))
+    out = torch.cat([acc.index_select(-1, _sym6_index(acc.device)), acc[:, 21:]], dim=-1)
+    return _frozen_results(out if groups > 1 else out[0], ops.dtype)
+
+
+def _frozen_results(out, dtype):
+    """(groups, 45) or (45,) finished rows [H (36, row-major), g (6), cost,
+    wsum, d2sum] -> views (H, g, cost, wsum, d2sum)."""
+    H, g, rest = out.split([36, 6, 3], dim=-1)
+    H = H.unflatten(-1, (6, 6))
+    if dtype != torch.float32:
+        H, g = H.to(dtype), g.to(dtype)
+    return (H, g) + rest.unbind(-1)
 
 
 def _lib() -> ctypes.CDLL:
-    from icp4dradar_tpu_torch.ops import _build
-
     lib = _build.load_library()
     if lib.vgicp_sweep_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -554,8 +571,6 @@ def _lib() -> ctypes.CDLL:
         lib.vgicp_sweep_launch.restype = i
         lib.vgicp_sweep_sources_per_block.argtypes = []
         lib.vgicp_sweep_sources_per_block.restype = i
-        lib.vgicp_frozen_threads.argtypes = []
-        lib.vgicp_frozen_threads.restype = i
         lib.vgicp_frozen_launch.argtypes = [p, p, p, i, i, i, i, f, f, p, p]
         lib.vgicp_frozen_launch.restype = i
     return lib
@@ -601,23 +616,20 @@ def _launch_sweep(Tk, ops, gate, eps, out, best=None):
 
 
 def _vgicp_frozen_cuda(Tk, ops, best, gate, eps, groups):
+    """One launch finishes the step: (groups, 45) float32 rows ((45,) for
+    one group), returned as views."""
     global VGICP_FROZEN_LAUNCHES
-    lib = _lib()
-    Nf = ops.per_frame
-    nblk = -(-Nf // lib.vgicp_frozen_threads())
-    out = torch.empty((ops.frames, nblk, NUM_ACC), dtype=torch.float64, device=ops.src.device)
-    with torch.cuda.device(ops.src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for b0 in range(0, ops.frames, _GRID_Y_MAX):
-            nb = min(_GRID_Y_MAX, ops.frames - b0)
-            rc = lib.vgicp_frozen_launch(
-                Tk[b0].data_ptr(), ops.src[b0 * Nf].data_ptr(), best.data_ptr(), nb, Nf,
-                b0 * Nf, ops.ts, gate, eps, out[b0].data_ptr(), stream)
-            if rc != 0:
-                raise RuntimeError(f"vgicp_frozen kernel launch failed: CUDA error "
-                                   f"{rc} (B={nb}, N={Nf}, ts={ops.ts})")
-            VGICP_FROZEN_LAUNCHES += 1
-    return _finish(out, groups, ops.dtype, None, False)
+    dev = ops.src.device
+    out = torch.empty((groups, NUM_FROZEN_OUT) if groups > 1 else (NUM_FROZEN_OUT,),
+                      dtype=torch.float32, device=dev)
+    rc = _build.launch(dev, _lib().vgicp_frozen_launch, Tk.data_ptr(), ops.src.data_ptr(),
+                       best.data_ptr(), ops.frames, groups, ops.per_frame, ops.ts, gate, eps,
+                       out.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"vgicp_frozen kernel launch failed: CUDA error {rc} "
+                           f"(B={ops.frames}, groups={groups}, N={ops.per_frame}, ts={ops.ts})")
+    VGICP_FROZEN_LAUNCHES += 1
+    return _frozen_results(out, ops.dtype)
 
 
 def vgicp_iteration_plain(

@@ -6,10 +6,16 @@ Behavioural spec: `fast_gicp::FastGICPSingleThread` as the reference uses
 it for scan-to-submap alignment (src/radar_odometry.cpp:399-411):
 covariances from k=5 nearest neighbours (:404), eigenvalues regularised
 to (1, 1, eps), the Mahalanobis cost r^T (C_b + R C_a R^T)^-1 r, one
-correspondence per point gated by MAX_SEARCH_RADIUS (:35). Every GN
-iteration runs the masked 1-NN search (`ops/knn.py::nearest_neighbor`, the
-CUDA kernel `csrc/nn_search.cu` on the card); the JAX package's
-`lax.while_loop` is a Python loop here with one host sync per iteration.
+correspondence per point gated by MAX_SEARCH_RADIUS (:35). A registration
+packs its target rows once (`ops/knn.py::nn_prepare`: live rows first,
+with their original indices and the live count on the device), and every
+GN iteration, and the fitness search after the last, runs the masked 1-NN
+search over them (`nn_search`: one launch of the CUDA kernel
+`csrc/nn_search.cu` on the card, no host sync). It sweeps the live rows
+only; a source with no live row below d2 = 1e30 re-scans every row with
+the masked rows' penalty, so the result is the all-rows search's. The JAX
+package's `lax.while_loop` is a Python loop here with one host sync per
+iteration.
 On CUDA the 3x3 inverses and the 6x6 Cholesky use the `_ex` forms, which
 keep their failure flags on the device.
 """
@@ -26,7 +32,7 @@ from icp4dradar_tpu_torch.config import GicpConfig
 from icp4dradar_tpu_torch.geom.linalg import solve_psd, sym3x3_smallest_eigvec
 from icp4dradar_tpu_torch.geom.se3 import se3_apply, se3_exp
 from icp4dradar_tpu_torch.geom.so3 import so3_hat
-from icp4dradar_tpu_torch.ops.knn import knn, nearest_neighbor
+from icp4dradar_tpu_torch.ops.knn import knn, nn_prepare, nn_search
 
 
 @dataclass(frozen=True)
@@ -107,11 +113,12 @@ def gicp_align(
     eye6 = torch.eye(6, dtype=dt, device=dev)
     N = src_xyz.shape[0]
     Jv = -eye3.expand(N, 3, 3)
+    tgt_ops = nn_prepare(tgt_xyz, tgt_mask)
 
     def gn_step(T):
         R = T[:3, :3]
         p = se3_apply(T, src_xyz)                            # (N, 3)
-        idx, d2 = nearest_neighbor(p, tgt_xyz, tgt_mask)
+        idx, d2 = nn_search(p, tgt_ops)
         w = src_mask * (d2 < max_d2)
         il = idx.long()
         q, Cb = tgt_xyz[il], tgt_cov[il]
@@ -133,7 +140,7 @@ def gicp_align(
         T, delta = gn_step(T)
         iters += 1
 
-    _, d2_fit = nearest_neighbor(se3_apply(T, src_xyz), tgt_xyz, tgt_mask)
+    _, d2_fit = nn_search(se3_apply(T, src_xyz), tgt_ops)
     gated = src_mask * (d2_fit < max_d2)
     fitness = torch.sum(d2_fit * gated) / torch.clamp(torch.sum(gated), min=1.0)
     converged = (delta <= eps) | (iters >= cfg.max_iterations)

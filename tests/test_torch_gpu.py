@@ -1,5 +1,6 @@
 """Card tests of the port's CUDA kernels (ICP moments, VGICP sweep and its
-frozen-payload pass, the 1-NN search) against their plain PyTorch versions.
+frozen-payload step, the 1-NN search on prepared targets and its coordinate
+form) against their plain PyTorch versions.
 Marked `gpu`: they skip where torch.cuda.is_available() is False. This
 file imports neither jax nor the JAX package, so on a machine with a card
 and no jax it runs without the suite's conftest:
@@ -298,15 +299,31 @@ def _nn_case(rng, n, m, live, device, scale=60.0):
 
 
 def _assert_nn_equal(src, tgt, mask):
-    before = (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES)
+    """The per-call search, the prepared search (one launch each) and the
+    coordinate kernel against the all-rows plain version and the prepared
+    plain version: equal indices, distances and coordinates."""
+    before = (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES, nn.NN_PACK_LAUNCHES)
     ki, kd = nn.nearest_neighbor(src, tgt, mask)
     kd2, kq = nn.nearest_neighbor_with_coords(src, tgt, mask)
     torch.cuda.synchronize()
     assert (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops = nn.nn_prepare(tgt, mask)
+        si, sd = nn.nn_search(src, ops)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (nn.NN_SEARCH_LAUNCHES, nn.NN_PACK_LAUNCHES) == (before[0] + 2, before[2] + 2)
+    for a, b in zip((ops.rows, ops.orig, ops.count), nn.nn_pack_plain(tgt.cpu(), mask.cpu())):
+        assert torch.equal(a.cpu(), b)
     pi, pd = nn.nearest_neighbor_plain(src, tgt, mask)
+    qi, qd = nn.nn_search_plain(src, ops)
     assert ki.dtype == torch.int32 and torch.equal(ki, pi)
     assert torch.equal(kd, pd) and torch.equal(kd2, pd)
     assert torch.equal(kq, tgt[pi.long()])
+    assert torch.equal(si, pi) and torch.equal(sd, pd)
+    assert torch.equal(qi, pi) and torch.equal(qd, pd)
     return ki, kd
 
 
@@ -333,6 +350,35 @@ def test_nn_kernels_ties_and_all_masked(cuda):
     assert ki.tolist() == [0, 0] and bool((kd == torch.tensor(1e30, device=cuda)).all())
 
 
+@pytest.mark.parametrize("m,live", [(1, 1.0), (1023, 0.5), (1025, 0.0), (16384, 0.033),
+                                    (20000, 1.0)])
+def test_nn_packing_matches_plain(cuda, m, live):
+    """The packing kernel against the stable sort of its plain version:
+    the same rows, original indices and live count, also where the rows
+    do not fill the block's runs evenly."""
+    _, tgt, mask = _nn_case(np.random.default_rng(m), 1, m, live, cuda)
+    ops = nn.nn_prepare(tgt, mask)
+    for a, b in zip((ops.rows, ops.orig, ops.count), nn.nn_pack_plain(tgt, mask)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(ops.count) == int((mask > 0.5).sum())
+
+
+def test_nn_search_far_live_row_falls_back(cuda):
+    """One live row 2e15 m away among masked rows: its d2 (4e30) is not
+    below the penalty, every source re-scans all rows, and masked row 0
+    wins at 1e30, as in the Pallas kernel. Sources near a second, ordinary
+    live row keep it."""
+    src, tgt, _ = _nn_case(np.random.default_rng(6), 2048, 16384, 1.0, cuda)
+    mask = torch.zeros(16384, device=cuda)
+    tgt[7] = torch.tensor([2e15, 0.0, 0.0], device=cuda)
+    mask[7] = 1.0
+    ki, kd = _assert_nn_equal(src, tgt, mask)
+    assert bool((ki == 0).all()) and bool((kd == torch.tensor(1e30, device=cuda)).all())
+    mask[9000] = 1.0
+    ki, kd = _assert_nn_equal(src, tgt, mask)
+    assert bool((ki == 9000).all()) and bool((kd < 1e30).all())
+
+
 def test_nn_kernels_reject_what_they_do_not_take(cuda):
     src, tgt, mask = _nn_case(np.random.default_rng(4), 64, 64, 1.0, cuda)
     with pytest.raises(ValueError):
@@ -343,6 +389,19 @@ def test_nn_kernels_reject_what_they_do_not_take(cuda):
         nn.nearest_neighbor_with_coords(src, tgt, mask.cpu())
     with pytest.raises(ValueError):
         nn.nearest_neighbor_with_coords(src, tgt[:, :2].contiguous(), mask)
+    ops = nn.nn_prepare(tgt, mask)
+    with pytest.raises(ValueError):
+        nn.nn_search(src.double(), ops)
+    with pytest.raises(ValueError):
+        nn.nn_search(src.t().contiguous().t(), ops)
+    with pytest.raises(ValueError):
+        nn.nn_search(src.cpu(), ops)
+    with pytest.raises(ValueError):
+        nn.nn_search(src[:, :2].contiguous(), ops)
+    with pytest.raises(ValueError):
+        nn.nn_prepare(tgt, mask.cpu())
+    with pytest.raises(ValueError):
+        nn.nn_prepare(tgt.double(), mask)
 
 
 # ---- the frozen-payload GN pass (vgicp_frozen_launch, K5) against its
@@ -353,24 +412,51 @@ from icp4dradar_tpu_torch.ops.vgicp_fused import (  # noqa: E402
 )
 
 
-@pytest.mark.parametrize("B,N,P,count", [(1, 700, 2100, 2100), (8, 512, 5000, 900),
-                                         (2, 384, 500, 0)])
-def test_vgicp_frozen_kernel_matches_plain(cuda, B, N, P, count):
+@pytest.mark.parametrize("B,N,P,count,groups", [
+    (1, 700, 2100, 2100, 1), (8, 512, 5000, 900, 8), (8, 512, 5000, 900, 1),
+    (1, 2048, 3000, 2500, 1), (2, 384, 500, 0, 2)])
+def test_vgicp_frozen_kernel_matches_plain(cuda, B, N, P, count, groups):
     T, src, sm, scov, tgt, tcov, tmask, cnt = _vgicp_case(
         np.random.default_rng(B * N + P), B, N, P, count, cuda)
     kw = dict(tgt_count=cnt, ts=128, return_best=True)
     best = (vgicp_iteration_batch(T, src, sm, scov, tgt, tcov, tmask, **kw) if B > 1 else
             vgicp_iteration(T[0], src[0], sm[0], scov[0], tgt, tcov, tmask, **kw))[5]
+    best[::3, 0, ::5] = 1e30                      # rows never matched: no weight
     T1 = (se3_exp(torch.full((B, 6), 0.01)) @ T.cpu()).to(cuda).contiguous()
     flat = (src.reshape(B * N, 3), sm.reshape(B * N), scov.reshape(B * N, 6), best)
     before = vgicp_fused.VGICP_FROZEN_LAUNCHES
-    k = vgicp_iteration_frozen(T1 if B > 1 else T1[0], *flat, _acc_groups=B)
+    k = vgicp_iteration_frozen(T1 if B > 1 else T1[0], *flat, _acc_groups=groups)
     torch.cuda.synchronize()
     assert vgicp_fused.VGICP_FROZEN_LAUNCHES == before + 1
-    p = vgicp_iteration_frozen_plain(T1 if B > 1 else T1[0], *flat, _acc_groups=B)
+    p = vgicp_iteration_frozen_plain(T1 if B > 1 else T1[0], *flat, _acc_groups=groups)
     _assert_vgicp_close(k, p)
+    assert k[0].shape == ((groups, 6, 6) if groups > 1 else (6, 6))
     if count == 0:
         assert float(k[3].abs().sum()) == 0.0
+
+
+def test_vgicp_frozen_kernel_is_deterministic_and_syncs_nothing(cuda):
+    """Two launches on the same inputs give the same bits (fixed-order
+    float64 sums, no atomics); a call on prepared sources neither waits for
+    the device nor copies from the host, and launches once."""
+    from icp4dradar_tpu_torch.ops.vgicp_fused import vgicp_frozen, vgicp_prepare
+
+    B, N = 8, 2048
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _vgicp_case(
+        np.random.default_rng(23), B, N, 4000, 3000, cuda)
+    best = vgicp_iteration_batch(T, src, sm, scov, tgt, tcov, tmask, tgt_count=cnt,
+                                 return_best=True)[5]
+    ops = vgicp_prepare(src, sm, scov, ts=best.shape[2])
+    for groups in (1, B):
+        before = vgicp_fused.VGICP_FROZEN_LAUNCHES
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a = vgicp_frozen(T, ops, best, _acc_groups=groups)
+            b = vgicp_frozen(T, ops, best, _acc_groups=groups)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert vgicp_fused.VGICP_FROZEN_LAUNCHES == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_vgicp_frozen_kernel_rejects_what_it_does_not_take(cuda):
@@ -384,3 +470,8 @@ def test_vgicp_frozen_kernel_rejects_what_it_does_not_take(cuda):
         vgicp_iteration_frozen(T[0], src[0], sm[0], scov[0], best.cpu())
     with pytest.raises(ValueError):
         vgicp_iteration_frozen(T[0], src[0, :32], sm[0, :32], scov[0, :32], best)
+    with pytest.raises(ValueError):
+        vgicp_iteration_frozen(T[0], src[0], sm[0], scov[0], best.transpose(1, 2))
+    with pytest.raises(ValueError):                 # one frame in two groups
+        vgicp_iteration_frozen(T[0][None].expand(1, 4, 4), src[0], sm[0], scov[0], best,
+                               _acc_groups=2)

@@ -168,9 +168,11 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     rng = np.random.default_rng(2)
     src, tgt = torch.tensor(_cloud(rng, 20)), torch.tensor(_cloud(rng, 30))
     calls = []
-    monkeypatch.setattr(pknn, "_nn_cuda", lambda *a, **k: calls.append(1))
+    for name in ("_nn_search_cuda", "_nn_coords_cuda", "_nn_pack_cuda"):
+        monkeypatch.setattr(pknn, name, lambda *a, **k: calls.append(1))
     pknn.nearest_neighbor(src, tgt)
     pknn.nearest_neighbor_with_coords(src, tgt)
+    pknn.nn_search(src, pknn.nn_prepare(tgt))
     assert calls == []
     with pytest.raises(ValueError):
         pknn.nearest_neighbor(src, tgt, torch.ones(30, device="meta"))
@@ -178,6 +180,106 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
         pknn.nearest_neighbor_with_coords(src, tgt[:, :2])
     with pytest.raises(ValueError):
         pknn.nearest_neighbor(src, tgt[:0])
+    with pytest.raises(ValueError):
+        pknn.nn_search(src.to("meta"), pknn.nn_prepare(tgt))
+    with pytest.raises(ValueError):
+        pknn.nn_prepare(tgt.to("meta"), torch.ones(30, device="meta"))
+
+
+# ---- the prepared search (`nn_prepare` + `nn_search`, the plain version on
+# the packed layout) against the Pallas kernel in interpret mode: equal
+# indices and bit-equal d2.
+
+def _scattered():
+    """Live rows scattered among masked rows (20% live), some masked rows
+    right at the sources."""
+    rng = np.random.default_rng(41)
+    src, tgt = _cloud(rng, 300, 30.0), _cloud(rng, 4096, 30.0)
+    mask = (rng.uniform(size=4096) < 0.2).astype(np.float32)
+    tgt[np.flatnonzero(mask == 0)[:50]] = src[:50]
+    return src, tgt, mask
+
+
+def _ties_between_masked():
+    """Rows 0-9 masked, live rows 10 and 50 at d2 = 5 from source 0 with
+    masked rows between them lying on the source: row 10 wins. Rows 70 and
+    3000 tie at d2 = 2 for source 1 behind a masked row at its position:
+    row 70 wins."""
+    tgt = np.full((4096, 3), 90.0, np.float32)
+    mask = np.ones(4096, np.float32)
+    mask[:10] = 0.0
+    mask[11:50] = 0.0
+    tgt[:10] = tgt[11:50] = 0.0
+    tgt[10], tgt[50] = (1, 2, 0), (1, -2, 0)
+    tgt[70], tgt[3000] = (21, 0, 1), (19, 0, -1)
+    tgt[60], mask[60] = (20, 0, 0), 0.0
+    src = np.asarray([[0, 0, 0], [20, 0, 0]], np.float32)
+    return src, tgt, mask
+
+
+def _all_masked():
+    rng = np.random.default_rng(43)
+    return _cloud(rng, 200), _cloud(rng, 2500), np.zeros(2500, np.float32)
+
+
+def _far_live_row():
+    """One live row 2e15 m away, the rest masked: its d2 (4e30) is not below
+    the penalty, so masked row 0 wins at d2 1e30."""
+    rng = np.random.default_rng(44)
+    src, tgt = _cloud(rng, 100), _cloud(rng, 1000)
+    mask = np.zeros(1000, np.float32)
+    tgt[7], mask[7] = (2e15, 0, 0), 1.0
+    return src, tgt, mask
+
+
+PREPARED_CASES = {"scattered": _scattered, "ties_between_masked": _ties_between_masked,
+                  "all_masked": _all_masked, "far_live_row": _far_live_row}
+
+
+@pytest.mark.parametrize("case", sorted(PREPARED_CASES))
+def test_prepared_search_matches_pallas(case):
+    src, tgt, mask = PREPARED_CASES[case]()
+    ji, jd = _pallas(src, tgt, mask)
+    ops = pknn.nn_prepare(torch.tensor(tgt), torch.tensor(mask))
+    pi, pd = (x.numpy() for x in pknn.nn_search(torch.tensor(src), ops))
+    assert pi.dtype == np.int32 and pd.dtype == np.float32
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_array_equal(pd, jd)
+    if case == "ties_between_masked":
+        np.testing.assert_array_equal(pi, [10, 70])
+        np.testing.assert_array_equal(pd, [5.0, 2.0])
+    if case in ("all_masked", "far_live_row"):
+        assert (pi == 0).all() and (pd == np.float32(1e30)).all()
+
+
+def test_nn_prepare_packs_live_rows_first():
+    src, tgt, mask = _scattered()
+    ops = pknn.nn_prepare(torch.tensor(tgt), torch.tensor(mask))
+    live = np.flatnonzero(mask > 0.5)
+    order = np.concatenate([live, np.flatnonzero(mask <= 0.5)])
+    assert ops.count.tolist() == [len(live)] and ops.count.dtype == torch.int32
+    np.testing.assert_array_equal(ops.orig.numpy(), order)
+    np.testing.assert_array_equal(ops.rows[:, :3].numpy(), tgt[order])
+    assert float(ops.rows[:, 3].abs().max()) == 0.0 and ops.rows.is_contiguous()
+    assert ops.cluster == 2 and pknn.nn_prepare(torch.tensor(tgt[:2048])).cluster == 1
+    assert pknn.nn_prepare(torch.zeros((16384, 3))).cluster == 8
+
+
+@pytest.mark.parametrize("n,m,live", [(300, 4096, 0.1), (64, 700, 1.0)])
+def test_prepared_search_equals_per_call(n, m, live):
+    """One preparation serves every search of a registration: at several
+    source positions it gives what the per-call `nearest_neighbor` and the
+    all-rows plain version give."""
+    rng = np.random.default_rng(n + m)
+    tgt = torch.tensor(_cloud(rng, m, 30.0))
+    mask = torch.tensor((rng.uniform(size=m) < live).astype(np.float32))
+    ops = pknn.nn_prepare(tgt, mask)
+    for step in range(3):
+        src = torch.tensor(_cloud(rng, n, 30.0))
+        got = pknn.nn_search(src, ops)
+        for want in (pknn.nearest_neighbor(src, tgt, mask),
+                     pknn.nearest_neighbor_plain(src, tgt, mask)):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_k_smallest_is_the_stable_sort_prefix():

@@ -396,11 +396,14 @@ def test_frozen_plain_matches_pallas_interpret(n, P, count):
         assert float(pf[3]) > 0.5 * sm.sum()
 
 
-def test_frozen_batch_groups_and_never_matched_rows():
-    """B = 3 frames against one target, per-frame sums (`_acc_groups`).
-    Frame 1's payload rows are marked never matched (stale d2 1e30, as a
-    sweep against an empty submap leaves them): they add nothing, although
-    their fresh distances lie inside the gate."""
+@pytest.mark.parametrize("groups", [3, 1])
+def test_frozen_batch_groups_and_never_matched_rows(groups):
+    """B = 3 frames against one target, per-frame sums (`_acc_groups` = B)
+    or one sum over all frames (1). Frame 1's payload rows are marked never
+    matched (stale d2 1e30, as a sweep against an empty submap leaves
+    them): they add nothing, although their fresh distances lie inside the
+    gate. The results are views of one finished (groups, 45) row block, as
+    the kernel writes it."""
     rng = np.random.default_rng(21)
     B, N, P = 3, 256, 1500
     src = rng.uniform(-20, 20, (B, N, 3)).astype(np.float32)
@@ -423,12 +426,19 @@ def test_frozen_batch_groups_and_never_matched_rows():
     _, matched = _frozen_both(T1, *flat, best, groups=B, max_correspondence_dist=3.0)
     assert float(matched[3][1]) > 100.0
     best[2:4, 0, :] = 1e30
-    jf, pf = _frozen_both(T1, *flat, best, groups=B, max_correspondence_dist=3.0)
+    jf, pf = _frozen_both(T1, *flat, best, groups=groups, max_correspondence_dist=3.0)
     _assert_sums(jf, pf)
-    assert pf[0].shape == (B, 6, 6)
-    for x, y in zip(pf, matched):
-        assert float(x[1].abs().sum()) == 0.0            # frame 1 never matched
-        torch.testing.assert_close(x[[0, 2]], y[[0, 2]], rtol=0, atol=0)
+    lead = (B,) if groups > 1 else ()
+    assert pf[0].shape == lead + (6, 6) and pf[1].shape == lead + (6,)
+    assert all(x.shape == lead for x in pf[2:])
+    assert len({x.untyped_storage().data_ptr() for x in pf}) == 1
+    torch.testing.assert_close(pf[0], pf[0].transpose(-1, -2), rtol=0, atol=0)
+    if groups > 1:
+        for x, y in zip(pf, matched):
+            assert float(x[1].abs().sum()) == 0.0        # frame 1 never matched
+            torch.testing.assert_close(x[[0, 2]], y[[0, 2]], rtol=0, atol=0)
+    else:
+        assert float(pf[3]) == float(matched[3][[0, 2]].sum())
     with pytest.raises(ValueError):                     # payload of other sources
         pv.vgicp_iteration_frozen(torch.tensor(T1[0]), torch.tensor(src[0, :100]),
                                   torch.tensor(sm[0, :100]), torch.tensor(scov[0, :100]),
