@@ -66,14 +66,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              non-finite outputs, on a lost frame (fitness
              1e6, or nothing matched after the first frame) or on an ATE
              (align=False) above 0.09 m. A third run prints the host-clock
-             phase split. Also checks CUDA against CPU on a 12 x 256 scene
+             phase split. At the path shape (the last scan at its tracked
+             pose, the sector submap of the final map) the covariances
+             over the live rows that gicp_align computes must equal the
+             all-rows point_covariances on every live row and be finite.
+             A profiled run (phase 11's `profile_run`) prints the device
+             time and launches of the covariances (k-NN included; a
+             record_function range around each call), the run's launches
+             a frame and its sort kernels; it fails on a 2-D sort row as
+             wide as the submap, or on nn_merge_kernel or nn_split_kernel
+             among its kernels. Also checks CUDA against CPU on a 12 x 256 scene
              whose frames converge below the iteration cap: the tracks'
              ATE within 0.01 m, and the registration alone on identical
              inputs within 5e-3 (its float32 round-off, measured against
              float64 on the CPU).
 8. knn     — the 1-NN search (K2: the per-call `nearest_neighbor`, and
              `nn_search` on targets packed once by `nn_prepare`) and its
-             coordinate form (K3) against their plain versions on the card:
+             coordinate form (K3: `nearest_neighbor_with_coords` and
+             `nn_search_coords`) against their plain versions on the card:
              a bench scan at its tracked pose against the 16,384-row sector
              submap of phase 7's final map, a fully live 16,384-row submap,
              a ragged masked case, exact ties within and across cluster
@@ -81,11 +91,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              masked rows (the fallback re-scan: masked row 0 wins);
              indices, distances and coordinates must be equal, and the
              packing kernel's rows equal to its plain version's stable
-             sort. Times at the path shape (CUDA events, in turns): the
-             call on prepared targets, its one launch alone, the packing
-             and its plain version, the per-call search, K3 and the plain
-             search; a prepared search must launch one nn_search_kernel and
-             a packing one nn_pack_kernel, and nothing else (profiler).
+             sort. K3's path (no pipeline calls it): one prepared and one
+             per-call coordinate search at the path shape, counts set to 0
+             just before. Times at the path shape (CUDA events, in turns),
+             for K2 and K3 each: the call on prepared targets, its one
+             launch alone, the per-call form and the plain version; the
+             packing and its plain version. A prepared search and a
+             prepared coordinate search must each launch one
+             nn_search_kernel, and a packing one nn_pack_kernel, and
+             nothing else (profiler).
 9. inner   — the per-frame VGICP tracker on the same 64 frames, with
              gicp.inner_gn_steps 0 and then 1 (warm-up, then one timed run
              each, counts reset before it): ATE within 0.0252 +- 0.01 m
@@ -101,20 +115,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              frame: the call on prepared sources, which must launch one
              vgicp_frozen_kernel and nothing else (profiler), and the
              launch alone.
-11. profile — one torch.profiler run of each tracker (s2s, s2m, kNN GICP,
-             and the inner-step run): device kernel time, kernel launches,
-             the top kernels, and the device's idle share against the
-             unprofiled run time; the kNN-GICP and inner-step runs list
-             every kernel they launched (no nn_merge_kernel on the kNN-GICP
-             path). Then the host synchronisations (stream / device
-             synchronise calls and host-to-device copies) per K4, K5 and K2
-             call on prepared operands and per K2 packing, which must be
-             none, and per K4 call of the per-call wrapper.
+11. profile — one torch.profiler run of the s2s, s2m and inner-step
+             trackers (kNN GICP's is in phase 7): device kernel time, kernel
+             launches, the top kernels, and the device's idle share against
+             the unprofiled run time; the inner-step run lists every kernel
+             it launched. Then the host synchronisations (stream / device
+             synchronise calls and host-to-device copies) per K4, K5, K2
+             and K3 call on prepared operands and per K2 packing, which
+             must be none, and per K4 call of the per-call wrapper.
 12. ab     — only with `--parent DIR` (a `git archive` of the parent commit
-             unpacked at DIR): the K2 and K5 calls of both trees at the path
-             shapes, each tree in its own process, in turns (parent, this
-             tree, this tree, parent), with each call's kernels and device
-             time (profiler).
+             unpacked at DIR): the K2, K3 and K5 calls of both trees at the
+             path shapes (K3 also per call), each tree in its own process,
+             in turns (parent, this tree, this tree, parent), with each
+             call's kernels and device time (profiler).
 
 The kernels' bounds come from the shapes and this run's data (bytes over
 3.35 TB/s, FP32 operations over 67 TFLOP/s, the H100 SXM data sheet). The
@@ -166,6 +179,11 @@ ICP_FLOPS_PER_PAIR = 9       # 3 sub, 3 mul, 3 add (the compare not counted)
 SLOTS_PER_S = 132 * 128 * 1.98e9
 VGICP_FLOPS_PER_PAIR = 9
 VGICP_FLOPS_PER_SOURCE = 300  # p = R s + t and the GN epilogue, about
+
+
+# failures found by a phase that lets the later phases run; main raises on
+# them before it prints a result
+FAILED = []
 
 
 def roofline(nbytes, flops):
@@ -877,6 +895,7 @@ def phase_gicp(torch, seq, scans):
 
     from icp4dradar_tpu_torch.geom import matrix_to_rpy, se3_apply
     from icp4dradar_tpu_torch.mapping import voxel_map_sector_search
+    from icp4dradar_tpu_torch.registration import gicp as gicp_mod
     from icp4dradar_tpu_torch.registration import gicp_align
 
     nn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
@@ -921,6 +940,62 @@ def phase_gicp(torch, seq, scans):
     log(f"[gicp] phase split (host clock, a synchronize around each phase; "
         f"{total * 1e3:.2f} ms in all): " + ", ".join(
             f"{k} {v * 1e3:.2f} ms" for k, v in sorted(phases.items(), key=lambda kv: -kv[1])))
+
+    # the covariances over the live rows (what gicp_align computes) against
+    # the all-rows point_covariances at the path shape: the last scan at its
+    # tracked pose and the sector submap of the final map there
+    vm = cfg.voxel_map
+    pose = out.world_T[-1]
+    sub, submask, _ = voxel_map_sector_search(
+        state.vmap, pose[:3, 3], vm.sector_radius, matrix_to_rpy(pose[:3, :3])[2],
+        vm.sector_half_angle_deg, vm.submap_max_points)
+    diffs = []
+    for what, pts, m in (("submap", sub, submask),
+                         ("scan", se3_apply(pose, track.xyz[-1]), track.mask[-1])):
+        full = gicp_mod.point_covariances(pts, m)
+        live = gicp_mod.live_point_covariances(pts, m)
+        on = m > 0.5
+        diffs.append((what, int(on.sum()), pts.shape[0],
+                      (full[on] - live[on]).abs().max().item() if bool(on.any()) else 0.0,
+                      bool(torch.isfinite(live).all())))
+    log("[gicp] live-row covariances against point_covariances at the path shape, largest "
+        "|difference| on the live rows: " + ", ".join(
+            f"{w} {n} live of {r} rows {d:.3e} (all finite {fin})" for w, n, r, d, fin in diffs))
+    if any(d != 0.0 or not fin for _, _, _, d, fin in diffs):
+        # the later phases still run and print; main fails before its result
+        FAILED.append("[gicp] live-row covariances differ from point_covariances")
+
+    # one profiled run: the device time of the covariances (the k-NN's
+    # products and row sorts, the neighbourhoods and normals) inside a
+    # record_function range around each live_point_covariances call
+    orig_cov = gicp_mod.live_point_covariances
+
+    def traced_cov(*a, **k):
+        with torch.profiler.record_function("covariance_knn"):
+            return orig_cov(*a, **k)
+
+    gicp_mod.live_point_covariances = traced_cov
+    try:
+        prof, run_launches = profile_run(
+            torch, "gicp", 1, run,
+            expect=({"nn_search_kernel", "nn_pack_kernel"}, {"nn_merge_kernel",
+                                                              "nn_split_kernel"}),
+            ranges=("covariance_knn",))
+    finally:
+        gicp_mod.live_point_covariances = orig_cov
+    if prof is not None:
+        cov_ms, cov_launches, widest = range_device(torch, prof, "covariance_knn")
+        sorts = [e for e in prof.key_averages() if e.device_type ==
+                 torch.autograd.DeviceType.CUDA and "Sort" in e.key]
+        log(f"[gicp] covariances (k-NN included) device time {cov_ms:.2f} ms a run in "
+            f"{cov_launches} launches ({cov_launches / F:.1f} a frame); the run's launches "
+            f"{run_launches / F:.1f} a frame; widest 2-D sort row in the covariances "
+            f"{widest} columns; sort kernels of the run: " + ", ".join(
+                f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+                for e in sorts))
+        if widest >= vm.submap_max_points or cov_ms <= 0.0:
+            raise RuntimeError(f"[gicp] covariances: widest sort row {widest} columns, "
+                               f"device time {cov_ms} ms")
 
     # small input: the CUDA path against the CPU path on the same draws, on
     # the scene of phase 5's check, whose frames converge in 3-6 iterations.
@@ -985,29 +1060,29 @@ def phase_knn(torch, state, out, track):
     vm = PipelineConfig().voxel_map
     dev = track.xyz.device
     rng = np.random.default_rng(3)
-    nn.NN_COORDS_LAUNCHES = 0
 
     def both(name, src, tgt, mask):
-        """The per-call search, the prepared search and the coordinate form
-        against the all-rows plain version and the prepared plain version:
-        all equal."""
+        """The per-call search and coordinate search, and both on targets
+        prepared once (K2, K3), against the all-rows plain version and the
+        prepared plain versions: all equal."""
         ki, kd = nn.nearest_neighbor(src, tgt, mask)
         kd2, kq = nn.nearest_neighbor_with_coords(src, tgt, mask)
         ops = nn.nn_prepare(tgt, mask)
         si, sd = nn.nn_search(src, ops)
+        cd, cq = nn.nn_search_coords(src, ops)
         torch.cuda.synchronize()
         pi, pd = nn.nearest_neighbor_plain(src, tgt, mask)
         qi, qd = nn.nn_search_plain(src, ops)
+        pcd, pcq = nn.nn_search_coords_plain(src, ops)
         pq = tgt[pi.long()]
         packed = nn.nn_pack_plain(tgt, mask)
         eq = (torch.equal(ki, pi) and torch.equal(si, pi) and torch.equal(qi, pi),
-              torch.equal(kd, pd) and torch.equal(kd2, pd) and torch.equal(sd, pd)
-              and torch.equal(qd, pd),
-              torch.equal(kq, pq),
+              all(torch.equal(x, pd) for x in (kd, kd2, sd, qd, cd, pcd)),
+              all(torch.equal(x, pq) for x in (kq, cq, pcq)),
               all(torch.equal(a, b) for a, b in zip((ops.rows, ops.orig, ops.count), packed)))
         log(f"[knn] {name}: indices equal {eq[0]}, d2 equal {eq[1]}, coordinates equal "
-            f"{eq[2]} (prepared and per call), packing equal {eq[3]}; max |d2| diff "
-            f"{(sd - pd).abs().max().item():.3e}")
+            f"{eq[2]} (K2 and K3, prepared and per call), packing equal {eq[3]}; max |d2| "
+            f"diff {(sd - pd).abs().max().item():.3e}, K3 {(cd - pd).abs().max().item():.3e}")
         if not all(eq):
             raise RuntimeError(f"[knn] {name}: kernel and plain version differ")
         return ki, kd
@@ -1059,101 +1134,108 @@ def phase_knn(torch, state, out, track):
     ki, kd = both("one live row 2e15 m away, the rest masked", src, far, fmask)
     if bool((ki != 0).any()) or not bool((kd == big).all()):
         raise RuntimeError("[knn] far live row: expected masked row 0 at d2 1e30")
+
+    # K3's path: no pipeline calls it; it runs at the kNN-GICP path's
+    # shape, once on targets prepared once and once per call, with the
+    # counts set to 0 just before
+    ops = nn.nn_prepare(submap, submask)
+    nn.NN_COORDS_LAUNCHES = 0
+    nn.nn_search_coords(src, ops)
+    nn.nearest_neighbor_with_coords(src, submap, submask)
+    torch.cuda.synchronize()
     coords_launches = nn.NN_COORDS_LAUNCHES
+    if coords_launches != 2:
+        raise RuntimeError(f"[knn] K3's path: {coords_launches} launches, expected 2")
 
     # time the path shape in turns; 20 calls per event window
     calls = 20
-    ops = nn.nn_prepare(submap, submask)
     lib = nn._lib()
 
-    def prepared():
-        for _ in range(calls):
-            nn.nn_search(src, ops)
+    def many(fn):
+        def run():
+            for _ in range(calls):
+                fn()
+        return run
 
-    def per_call():
-        for _ in range(calls):
-            nn.nearest_neighbor(src, submap, submask)
+    prepared = many(lambda: nn.nn_search(src, ops))
+    per_call = many(lambda: nn.nearest_neighbor(src, submap, submask))
+    packing = many(lambda: nn.nn_prepare(submap, submask))
+    packing_plain = many(lambda: nn.nn_pack_plain(submap, submask))
+    coords_prepared = many(lambda: nn.nn_search_coords(src, ops))
+    coords_per_call = many(lambda: nn.nearest_neighbor_with_coords(src, submap, submask))
+    plain = many(lambda: nn.nn_search_plain(src, ops))
+    plain_coords = many(lambda: nn.nn_search_coords_plain(src, ops))
+    cdist = many(lambda: torch.cdist(src, submap[:live]).min(dim=1))
 
-    def packing():
-        for _ in range(calls):
-            nn.nn_prepare(submap, submask)
-
-    def packing_plain():
-        for _ in range(calls):
-            nn.nn_pack_plain(submap, submask)
-
-    def kernel_coords():
-        for _ in range(calls):
-            nn.nearest_neighbor_with_coords(src, submap, submask)
-
-    def plain():
-        for _ in range(calls):
-            nn.nn_search_plain(src, ops)
-
-    def plain_coords():
-        for _ in range(calls):
-            nn.nearest_neighbor_with_coords_plain(src, submap, submask)
-
-    def cdist():
-        for _ in range(calls):
-            torch.cdist(src, submap[:live]).min(dim=1)
-
-    # the search's one launch alone, on buffers made once
+    # each search's one launch alone, on buffers made once
     bufs = (torch.empty(N, dtype=torch.float32, device=dev),
-            torch.empty(N, dtype=torch.int32, device=dev))
-    launch_args = (src.data_ptr(), ops.rows.data_ptr(), ops.orig.data_ptr(),
-                   ops.count.data_ptr(), ops.tgt.data_ptr(), ops.mask.data_ptr(), N, M,
-                   ops.cluster, bufs[0].data_ptr(), bufs[1].data_ptr(),
-                   torch.cuda.current_stream().cuda_stream)
+            torch.empty(N, dtype=torch.int32, device=dev),
+            torch.empty((N, 3), dtype=torch.float32, device=dev))
+    common = (src.data_ptr(), ops.rows.data_ptr(), ops.orig.data_ptr(), ops.count.data_ptr(),
+              ops.tgt.data_ptr(), ops.mask.data_ptr(), N, M, ops.cluster, bufs[0].data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
 
-    def launch_only():
-        for _ in range(calls):
-            rc = lib.nn_search_launch(*launch_args)
+    def launcher(*outs):
+        def launch():
+            rc = lib.nn_search_launch(*common, *outs, stream)
             if rc != 0:
                 raise RuntimeError(f"[knn] launch failed: CUDA error {rc}")
+        return many(launch)
 
-    order = (plain, packing_plain, per_call, prepared, launch_only, packing, kernel_coords,
-             kernel_coords, packing, launch_only, prepared, per_call, packing_plain, plain)
-    p1, b1, w1, k1, l1, a1, c1, c2, a2, l2, k2, w2, b2, p2 = (time_cuda(torch, f) / calls
-                                                              for f in order)
+    launch_only = launcher(bufs[1].data_ptr(), None)
+    coords_launch_only = launcher(None, bufs[2].data_ptr())
+
+    order = (plain, packing_plain, plain_coords, per_call, prepared, launch_only, packing,
+             coords_prepared, coords_launch_only, coords_per_call,
+             coords_per_call, coords_launch_only, coords_prepared,
+             packing, launch_only, prepared, per_call, plain_coords, packing_plain, plain)
+    (p1, b1, pc1, w1, k1, l1, a1, c1, cl1, cw1,
+     cw2, cl2, c2, a2, l2, k2, w2, pc2, b2, p2) = (time_cuda(torch, f) / calls for f in order)
     cd = time_cuda(torch, cdist) / calls
-    pc = time_cuda(torch, plain_coords, reps=3) / calls
     dev_ms = kernel_device_ms(torch, prepared, ("nn_search_kernel",))
+    cdev_ms = kernel_device_ms(torch, coords_prepared, ("nn_search_kernel",))
     full_ops = nn.nn_prepare(full, torch.ones(M, device=dev))
     full_ms = kernel_device_ms(torch, lambda: nn.nn_search(src, full_ops), ("nn_search_kernel",))
     kernels = call_kernels(torch, lambda: nn.nn_search(src, ops))
     log(f"[knn] kernels of one prepared search (profiler): {fmt_kernels(kernels)}")
     check_one_kernel("knn", kernels, "nn_search_kernel")
+    ckernels = call_kernels(torch, lambda: nn.nn_search_coords(src, ops))
+    log(f"[knn] kernels of one prepared coordinate search, K3 (profiler): "
+        f"{fmt_kernels(ckernels)}")
+    check_one_kernel("knn", ckernels, "nn_search_kernel")
     pack_kernels = call_kernels(torch, lambda: nn.nn_prepare(submap, submask))
     log(f"[knn] kernels of one packing (profiler): {fmt_kernels(pack_kernels)}")
     check_one_kernel("knn", pack_kernels, "nn_pack_kernel")
-    # bytes: sources, every target row and mask once, (index, d2) out; work:
-    # the live rows this submap holds (masked rows cannot win)
+    # bytes: sources, every target row and mask once, (index, d2) or (d2,
+    # coordinates) out; work: the live rows this submap holds (masked rows
+    # cannot win)
     nbytes = 4 * (3 * N + 4 * M + 2 * N)
     bound_ms, bound_by = roofline(nbytes, NN_FLOPS_PER_PAIR * N * live)
     all_rows_ms, _ = roofline(nbytes, NN_FLOPS_PER_PAIR * N * M)
     cbound_ms, cbound_by = roofline(4 * (3 * N + 4 * M + 4 * N), NN_FLOPS_PER_PAIR * N * live)
     # the packing: tgt and mask read once, rows, orig and count written
     pbound_ms, pbound_by = roofline(4 * (4 * M + 5 * M + 1), 0)
-    log(f"[knn] time at {N} x {M} rows ({live} live, a cluster of {ops.cluster}): the "
+    log(f"[knn] K2 at {N} x {M} rows ({live} live, a cluster of {ops.cluster}): the "
         f"call on prepared targets {k1:.4f} / {k2:.4f} ms, its one launch alone "
         f"{l1:.4f} / {l2:.4f} ms (device time {fmt_ms(dev_ms)} a search, profiler; "
-        f"{fmt_ms(full_ms)} against {M} live rows), the packing (nn_prepare) {a1:.4f} / "
-        f"{a2:.4f} ms, the per-call nearest_neighbor {w1:.4f} / {w2:.4f} ms, nn_coords "
-        f"{c1:.4f} / {c2:.4f} ms, plain (prepared) {p1:.4f} / {p2:.4f} ms, plain all-rows "
-        f"coordinate form {pc:.4f} ms; bound "
+        f"{fmt_ms(full_ms)} against {M} live rows), the per-call nearest_neighbor "
+        f"{w1:.4f} / {w2:.4f} ms, plain (prepared) {p1:.4f} / {p2:.4f} ms; bound "
         f"{bound_ms:.5f} ms ({bound_by}, live rows; {all_rows_ms:.5f} ms over all {M} rows)")
+    log(f"[knn] K3 at {N} x {M} rows ({live} live): the call on prepared targets "
+        f"(nn_search_coords) {c1:.4f} / {c2:.4f} ms, its one launch alone {cl1:.4f} / "
+        f"{cl2:.4f} ms (device time {fmt_ms(cdev_ms)} a search, profiler), the per-call "
+        f"nearest_neighbor_with_coords {cw1:.4f} / {cw2:.4f} ms, plain (prepared) "
+        f"{pc1:.4f} / {pc2:.4f} ms; bound {cbound_ms:.5f} ms ({cbound_by}, live rows)")
     log(f"[knn] packing at {M} rows: the call {a1:.4f} / {a2:.4f} ms (device time "
         f"{fmt_ms(kernel_device_ms(torch, packing, ('nn_pack_kernel',)))} a launch), plain "
         f"(a stable sort) {b1:.4f} / {b2:.4f} ms; bound {pbound_ms:.5f} ms ({pbound_by})")
     log(f"[knn] context, not a port path: torch.cdist(src, live rows).min(dim=1) "
         f"{cd:.4f} ms per call")
-    plain_ms = (p1 + p2) / 2
-    return (dict(max_abs_err=0.0, ms=(k1 + k2) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
+    return (dict(max_abs_err=0.0, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=None),
             coords_launches,
-            dict(max_abs_err=0.0, ms=(c1 + c2) / 2, plain_ms=pc, bound_ms=cbound_ms,
-                 bound_by=cbound_by, library_ms=None),
+            dict(max_abs_err=0.0, ms=(c1 + c2) / 2, plain_ms=(pc1 + pc2) / 2,
+                 bound_ms=cbound_ms, bound_by=cbound_by, library_ms=None),
             dict(max_abs_err=0.0, ms=(a1 + a2) / 2, plain_ms=(b1 + b2) / 2,
                  bound_ms=pbound_ms, bound_by=pbound_by, library_ms=None),
             (src, ops, submap, submask))
@@ -1373,8 +1455,8 @@ def count_syncs(torch, fn, calls=20):
 
 
 def phase_syncs(torch, sweep, frozen, search):
-    """K4, K5 and K2 calls on prepared operands copy nothing from the host
-    and never wait for the device; the per-call K4 wrapper is measured
+    """K4, K5, K2 and K3 calls on prepared operands copy nothing from the
+    host and never wait for the device; the per-call K4 wrapper is measured
     beside."""
     import importlib
 
@@ -1391,6 +1473,8 @@ def phase_syncs(torch, sweep, frozen, search):
     B = Tc.shape[0]
     res = {
         "K2 call on prepared operands": count_syncs(torch, lambda: nn.nn_search(nsrc, nops)),
+        "K3 call on prepared operands": count_syncs(
+            torch, lambda: nn.nn_search_coords(nsrc, nops)),
         "K2 packing": count_syncs(torch, lambda: nn.nn_prepare(ntgt, nmask)),
         "K4 call on prepared operands": count_syncs(
             torch, lambda: vf.vgicp_sweep(Tc, ops, _acc_groups=B, **kw)),
@@ -1404,87 +1488,118 @@ def phase_syncs(torch, sweep, frozen, search):
     }
     log("[profile] host syncs per call (synchronise calls, host-to-device copies): " +
         "; ".join(f"{k} {a:.2f}, {c:.2f}" for k, (a, c) in res.items()))
-    for k, (a, c) in list(res.items())[:5]:
+    for k, (a, c) in list(res.items())[:-1]:
         if a or c:
             raise RuntimeError(f"[profile] {k}: {a} synchronise calls and {c} host-to-device "
                                f"copies per call, expected none")
 
 
-def phase_profile(torch, scans, s2m, track):
-    """One profiled run of each tracker: device kernel time and launches
-    from torch.profiler, the idle share against the median unprofiled run
-    (three unprofiled runs; one for the kNN-GICP and inner-step trackers,
-    whose runs are the longest). The kNN-GICP and inner-step runs also
-    print every kernel they launched: K2's search is one nn_search_kernel
-    (no nn_merge_kernel), K5's step one vgicp_frozen_kernel."""
+def profile_run(torch, name, n_walls, fn, expect=None, ranges=()):
+    """One profiled run of fn after `n_walls` unprofiled ones: device kernel
+    time and launches from torch.profiler, the idle share against the
+    median unprofiled run, the top kernels; with `expect` = (kernels it
+    must launch, kernels it must not), every kernel it launched. `ranges`
+    names the record_function ranges fn opens: the profiler also lists
+    them on the device's timeline, and they are no kernels. Returns the
+    profile (None when the profiler saw no device time) and the
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
+    walls = []
+    for _ in range(n_walls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    cuda_type = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages()
+            if e.device_type == cuda_type and e.key not in ranges]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3     # ms
+    launches = sum(e.count for e in kern)
+    if busy <= 0.0:
+        log(f"[profile] {name}: the profiler saw no device time (not measured)")
+        return None, launches
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[profile] {name}: run {wall * 1e3:.2f} ms unprofiled (median of {n_walls}), "
+        f"{pwall * 1e3:.2f} ms profiled; device kernel time {busy:.2f} ms in "
+        f"{launches} kernel launches; idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+    for e in top:
+        log(f"[profile] {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"x{e.count:<6d} {e.key[:90]}")
+    if expect is not None:
+        counts = {}
+        for e in kern:
+            k = kernel_name(e.key)
+            counts[k] = counts.get(k, 0) + e.count
+        log(f"[profile] {name}: kernels launched: " + ", ".join(
+            f"{k} x{n}" for k, n in sorted(counts.items(), key=lambda kv: -kv[1])))
+        need, banned = expect
+        if not need <= set(counts) or banned & set(counts):
+            raise RuntimeError(f"[profile] {name}: expected {sorted(need)} and none of "
+                               f"{sorted(banned)} among the kernels launched")
+    return prof, launches
+
+
+def range_device(torch, prof, name):
+    """(device ms, kernel launches) of the kernels launched inside the
+    record_function ranges called `name`, and the widest row (columns) of
+    the 2-D aten::sort calls inside them."""
+    def kernels(e):
+        return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
+
+    def inside(e):
+        while e is not None:
+            if e.name == name:
+                return True
+            e = e.cpu_parent
+        return False
+
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = [e for e in events if e.name == name and e.device_type == cpu]
+    widest = max((e.input_shapes[0][-1] for e in events
+                  if e.name == "aten::sort" and e.input_shapes and len(e.input_shapes[0]) == 2
+                  and inside(e)), default=0)
+    return (sum(e.device_time_total for e in ranges) / 1e3,
+            sum(kernels(e) for e in ranges), widest)
+
+
+def phase_profile(torch, scans, s2m, track):
+    """One profiled run of the s2s, s2m and inner-step trackers
+    (`profile_run`; the kNN-GICP tracker's is in phase 7): three unprofiled
+    runs for the idle share, one for the inner-step run, the longest. The
+    inner-step run lists every kernel it launched: K5's step is one
+    vgicp_frozen_kernel."""
     from icp4dradar_tpu_torch.config import PipelineConfig
     from icp4dradar_tpu_torch.models import (
         run_scan_to_map, run_scan_to_map_blocked, run_scan_to_scan,
     )
 
     cfg = PipelineConfig()
-    knn_cfg = cfg.override(**{"gicp.use_vgicp": False})
     inner_cfg = cfg.override(**{"gicp.inner_gn_steps": 1})
-    runs = {
-        "s2s": (3, lambda: run_scan_to_scan(scans, cfg, use_doppler_prior=True)),
-        "s2m": (3, lambda: run_scan_to_map_blocked(s2m, cfg, block=S2M_BLOCK,
-                                                   use_const_velocity_rot=True)),
-        "gicp": (1, lambda: run_scan_to_map(track, knn_cfg, use_const_velocity_rot=True)),
-        "inner": (1, lambda: run_scan_to_map(track, inner_cfg, use_const_velocity_rot=True)),
-    }
-    # kernels each named run must launch, and kernels it must not
-    expect = {"gicp": ({"nn_search_kernel", "nn_pack_kernel"},
-                       {"nn_merge_kernel", "nn_split_kernel"}),
-              "inner": ({"vgicp_sweep_kernel", "vgicp_frozen_kernel"}, set())}
-    cuda_type = torch.autograd.DeviceType.CUDA
-    for name, (n_walls, fn) in runs.items():
-        walls = []
-        for _ in range(n_walls):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        wall = statistics.median(walls)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            pwall = time.perf_counter() - t0
-        kern = [e for e in prof.key_averages() if e.device_type == cuda_type]
-        busy = sum(e.self_device_time_total for e in kern) / 1e3     # ms
-        launches = sum(e.count for e in kern)
-        if busy <= 0.0:
-            log(f"[profile] {name}: the profiler saw no device time (not measured)")
-            continue
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-        log(f"[profile] {name}: run {wall * 1e3:.2f} ms unprofiled (median of {n_walls}), "
-            f"{pwall * 1e3:.2f} ms profiled; device kernel time {busy:.2f} ms in "
-            f"{launches} kernel launches; idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
-        for e in top:
-            log(f"[profile] {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
-                f"x{e.count:<6d} {e.key[:90]}")
-        if name in expect:
-            counts = {}
-            for e in kern:
-                k = kernel_name(e.key)
-                counts[k] = counts.get(k, 0) + e.count
-            log(f"[profile] {name}: kernels launched: " + ", ".join(
-                f"{k} x{n}" for k, n in sorted(counts.items(), key=lambda kv: -kv[1])))
-            need, banned = expect[name]
-            if not need <= set(counts) or banned & set(counts):
-                raise RuntimeError(f"[profile] {name}: expected {sorted(need)} and none of "
-                                   f"{sorted(banned)} among the kernels launched")
+    profile_run(torch, "s2s", 3, lambda: run_scan_to_scan(scans, cfg, use_doppler_prior=True))
+    profile_run(torch, "s2m", 3, lambda: run_scan_to_map_blocked(
+        s2m, cfg, block=S2M_BLOCK, use_const_velocity_rot=True))
+    profile_run(torch, "inner", 1, lambda: run_scan_to_map(
+        track, inner_cfg, use_const_velocity_rot=True),
+        expect=({"vgicp_sweep_kernel", "vgicp_frozen_kernel"}, set()))
 
 
 def ab_child(tree):
-    """Times the K2 and K5 calls of the package in `tree` (this tree or the
-    parent commit's) at the path shapes, on inputs made from a seed, and
-    prints one JSON line. K2: 2048 sources against 16,384 rows whose first
-    542 are live (the sector query front-packs them); K5: one 2048-point
-    frame on a sweep's payload. A tree without `nn_search` is timed through
-    its per-call `nearest_neighbor`, the call its tracker makes."""
+    """Times the K2, K3 and K5 calls of the package in `tree` (this tree or
+    the parent commit's) at the path shapes, on inputs made from a seed,
+    and prints one JSON line. K2 and K3: 2048 sources against 16,384 rows
+    whose first 542 are live (the sector query front-packs them); K5: one
+    2048-point frame on a sweep's payload. A tree without
+    `nn_search_coords` times K3 through its per-call
+    `nearest_neighbor_with_coords` alone."""
     import importlib
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -1507,11 +1622,19 @@ def ab_child(tree):
     def per_call():
         return nn.nearest_neighbor(src, tgt, mask)
 
-    if hasattr(nn, "nn_search"):
-        ops = nn.nn_prepare(tgt, mask)
-        k2 = lambda: nn.nn_search(src, ops)  # noqa: E731
+    ops = nn.nn_prepare(tgt, mask)
+
+    def k2():
+        return nn.nn_search(src, ops)
+
+    def k3_per_call():
+        return nn.nearest_neighbor_with_coords(src, tgt, mask)
+
+    if hasattr(nn, "nn_search_coords"):
+        def k3():
+            return nn.nn_search_coords(src, ops)
     else:
-        k2 = per_call
+        k3 = k3_per_call
 
     # K5: one frame of 2048 sources near 800 voxels, a sweep's payload
     vox = rng.uniform([-40, -40, -2], [40, 40, 3], (800, 3)).astype(np.float32)
@@ -1537,18 +1660,20 @@ def ab_child(tree):
                 fn()
         return run
 
-    t = [time_cuda(torch, many(f)) / calls for f in (k2, per_call, k5, k5, per_call, k2)]
-    res.update(k2_call_ms=(t[0] + t[5]) / 2, k2_per_call_ms=(t[1] + t[4]) / 2,
-               k5_call_ms=(t[2] + t[3]) / 2, k2_kernels=call_kernels(torch, k2),
-               k5_kernels=call_kernels(torch, k5))
+    fns = (k2, per_call, k3, k3_per_call, k5)
+    t = [time_cuda(torch, many(f)) / calls for f in fns + fns[::-1]]
+    ms = [(a + b) / 2 for a, b in zip(t[:5], t[::-1][:5])]
+    res.update(k2_call_ms=ms[0], k2_per_call_ms=ms[1], k3_call_ms=ms[2],
+               k3_per_call_ms=ms[3], k5_call_ms=ms[4], k2_kernels=call_kernels(torch, k2),
+               k3_kernels=call_kernels(torch, k3), k5_kernels=call_kernels(torch, k5))
     print(json.dumps(res), flush=True)
     return 0
 
 
 def phase_ab(parent):
-    """A/B of the K2 and K5 calls against the parent commit's tree (a `git
-    archive` unpacked at `parent`), each tree in its own process, in turns:
-    parent, this tree, this tree, parent."""
+    """A/B of the K2, K3 and K5 calls against the parent commit's tree (a
+    `git archive` unpacked at `parent`), each tree in its own process, in
+    turns: parent, this tree, this tree, parent."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for tree in (parent, here, here, parent):
@@ -1558,12 +1683,16 @@ def phase_ab(parent):
             raise RuntimeError(f"[ab] {tree} failed:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
         res = json.loads(r.stdout.strip().splitlines()[-1])
         runs.append(res)
-        dev = {k: call_device_ms(res[k] or {}) for k in ("k2_kernels", "k5_kernels")}
+        dev = {k: call_device_ms(res[k] or {})
+               for k in ("k2_kernels", "k3_kernels", "k5_kernels")}
         log(f"[ab] {'parent' if tree == parent else 'this tree'} ({res['package']}): K2 call "
             f"{res['k2_call_ms']:.4f} ms (per-call nearest_neighbor "
             f"{res['k2_per_call_ms']:.4f} ms), device {dev['k2_kernels']:.4f} ms "
-            f"({fmt_kernels(res['k2_kernels'])}); K5 call {res['k5_call_ms']:.4f} ms, "
-            f"device {dev['k5_kernels']:.4f} ms ({fmt_kernels(res['k5_kernels'])})")
+            f"({fmt_kernels(res['k2_kernels'])}); K3 call {res['k3_call_ms']:.4f} ms "
+            f"(per-call nearest_neighbor_with_coords {res['k3_per_call_ms']:.4f} ms), device "
+            f"{dev['k3_kernels']:.4f} ms ({fmt_kernels(res['k3_kernels'])}); K5 call "
+            f"{res['k5_call_ms']:.4f} ms, device {dev['k5_kernels']:.4f} ms "
+            f"({fmt_kernels(res['k5_kernels'])})")
     return runs
 
 
@@ -1571,8 +1700,8 @@ def main(argv) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="a tree of the parent commit: time its K2 and K5 "
-                                     "calls beside this tree's (A/B, phase 12)")
+    ap.add_argument("--parent", help="a tree of the parent commit: time its K2, K3 and "
+                                     "K5 calls beside this tree's (A/B, phase 12)")
     ap.add_argument("--ab-tree", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ab_tree:
@@ -1611,6 +1740,8 @@ def main(argv) -> int:
     phase_syncs(torch, sweep_ops, frozen_ops, search_ops)
     if parent is not None:
         phase_ab(parent)
+    if FAILED:
+        raise RuntimeError("; ".join(FAILED))
 
     log(json.dumps({"kernels": [
         {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,

@@ -1,19 +1,22 @@
 // Masked brute-force 1-NN search for NVIDIA Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of icp4dradar_tpu/ops/knn.py:
-//   _nn_kernel (:75, behind nearest_neighbor_pallas)         -> nn_search_launch
+// Replaces two Pallas TPU kernels of icp4dradar_tpu/ops/knn.py with one
+// kernel, nn_search_kernel, launched by nn_search_launch:
+//   _nn_kernel (:75, behind nearest_neighbor_pallas)          -> K2: (index, d2)
 //   _nn_coords_kernel (:180, behind nearest_neighbor_coords_pallas)
-//                                                            -> nn_coords_launch
+//                                                             -> K3: (d2, tgt[index])
 // For each source point s_i and every target row j it forms
 //
 //   d2 = fma(dz, dz, fma(dy, dy, fma(dx, dx, pen_j))),  d = t_j - s_i
 //
 // (pen = 1e30 on a masked row), each fused multiply-add rounded once, as
 // XLA evaluates the Pallas body; the nearest row is the smallest index among
-// the exact minima, and the reported distance is max(d2, 0). nn_search
-// writes (index, d2), nn_coords (d2, tgt[index]).
+// the exact minima, and the reported distance is max(d2, 0). Each output
+// is optional: the index (K2), the matched row's coordinates (K3), read from
+// the targets as given at the winning original index, so that both forms
+// are one launch of the same search.
 //
-// nn_search_launch (K2) reads targets packed once per registration
+// The search reads targets packed once per registration
 // (ops/knn.py::nn_prepare): the rows as float4 (x, y, z, 0), live rows first
 // in their original order, each packed row's original index, and the live
 // count on the device. A masked row's d2 is >= 1e30, so it can win only
@@ -25,7 +28,7 @@
 //
 // What bounds it on an H100: per (source, live row) pair 3 subtractions, 3
 // multiply-adds and a compare on one float4; the bytes (N*12 + M*16 in, N*8
-// out) are ~0.3 MB. At the kNN-GICP path's shape (2048 sources against a
+// out, or N*16 with the coordinates) are ~0.3 MB. At the kNN-GICP path's shape (2048 sources against a
 // 16,384-row sector submap with ~542 live rows) that is 1.1e6 pairs, ~1e7
 // FP32 operations: ~0.15 us at the 67 TFLOP/s FP32 peak, far below a
 // launch (a few us). Over all 16,384 rows (a fully live submap) the bound
@@ -50,7 +53,8 @@
 // rank order, strictly-less, through distributed shared memory
 // (cluster.map_shared_rank): rows ascend with rank, so the smallest index
 // among the exact minima wins. Rank 0
-// writes orig[best] and max(d2, 0), or runs the fallback scan. There is no
+// runs the fallback scan where it must, then writes max(d2, 0) and the
+// original index orig[best] (K2) or that row's coordinates (K3). There is no
 // scratch tensor, no second kernel and no atomic. Two cluster.sync()s: one
 // before rank 0 reads the other ranks' shared memory, one before any block
 // exits (a block's shared memory must outlive its readers).
@@ -62,13 +66,6 @@
 // launches (~0.3 ms of host time) of a sort-based packing. Rows go one a
 // thread in tiles of 1024, so loads and stores coalesce (a contiguous run
 // of rows a thread measured 0.052 ms: uncoalesced, through one SM's L1).
-//
-// nn_coords_launch (K3) keeps the earlier design: one source per thread,
-// the target rows split over a second grid axis so that 2048 sources fill
-// the card, each block staging its rows through shared memory in tiles of
-// 1024 float4 (x, y, z, pen), a (splits, N) scratch and a second kernel
-// that merges the splits in ascending order with the same strictly-less
-// rule, then gathers tgt[index].
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -105,11 +102,12 @@ nn_search_kernel(const float* __restrict__ src,    // (N, 3)
                  const float4* __restrict__ rows,  // (M,) [x, y, z, 0], live rows first
                  const int* __restrict__ orig,     // (M,) original index of each row
                  const int* __restrict__ count,    // (1,) live rows
-                 const float* __restrict__ tgt,    // (M, 3) as given (fallback)
+                 const float* __restrict__ tgt,    // (M, 3) as given (fallback, K3)
                  const float* __restrict__ mask,   // (M,) as given (fallback)
                  int N, int M,
                  float* __restrict__ d2_out,       // (N,)
-                 int* __restrict__ idx_out) {      // (N,)
+                 int* __restrict__ idx_out,        // (N,) or null
+                 float* __restrict__ q_out) {      // (N, 3) or null
   __shared__ __align__(16) float4 s_rows[kSearchTile];
   __shared__ float s_wd[kSearchWarps][kSearchSources];
   __shared__ int s_wi[kSearchWarps][kSearchSources];
@@ -230,7 +228,11 @@ nn_search_kernel(const float* __restrict__ src,    // (N, 3)
         }
       }
       d2_out[i] = fmaxf(d, 0.f);
-      idx_out[i] = out_i;
+      if (idx_out != nullptr) idx_out[i] = out_i;
+      if (q_out != nullptr) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) q_out[3 * (size_t)i + k] = tgt[3 * (size_t)out_i + k];
+      }
     }
   }
   cluster.sync();  // rank 0 is done reading the other ranks
@@ -295,95 +297,20 @@ nn_pack_kernel(const float* __restrict__ tgt,   // (M, 3)
   if (t == 0) *count = s_total;
 }
 
-// ---- K3: the coordinate form, target rows split over grid.y
-
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;  // rows staged per pass: 16 KB of float4
-
-__global__ void __launch_bounds__(kThreads)
-nn_split_kernel(const float* __restrict__ src,   // (N, 3)
-                const float* __restrict__ tgt,   // (M, 3)
-                const float* __restrict__ mask,  // (M,)
-                int N, int M, int rows,
-                float* __restrict__ part_d,      // (splits, N)
-                int* __restrict__ part_i) {      // (splits, N)
-  __shared__ float4 s_t[kTile];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < N;
-  const int r0 = blockIdx.y * rows;
-  const int r1 = min(M, r0 + rows);
-  const float sx = live ? src[3 * (size_t)i] : 0.f;
-  const float sy = live ? src[3 * (size_t)i + 1] : 0.f;
-  const float sz = live ? src[3 * (size_t)i + 2] : 0.f;
-  float best = INFINITY;
-  int best_i = r0;
-  for (int base = r0; base < r1; base += kTile) {
-    const int n = min(kTile, r1 - base);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int r = threadIdx.x; r < n; r += kThreads) {
-      const size_t j = (size_t)(base + r);
-      s_t[r] = make_float4(tgt[3 * j], tgt[3 * j + 1], tgt[3 * j + 2],
-                           mask[j] > 0.5f ? 0.f : kBig);
-    }
-    __syncthreads();
-    if (live) {
-#pragma unroll 8
-      for (int r = 0; r < n; ++r) {
-        const float4 t = s_t[r];
-        const float dx = __fsub_rn(t.x, sx);
-        const float dy = __fsub_rn(t.y, sy);
-        const float dz = __fsub_rn(t.z, sz);
-        const float d2 = __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmaf_rn(dx, dx, t.w)));
-        if (d2 < best) {  // ascending rows, strictly less: smallest index wins
-          best = d2;
-          best_i = base + r;
-        }
-      }
-    }
-  }
-  if (live) {
-    part_d[(size_t)blockIdx.y * N + i] = best;
-    part_i[(size_t)blockIdx.y * N + i] = best_i;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-nn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
-                int N, int splits, const float* __restrict__ tgt,
-                float* __restrict__ d2_out,
-                float* __restrict__ q_out) {  // (N, 3)
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= N) return;
-  float best = part_d[i];
-  int best_i = part_i[i];
-  for (int s = 1; s < splits; ++s) {  // ascending splits, strictly less
-    const float d = part_d[(size_t)s * N + i];
-    if (d < best) {
-      best = d;
-      best_i = part_i[(size_t)s * N + i];
-    }
-  }
-  d2_out[i] = fmaxf(best, 0.f);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) q_out[3 * (size_t)i + k] = tgt[3 * (size_t)best_i + k];
-}
-
 }  // namespace
 
-extern "C" int nn_search_sources_per_block() { return kSearchSources; }
-extern "C" int nn_search_max_cluster() { return kMaxCluster; }
-extern "C" int nn_coords_threads() { return kThreads; }
-
-// K2 on prepared targets: one launch on `stream` of grid (ceil(N / 128),
-// cluster), the `cluster` blocks along y one thread block cluster (1 to 8).
-// rows (M, 4) / orig (M,) / count (1,) as ops/knn.py::nn_prepare packs
-// them, tgt (M, 3) and mask (M,) as given. Returns the launch's error (0 on
-// success).
+// K2 and K3 on prepared targets: one launch on `stream` of grid (ceil(N /
+// 128), cluster), the `cluster` blocks along y one thread block cluster (1
+// to 8). rows (M, 4) / orig (M,) / count (1,) as ops/knn.py::nn_prepare
+// packs them, tgt (M, 3) and mask (M,) as given. Writes d2 (N,), and idx
+// (N,) and q (N, 3) where they are not null (at least one of them). Returns
+// the launch's error (0 on success).
 extern "C" int nn_search_launch(const float* src, const float* rows, const int* orig,
                                 const int* count, const float* tgt, const float* mask,
-                                int N, int M, int cluster, float* d2, int* idx,
+                                int N, int M, int cluster, float* d2, int* idx, float* q,
                                 void* stream) {
-  if (N <= 0 || M <= 0 || cluster < 1 || cluster > kMaxCluster) {
+  if (N <= 0 || M <= 0 || cluster < 1 || cluster > kMaxCluster || d2 == nullptr ||
+      (idx == nullptr && q == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaLaunchConfig_t cfg = {};
@@ -400,7 +327,7 @@ extern "C" int nn_search_launch(const float* src, const float* rows, const int* 
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, nn_search_kernel, src,
                                              reinterpret_cast<const float4*>(rows), orig,
-                                             count, tgt, mask, N, M, d2, idx);
+                                             count, tgt, mask, N, M, d2, idx, q);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -413,25 +340,5 @@ extern "C" int nn_pack_launch(const float* tgt, const float* mask, int M, float*
   if (M <= 0) return (int)cudaErrorInvalidValue;
   nn_pack_kernel<<<1, kPackThreads, 0, (cudaStream_t)stream>>>(
       tgt, mask, M, reinterpret_cast<float4*>(rows), orig, count);
-  return (int)cudaGetLastError();
-}
-
-// K3: launches on `stream` and returns cudaGetLastError() (0 on success).
-// Target rows split into `splits` ranges of `rows` rows (the last one
-// ragged, none empty); part_d / part_i are (splits, N) scratch.
-extern "C" int nn_coords_launch(const float* src, const float* tgt, const float* mask,
-                                int N, int M, int rows, int splits, float* part_d,
-                                int* part_i, float* d2, float* q, void* stream) {
-  if (q == nullptr || N <= 0 || M <= 0 || rows <= 0 || splits <= 0 || splits > 65535 ||
-      (long long)rows * splits < M || (long long)rows * (splits - 1) >= M) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int nblk = (N + kThreads - 1) / kThreads;
-  nn_split_kernel<<<dim3(nblk, splits), kThreads, 0, s>>>(src, tgt, mask, N, M, rows,
-                                                          part_d, part_i);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  nn_merge_kernel<<<nblk, kThreads, 0, s>>>(part_d, part_i, N, splits, tgt, d2, q);
   return (int)cudaGetLastError();
 }

@@ -2,6 +2,7 @@
 3x3 and 6x6 solves. Batched over leading dimensions throughout."""
 
 from icp4dradar_tpu_torch.geom.so3 import (  # noqa: F401
+    matrix_to_quat,
     quat_normalize,
     quat_to_matrix,
     so3_exp,

@@ -4,13 +4,38 @@ velocity, src/iterative_closest_point.cpp:412-429), the 6x6 SPD solve of
 one Gauss-Newton step (closed form for VGICP, Cholesky for kNN GICP), the
 3x3 symmetric eigenvalues behind REVE's `max_r_cond` gate
 (src/radar_odometry.cpp:598) and the extreme eigenvectors behind GICP's
-plane-regularised covariances."""
+plane-regularised covariances; and the float32 fused multiply-add and
+square root, each rounded once, on any device."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fused multiply-add a * b + c, rounded once, on any device.
+    a * b is exact in float64; the float64 sum is made round-to-odd from its
+    TwoSum error, so the final rounding to float32 is the correct one."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even,
+                    torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf)
+                                    .to(s.dtype)), s)
+    return s.float()
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded, on any device: taken in
+    float64 (the rounding to float32 is then the correct one). torch's
+    vectorised float32 sqrt on the CPU need not be: with AVX-512 it is an
+    ulp off for ~0.6% of inputs."""
+    return torch.sqrt(x.double()).float()
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from icp4dradar_tpu_torch.geom.linalg import fma_f32, sqrt_f32
+
 _EPS = 1e-8
 
 
@@ -40,6 +42,47 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) -> (...,4) xyzw, by the JAX package's branch-free
+    Shepperd-style selection: the four candidate solutions, one per
+    dominant component, and the one whose score (trace, m00, m11, m22) is
+    largest, the first on ties. In float32 it gives the JAX package's CPU
+    bits (`write_tum`'s text depends on them): square roots correctly
+    rounded, and the norm's squares summed in order with fused
+    multiply-adds, as XLA reduces them."""
+    f32 = m.dtype == torch.float32
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                      1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    qw = torch.clamp(qw, min=_EPS)
+    qw = (sqrt_f32(qw) if f32 else torch.sqrt(qw)) * 0.5
+    w_, x_, y_, z_ = qw.unbind(-1)
+    cand = torch.stack(
+        [
+            torch.stack([(m21 - m12) / (4 * w_), (m02 - m20) / (4 * w_),
+                         (m10 - m01) / (4 * w_), w_], dim=-1),
+            torch.stack([x_, (m01 + m10) / (4 * x_), (m02 + m20) / (4 * x_),
+                         (m21 - m12) / (4 * x_)], dim=-1),
+            torch.stack([(m01 + m10) / (4 * y_), y_, (m12 + m21) / (4 * y_),
+                         (m02 - m20) / (4 * y_)], dim=-1),
+            torch.stack([(m02 + m20) / (4 * z_), (m12 + m21) / (4 * z_), z_,
+                         (m10 - m01) / (4 * z_)], dim=-1),
+        ],
+        dim=-2,
+    )  # (...,4,4) candidates x xyzw
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.gather(cand, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    if not f32:
+        return quat_normalize(q)
+    x, y, z, w = q.unbind(-1)
+    norm = sqrt_f32(fma_f32(w, w, fma_f32(z, z, fma_f32(y, y, x * x))))
+    return q / torch.clamp(norm, min=_EPS)[..., None]
 
 
 def so3_hat(w: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,12 @@ scan-to-map modes).
     python -m icp4dradar_tpu_torch.models.run_odometry --mode scan_to_map \
         --synthetic 256 --map-interval 8 --cv-rot --device cuda --out /tmp/radar
 
-Outputs (reference formats): scan_to_scan writes velocity.txt, icp.txt and
-output_result.csv; scan_to_map writes velocity.txt and radar_odometry.txt.
-The last stdout line is one JSON record with frames, elapsed seconds,
+Outputs, as the JAX CLI writes them: scan_to_scan writes velocity.txt,
+icp.txt and output_result.csv; scan_to_map writes velocity.txt and
+radar_odometry.txt; both write odom_tum.txt (TUM rows of the world poses),
+pcl_info.txt (the raw point count of each frame) and metrics.jsonl (opened
+before the run, ending in a `run_complete` record). The last stdout line
+is one JSON record with the mode, the device, frames, elapsed seconds,
 scans/s and, for synthetic sequences, the ATE.
 
 `--device cuda` (the default) needs a CUDA device and never falls back to
@@ -89,13 +92,7 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
 
     from icp4dradar_tpu_torch.config import PipelineConfig
-    from icp4dradar_tpu_torch.models.scan_to_map import (
-        run_scan_to_map, run_scan_to_map_blocked,
-    )
-    from icp4dradar_tpu_torch.models.scan_to_scan import run_scan_to_scan
-    from icp4dradar_tpu_torch.utils import (
-        ate_rmse, write_result_csv, write_rt_txt, write_velocity_txt,
-    )
+    from icp4dradar_tpu_torch.utils import MetricsLogger, ate_rmse, write_pcl_info, write_tum
 
     cfg = PipelineConfig()
     if args.config:
@@ -112,6 +109,28 @@ def main(argv=None) -> int:
     scans, gt_poses = build_scans(args, device)
     F = scans.xyz.shape[0]
     os.makedirs(args.out, exist_ok=True)
+    with MetricsLogger(os.path.join(args.out, "metrics.jsonl")) as log:
+        poses, elapsed = run_mode(args, cfg, scans)
+        write_tum(os.path.join(args.out, "odom_tum.txt"), poses)
+        write_pcl_info(os.path.join(args.out, "pcl_info.txt"),
+                       scans.mask.sum(dim=-1).cpu().numpy())
+        rec = {"frames": F, "elapsed_s": round(elapsed, 3),
+               "scans_per_sec": round(F / elapsed, 2)}
+        if gt_poses is not None:
+            rec["ate_rmse_m"] = round(ate_rmse(poses[:, :3, 3], gt_poses[:, :3, 3]), 4)
+        log.log("run_complete", mode=args.mode, **rec)
+    print(json.dumps({"mode": args.mode, "device": str(device), **rec}))
+    return 0
+
+
+def run_mode(args, cfg, scans):
+    """Runs `args.mode` over the scans and writes the mode's own output
+    files -> (world poses (F, 4, 4) numpy, seconds of the run)."""
+    from icp4dradar_tpu_torch.models.scan_to_map import (
+        run_scan_to_map, run_scan_to_map_blocked,
+    )
+    from icp4dradar_tpu_torch.models.scan_to_scan import run_scan_to_scan
+    from icp4dradar_tpu_torch.utils import write_result_csv, write_rt_txt, write_velocity_txt
 
     t0 = time.perf_counter()
     if args.mode == "scan_to_scan":
@@ -142,12 +161,7 @@ def main(argv=None) -> int:
         write_rt_txt(os.path.join(args.out, "radar_odometry.txt"), poses)
     write_velocity_txt(os.path.join(args.out, "velocity.txt"),
                        outs.velocity.cpu().numpy())
-    rec = {"mode": args.mode, "device": str(device), "frames": F,
-           "elapsed_s": elapsed, "scans_per_sec": F / elapsed}
-    if gt_poses is not None:
-        rec["ate_rmse_m"] = ate_rmse(poses[:, :3, 3], gt_poses[:, :3, 3])
-    print(json.dumps(rec))
-    return 0
+    return poses, elapsed
 
 
 if __name__ == "__main__":

@@ -22,6 +22,8 @@ from icp4dradar_tpu_torch.ops.knn import (  # noqa: F401
     nn_pack_plain,
     nn_prepare,
     nn_search,
+    nn_search_coords,
+    nn_search_coords_plain,
     nn_search_plain,
 )
 from icp4dradar_tpu_torch.ops.vgicp_fused import (  # noqa: F401

@@ -12,10 +12,13 @@ k-NN behind its covariances.
   every GN iteration. CPU operands run the plain version on the same
   packed layout; CUDA operands launch the hand-written kernel
   `csrc/nn_search.cu` (one launch a search, no host sync) or raise.
-- `nearest_neighbor(src, tgt, tgt_mask)` prepares for one call and
-  searches. `nearest_neighbor_with_coords` -> (d2 (N,), matched
-  coordinates (N, 3)) runs the coordinate kernel of the same source on
-  CUDA tensors, its plain version on CPU tensors.
+- `nn_search_coords(src, ops)` -> (d2 (N,), matched coordinates (N, 3)):
+  the same search, one launch of the same kernel writing tgt[index] in
+  place of the index; its plain twin `nn_search_coords_plain` gathers from
+  `nn_search_plain`.
+- `nearest_neighbor(src, tgt, tgt_mask)` and `nearest_neighbor_with_coords`
+  prepare for one call and search: one packing launch and one search
+  launch on the card.
 - `nearest_neighbor_plain` / `nearest_neighbor_with_coords_plain`: plain
   torch over all rows with the kernels' semantics, on any device.
 - `knn`: the chunked k-NN, plain torch on every device (the JAX package
@@ -45,62 +48,24 @@ from typing import Optional, Tuple
 
 import torch
 
+from icp4dradar_tpu_torch.geom.linalg import fma_f32 as _fma
 from icp4dradar_tpu_torch.ops import _build
 
 _BIG = 1e30
 
 # Kernel launches of `nn_search` (and `nearest_neighbor`, built on it) and
-# of `nearest_neighbor_with_coords` on CUDA tensors in this process; each
-# wrapper adds one per launch of its kernel and nowhere else.
+# of `nn_search_coords` (and `nearest_neighbor_with_coords`) on CUDA tensors
+# in this process; each wrapper adds one per launch of its kernel and
+# nowhere else.
 NN_SEARCH_LAUNCHES = 0
 NN_COORDS_LAUNCHES = 0
 # Kernel launches of the packing (`nn_prepare` on CUDA tensors).
 NN_PACK_LAUNCHES = 0
 
-# The coordinate kernel splits the target rows over a second grid axis so
-# that a 2048-source search (16 source blocks) still fills the card's 132
-# SMs.
-_TARGET_BLOCKS = 4 * 132
-_MIN_SPLIT_ROWS = 256
 # The search kernel's cluster takes one block per 2048 rows of capacity, a
 # power of two up to the kernel's limit of 8.
 _ROWS_PER_RANK = 2048
 _MAX_CLUSTER = 8
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 fused multiply-add a * b + c, rounded once, on any device.
-    a * b is exact in float64; the float64 sum is made round-to-odd from its
-    TwoSum error, so the final rounding to float32 is the correct one."""
-    a, b, c = a.double(), b.double(), c.double()
-    p = a * b
-    s = p + c
-    bp = s - p
-    err = (p - (s - bp)) + (c - bp)
-    even = (s.view(torch.int64) & 1) == 0
-    s = torch.where((err != 0) & even,
-                    torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf)
-                                    .to(s.dtype)), s)
-    return s.float()
-
-
-def _check_args(name, src, tgt, tgt_mask):
-    if tgt_mask is None:
-        tgt_mask = torch.ones(tgt.shape[0], dtype=torch.float32, device=tgt.device)
-    if src.dim() != 2 or src.shape[-1] != 3 or tgt.dim() != 2 or tgt.shape[-1] != 3 \
-            or tuple(tgt_mask.shape) != (tgt.shape[0],):
-        raise ValueError(f"{name}: src {tuple(src.shape)}, tgt {tuple(tgt.shape)}, "
-                         f"tgt_mask {tuple(tgt_mask.shape)}; expected (N, 3), (M, 3), (M,)")
-    if src.shape[0] == 0 or tgt.shape[0] == 0:
-        raise ValueError(f"{name}: empty clouds, N={src.shape[0]}, M={tgt.shape[0]}")
-    tensors = (src, tgt, tgt_mask)
-    if all(x.device.type == "cpu" for x in tensors):
-        return tgt_mask, False
-    if not all(x.is_cuda and x.device == src.device for x in tensors):
-        raise ValueError(f"{name}: inputs must all be on the CPU or all on one CUDA "
-                         f"device, got {[str(x.device) for x in tensors]}")
-    _check_kernel_tensors(name, (("src", src), ("tgt", tgt), ("tgt_mask", tgt_mask)))
-    return tgt_mask, True
 
 
 def _check_kernel_tensors(name, named):
@@ -177,14 +142,40 @@ def nn_search(src: torch.Tensor, ops: NnOperands) -> Tuple[torch.Tensor, torch.T
     (indices (N,) int32 into the targets as given, squared distances (N,)).
     CPU operands run the plain version; CUDA operands (src contiguous
     float32 on their device) launch the kernel or raise."""
-    if src.dim() != 2 or src.shape[-1] != 3 or src.shape[0] == 0:
-        raise ValueError(f"nn_search: src has shape {tuple(src.shape)}, expected (N, 3), N > 0")
-    if src.device != ops.rows.device:
-        raise ValueError(f"nn_search: src on {src.device}, the operands on {ops.rows.device}")
-    if not src.is_cuda:
+    if not _check_src("nn_search", src, ops):
         return nn_search_plain(src, ops)
-    _check_kernel_tensors("nn_search", (("src", src),))
-    return _nn_search_cuda(src, ops)
+    global NN_SEARCH_LAUNCHES
+    idx = torch.empty(src.shape[0], dtype=torch.int32, device=src.device)
+    d2 = _nn_search_cuda(src, ops, idx.data_ptr(), None)
+    NN_SEARCH_LAUNCHES += 1
+    return idx, d2
+
+
+def nn_search_coords(src: torch.Tensor, ops: NnOperands) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The search of `nn_search` emitting the matched coordinates: src (N,
+    3) -> (squared distances (N,), tgt[index] (N, 3)), the rows exactly as
+    given. CPU operands run the plain version; CUDA operands launch the
+    same kernel once, writing the coordinates in place of the index, or
+    raise."""
+    if not _check_src("nn_search_coords", src, ops):
+        return nn_search_coords_plain(src, ops)
+    global NN_COORDS_LAUNCHES
+    q = torch.empty((src.shape[0], 3), dtype=torch.float32, device=src.device)
+    d2 = _nn_search_cuda(src, ops, None, q.data_ptr())
+    NN_COORDS_LAUNCHES += 1
+    return d2, q
+
+
+def _check_src(name, src, ops) -> bool:
+    """Checks a search's sources against its operands; True where the
+    kernel runs (CUDA), False for the plain version (CPU)."""
+    if src.dim() != 2 or src.shape[-1] != 3 or src.shape[0] == 0:
+        raise ValueError(f"{name}: src has shape {tuple(src.shape)}, expected (N, 3), N > 0")
+    if src.device != ops.rows.device:
+        raise ValueError(f"{name}: src on {src.device}, the operands on {ops.rows.device}")
+    if src.is_cuda:
+        _check_kernel_tensors(name, (("src", src),))
+    return src.is_cuda
 
 
 def nn_search_plain(src: torch.Tensor, ops: NnOperands) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -225,11 +216,9 @@ def nearest_neighbor_with_coords(
     tgt_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(squared distances (N,), matched target coordinates (N, 3)): the 1-NN
-    of `nearest_neighbor`, emitting tgt[index] instead of the index."""
-    tgt_mask, on_cuda = _check_args("nearest_neighbor_with_coords", src, tgt, tgt_mask)
-    if not on_cuda:
-        return nearest_neighbor_with_coords_plain(src, tgt, tgt_mask)
-    return _nn_coords_cuda(src, tgt, tgt_mask)
+    of `nearest_neighbor`, emitting tgt[index] instead of the index;
+    `nn_search_coords` on targets prepared for this call."""
+    return nn_search_coords(src, nn_prepare(tgt, tgt_mask))
 
 
 def nearest_neighbor_plain(
@@ -267,12 +256,21 @@ def _first_min(src, tgt, pen, max_tile_elems: int = 1 << 22):
     return torch.cat(idx), torch.cat(d2)
 
 
+def nn_search_coords_plain(src: torch.Tensor,
+                           ops: NnOperands) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of `nn_search_coords`, on any device: (d2,
+    tgt[index]) from `nn_search_plain`."""
+    idx, d2 = nn_search_plain(src, ops)
+    return d2, ops.tgt[idx.long()]
+
+
 def nearest_neighbor_with_coords_plain(
     src: torch.Tensor,
     tgt: torch.Tensor,
     tgt_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-torch twin of the coordinate kernel: (d2 (N,), tgt[index])."""
+    """Plain-torch all-rows twin of `nearest_neighbor_with_coords`: (d2 (N,),
+    tgt[index])."""
     idx, d2 = nearest_neighbor_plain(src, tgt, tgt_mask)
     return d2, tgt.to(torch.float32)[idx.long()]
 
@@ -281,14 +279,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
     if lib.nn_search_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nn_search_launch.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p]
+        lib.nn_search_launch.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, p]
         lib.nn_search_launch.restype = i
         lib.nn_pack_launch.argtypes = [p, p, i, p, p, p, p]
         lib.nn_pack_launch.restype = i
-        lib.nn_coords_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
-        lib.nn_coords_launch.restype = i
-        lib.nn_coords_threads.argtypes = []
-        lib.nn_coords_threads.restype = i
     return lib
 
 
@@ -306,43 +300,20 @@ def _nn_pack_cuda(tgt, mask):
     return rows, orig, count
 
 
-def _nn_search_cuda(src, ops):
-    global NN_SEARCH_LAUNCHES
+def _nn_search_cuda(src, ops, idx_ptr, q_ptr):
+    """One launch of the search kernel -> d2 (N,); it also writes the
+    indices (N,) int32 at idx_ptr and the coordinates (N, 3) float32 at
+    q_ptr, each where the pointer is not None."""
     N, M = src.shape[0], ops.rows.shape[0]
     d2 = torch.empty(N, dtype=torch.float32, device=src.device)
-    idx = torch.empty(N, dtype=torch.int32, device=src.device)
     rc = _build.launch(src.device, _lib().nn_search_launch, src.data_ptr(),
                        ops.rows.data_ptr(), ops.orig.data_ptr(), ops.count.data_ptr(),
                        ops.tgt.data_ptr(), ops.mask.data_ptr(), N, M, ops.cluster,
-                       d2.data_ptr(), idx.data_ptr())
+                       d2.data_ptr(), idx_ptr, q_ptr)
     if rc != 0:
         raise RuntimeError(f"nn_search kernel launch failed: CUDA error {rc} "
                            f"(N={N}, M={M}, cluster={ops.cluster})")
-    NN_SEARCH_LAUNCHES += 1
-    return idx, d2
-
-
-def _nn_coords_cuda(src, tgt, tgt_mask):
-    global NN_COORDS_LAUNCHES
-    lib = _lib()
-    N, M = src.shape[0], tgt.shape[0]
-    nblk = -(-N // lib.nn_coords_threads())
-    splits = max(1, min(-(-M // _MIN_SPLIT_ROWS), -(-_TARGET_BLOCKS // nblk)))
-    rows = -(-M // splits)
-    splits = -(-M // rows)
-    dev = src.device
-    part_d = torch.empty((splits, N), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits, N), dtype=torch.int32, device=dev)
-    d2 = torch.empty(N, dtype=torch.float32, device=dev)
-    q = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    rc = _build.launch(dev, lib.nn_coords_launch, src.data_ptr(), tgt.data_ptr(),
-                       tgt_mask.data_ptr(), N, M, rows, splits, part_d.data_ptr(),
-                       part_i.data_ptr(), d2.data_ptr(), q.data_ptr())
-    if rc != 0:
-        raise RuntimeError(f"nn_coords kernel launch failed: CUDA error {rc} "
-                           f"(N={N}, M={M}, splits={splits})")
-    NN_COORDS_LAUNCHES += 1
-    return d2, q
+    return d2
 
 
 def knn(

@@ -78,6 +78,37 @@ def point_covariances(
     return covariances_from_neighbors(xyz, xyz[idx.long()], d2 < 1e20, cov_epsilon)
 
 
+def live_point_covariances(
+    xyz: torch.Tensor,
+    mask: torch.Tensor,
+    k: int = 5,
+    cov_epsilon: float = 1e-3,
+) -> torch.Tensor:
+    """`point_covariances` computed over the live rows (mask > 0.5) alone:
+    only they are queried, and only they are searched, in their original
+    order. A live row's covariance is the one `point_covariances` gives:
+    `knn` forms the same expanded distances, and a stable sort over the
+    live columns keeps the lower original index first among ties. With
+    fewer than k live rows the missing neighbours fall back to the point
+    itself, as there. A masked row gets diag(1, 1, eps) = I - (1 - eps)
+    e_z e_z^T, a finite value that `gicp_align` weights by 0. Reads the
+    live count on the host once (`nonzero`)."""
+    live = torch.nonzero(mask > 0.5).squeeze(1)
+    diag = torch.tensor([1.0, 1.0, cov_epsilon], dtype=xyz.dtype, device=xyz.device)
+    cov = torch.diag(diag).expand(xyz.shape[0], 3, 3).clone()
+    L = live.shape[0]
+    if L == 0:
+        return cov
+    pts = xyz[live]
+    kk = min(k, L)
+    idx, d2 = knn(pts, pts, kk, torch.ones(L, dtype=xyz.dtype, device=xyz.device))
+    if kk < k:  # the slots past the live rows: invalid, as d2 >= 1e20 is
+        idx = torch.cat([idx, idx.new_zeros((L, k - kk))], dim=1)
+        d2 = torch.cat([d2, d2.new_full((L, k - kk), float("inf"))], dim=1)
+    cov[live] = covariances_from_neighbors(pts, pts[idx.long()], d2 < 1e20, cov_epsilon)
+    return cov
+
+
 def gicp_align(
     src_xyz: torch.Tensor,
     tgt_xyz: torch.Tensor,
@@ -92,7 +123,9 @@ def gicp_align(
     Gauss-Newton from init_transform (identity by default), stopping when
     sum |xi| <= cfg.transformation_epsilon or after cfg.max_iterations.
     Fitness: the mean gated squared distance after one more search at the
-    final transform."""
+    final transform. Covariances not given are computed over the live rows
+    (`live_point_covariances`): the masked rows' weight 0 makes the result
+    that of `point_covariances`' all-rows output."""
     dt, dev = src_xyz.dtype, src_xyz.device
     if src_mask is None:
         src_mask = torch.ones(src_xyz.shape[0], dtype=dt, device=dev)
@@ -100,11 +133,11 @@ def gicp_align(
         tgt_mask = torch.ones(tgt_xyz.shape[0], dtype=dt, device=dev)
     tgt_xyz, tgt_mask = tgt_xyz.contiguous(), tgt_mask.to(dt).contiguous()
     if src_cov is None:
-        src_cov = point_covariances(src_xyz, src_mask, cfg.k_correspondences,
-                                    cfg.cov_epsilon)
+        src_cov = live_point_covariances(src_xyz, src_mask, cfg.k_correspondences,
+                                         cfg.cov_epsilon)
     if tgt_cov is None:
-        tgt_cov = point_covariances(tgt_xyz, tgt_mask, cfg.k_correspondences,
-                                    cfg.cov_epsilon)
+        tgt_cov = live_point_covariances(tgt_xyz, tgt_mask, cfg.k_correspondences,
+                                         cfg.cov_epsilon)
     T = (torch.eye(4, dtype=dt, device=dev) if init_transform is None
          else init_transform.to(dt))
     d = np.float32(cfg.max_correspondence_dist)

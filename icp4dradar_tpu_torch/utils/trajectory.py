@@ -7,6 +7,10 @@ A numpy-only copy of the writers in `icp4dradar_tpu/utils/trajectory.py`
   "R00 R01 R02 Tx R10 R11 R12 Ty R20 R21 R22 Tz" (:768-812)
 - output_result.csv: header + 20 columns per frame
   "time, T(4x4 row-major 16), score, A, b" (:188-191, :701-707)
+- pcl_info.txt: one raw point count per frame (:182-186, :325)
+- odom_tum.txt: TUM rows "time tx ty tz qx qy qz qw" for evo-style tools
+  (an extension of the JAX package), the quaternion from the float32
+  rotation as the JAX writer computes it
 """
 
 from __future__ import annotations
@@ -15,6 +19,9 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from icp4dradar_tpu_torch.geom.so3 import matrix_to_quat
 
 _CSV_HEADER = (
     "#time(s),Rtrans00,Rtrans01,Rtrans02,Rtrans03,Rtrans10,Rtrans11,Rtrans12,"
@@ -86,3 +93,28 @@ def read_result_csv(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.n
     times = arr[:, 0]
     T = arr[:, 1:17].reshape(-1, 4, 4)
     return times, T, arr[:, 17], arr[:, 18], arr[:, 19]
+
+
+def write_pcl_info(path: str, point_counts: np.ndarray) -> None:
+    """Per-frame raw point counts -> one count per line (pcl_info.txt)."""
+    _ensure_dir(path)
+    counts = np.asarray(point_counts)
+    with open(path, "w") as f:
+        for c in counts:
+            f.write(f"{float(c):g}\n")
+
+
+def write_tum(path: str, poses: np.ndarray, times: Optional[np.ndarray] = None) -> None:
+    """(F, 4, 4) world poses -> TUM rows 'time tx ty tz qx qy qz qw'."""
+    _ensure_dir(path)
+    T = np.asarray(poses, dtype=np.float64)
+    if times is None:
+        times = np.arange(len(T), dtype=np.float64)
+    q = matrix_to_quat(torch.from_numpy(T[:, :3, :3].astype(np.float32))).numpy()
+    with open(path, "w") as f:
+        for i in range(len(T)):
+            t = T[i, :3, 3]
+            f.write(
+                f"{times[i]:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+                f"{q[i,0]:.6f} {q[i,1]:.6f} {q[i,2]:.6f} {q[i,3]:.6f}\n"
+            )

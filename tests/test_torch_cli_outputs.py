@@ -1,0 +1,102 @@
+"""The port's CLI output files against the JAX CLI's: the TUM and point-count
+writers byte for byte on the same poses and counts, the JSONL metrics
+logger's records, and one scan_to_scan run of each CLI on the CPU compared
+file for file.
+
+The two CLIs' poses agree only to the port's parity tolerance (the JAX CPU
+path searches with expanded distances), so their pose files are held to
+the same names and row counts; `pcl_info.txt` depends on the scans alone
+and is identical, and `metrics.jsonl` has the same events with the same
+keys (timings differ)."""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+
+from icp4dradar_tpu.geom import se3_exp
+from icp4dradar_tpu.models import run_odometry as jax_cli
+from icp4dradar_tpu.utils import MetricsLogger as JaxLogger
+from icp4dradar_tpu.utils.trajectory import write_pcl_info as jax_pcl_info
+from icp4dradar_tpu.utils.trajectory import write_tum as jax_tum
+from icp4dradar_tpu_torch.models import run_odometry as port_cli
+from icp4dradar_tpu_torch.utils import MetricsLogger, write_pcl_info, write_tum
+
+CLI_ARGS = ["--mode", "scan_to_scan", "--synthetic", "8", "--max-points", "256",
+            "--landmarks", "2000", "--doppler-prior"]
+
+
+def _poses(seed, n):
+    rng = np.random.default_rng(seed)
+    xi = rng.normal(0, [20, 20, 2, 1, 1, 2], (n, 6)).astype(np.float32)
+    return np.asarray(se3_exp(jnp.asarray(xi))).astype(np.float64)
+
+
+def test_write_tum_and_pcl_info_byte_identical(tmp_path):
+    poses = _poses(0, 300)
+    counts = np.asarray([256, 0, 17, 2048, 1e6], np.float32)
+    times = np.arange(300) * 0.1
+    for name, port, jax_ in (
+            ("tum", lambda p: write_tum(p, poses), lambda p: jax_tum(p, poses)),
+            ("tum_times", lambda p: write_tum(p, poses, times),
+             lambda p: jax_tum(p, poses, times)),
+            ("pcl", lambda p: write_pcl_info(p, counts), lambda p: jax_pcl_info(p, counts))):
+        a, b = tmp_path / "port" / name, tmp_path / "jax" / name
+        port(os.fspath(a))
+        jax_(os.fspath(b))
+        assert a.read_bytes() == b.read_bytes(), name
+    assert (tmp_path / "port" / "pcl").read_text().splitlines()[-1] == "1e+06"
+
+
+def test_metrics_logger_matches_jax(tmp_path, capsys):
+    recs = []
+    for cls, name in ((MetricsLogger, "port.jsonl"), (JaxLogger, "jax.jsonl")):
+        path = tmp_path / "sub" / name
+        with cls(os.fspath(path), echo=True) as log:
+            log.log("first", a=1)
+            log.log("run_complete", mode="scan_to_scan", frames=3)
+        with cls(os.fspath(path)) as log:     # appends
+            log.log("again")
+        recs.append([json.loads(line) for line in path.read_text().splitlines()])
+    port, jax_ = recs
+    assert [list(r) for r in port] == [list(r) for r in jax_]
+    for p, j in zip(port, jax_):
+        assert {k: v for k, v in p.items() if k != "ts"} == {k: v for k, v in j.items()
+                                                             if k != "ts"}
+    assert [r["step"] for r in port] == [0, 1, 0]
+    echoed = capsys.readouterr().out.strip().splitlines()
+    assert len(echoed) == 4 and json.loads(echoed[0])["event"] == "first"
+
+
+def _rows(path):
+    return len(path.read_text().splitlines())
+
+
+def test_cli_output_directory_matches_jax_cli(tmp_path, capsys):
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    assert port_cli.main(CLI_ARGS + ["--device", "cpu", "--out", os.fspath(port_dir)]) == 0
+    port_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jax_cli.main(CLI_ARGS + ["--cpu", "--out", os.fspath(jax_dir)]) == 0
+    jax_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    files = sorted(os.listdir(jax_dir))
+    assert files == ["icp.txt", "metrics.jsonl", "odom_tum.txt", "output_result.csv",
+                     "pcl_info.txt", "velocity.txt"]
+    assert sorted(os.listdir(port_dir)) == files
+    for f in files:
+        assert _rows(port_dir / f) == _rows(jax_dir / f), f
+    assert (port_dir / "pcl_info.txt").read_bytes() == (jax_dir / "pcl_info.txt").read_bytes()
+    port_recs, jax_recs = ([json.loads(line) for line in (d / "metrics.jsonl").read_text()
+                            .splitlines()] for d in (port_dir, jax_dir))
+    assert [r["event"] for r in port_recs] == [r["event"] for r in jax_recs] == ["run_complete"]
+    assert [sorted(r) for r in port_recs] == [sorted(r) for r in jax_recs]
+    assert port_recs[0]["frames"] == jax_recs[0]["frames"] == 8
+    tum = np.loadtxt(port_dir / "odom_tum.txt")
+    assert tum.shape == (8, 8) and np.isfinite(tum).all()
+    np.testing.assert_allclose(tum[:, 1:4], np.loadtxt(jax_dir / "odom_tum.txt")[:, 1:4],
+                               atol=5e-2)
+    # the stdout line: the JAX CLI's keys, and the device
+    assert sorted(port_line) == sorted(list(jax_line) + ["device"])
+    assert port_line["device"] == "cpu" and port_line["mode"] == jax_line["mode"]
+    assert port_line["ate_rmse_m"] == port_recs[0]["ate_rmse_m"]
+    assert abs(port_line["ate_rmse_m"] - jax_line["ate_rmse_m"]) <= 5e-3

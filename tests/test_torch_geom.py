@@ -124,3 +124,35 @@ def test_solve_spd6_eigvals_and_condition():
                                np.asarray(jl.condition_number(jnp.asarray(A))), rtol=1e-3)
     np.testing.assert_allclose(pg.condition_number(torch.tensor(H)).numpy(),
                                np.asarray(jl.condition_number(jnp.asarray(H))), rtol=1e-3)
+
+
+def _dominant_branch_rotations():
+    """One rotation per branch of the Shepperd selection: the trace (a small
+    angle), then m00, m11 and m22 (a half turn about x, y and z, tilted)."""
+    w = np.asarray([[0.1, -0.2, 0.3], [3.0, 0.2, -0.1], [0.1, 3.0, 0.2],
+                    [-0.2, 0.1, 3.0]], np.float32)
+    return np.asarray(jg.so3_exp(jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("kind", ["random", "branches"])
+def test_matrix_to_quat_matches_jax(kind):
+    """Bit-equal xyzw quaternions: the same float32 formulas, with square
+    roots correctly rounded and the norm's squares summed in order by fused
+    multiply-adds, as XLA evaluates them on the CPU."""
+    if kind == "random":
+        rng = np.random.default_rng(12)
+        R = np.asarray(jg.so3_exp(jnp.asarray(rng.normal(0, 1.5, (4096, 3)), jnp.float32)))
+    else:
+        R = _dominant_branch_rotations()
+    want = np.asarray(jg.matrix_to_quat(jnp.asarray(R)))
+    got = pg.matrix_to_quat(torch.tensor(R)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if kind == "branches":
+        scores = np.stack([np.trace(R, axis1=1, axis2=2), R[:, 0, 0], R[:, 1, 1], R[:, 2, 2]], -1)
+        assert scores.argmax(-1).tolist() == [0, 1, 2, 3]
+    # and a rotation again, in float64 too
+    _close(pg.quat_to_matrix(torch.tensor(got)), R, atol=1e-5)
+    R64 = torch.tensor(R, dtype=torch.float64)
+    q64 = pg.matrix_to_quat(R64)
+    assert q64.dtype == torch.float64
+    np.testing.assert_allclose(pg.quat_to_matrix(q64).numpy(), R, atol=1e-6)

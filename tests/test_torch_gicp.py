@@ -168,3 +168,67 @@ def test_gicp_align_with_given_covariances_and_empty_target():
                           cfg=cfg)
     assert int(empty.iterations) == 1 and float(empty.fitness) == 0.0
     torch.testing.assert_close(empty.transform, torch.eye(4))
+
+
+# ---- the covariances over the live rows only (`live_point_covariances`,
+# what `gicp_align` computes): bit-equal to `point_covariances` on every
+# live row, finite on the masked ones.
+
+EYE_EPS = np.diag([1.0, 1.0, 1e-3]).astype(np.float32)
+
+
+def _masked_cloud(seed, n, live):
+    rng = np.random.default_rng(seed)
+    pts = _structured(rng, n)
+    return pts, (rng.uniform(size=n) < live).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,live", [(4096, 0.05), (600, 0.9), (300, 1.0)])
+def test_live_point_covariances_equal_all_rows(n, live):
+    pts, mask = _masked_cloud(n, n, live)
+    full = pg.point_covariances(torch.tensor(pts), torch.tensor(mask)).numpy()
+    got = pg.live_point_covariances(torch.tensor(pts), torch.tensor(mask)).numpy()
+    on = mask > 0.5
+    np.testing.assert_array_equal(got[on], full[on])
+    np.testing.assert_array_equal(got[~on], np.broadcast_to(EYE_EPS, got[~on].shape))
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("live", [0, 1, 4])
+def test_live_point_covariances_fall_back_to_the_point(live):
+    """Fewer than k = 5 live rows: the missing neighbours are the point
+    itself, as in `point_covariances`; no live row: every row masked."""
+    rng = np.random.default_rng(7 + live)
+    pts = rng.uniform(-20, 20, (64, 3)).astype(np.float32)
+    mask = np.zeros(64, np.float32)
+    mask[rng.choice(64, live, replace=False)] = 1.0
+    full = pg.point_covariances(torch.tensor(pts), torch.tensor(mask)).numpy()
+    got = pg.live_point_covariances(torch.tensor(pts), torch.tensor(mask)).numpy()
+    on = mask > 0.5
+    np.testing.assert_array_equal(got[on], full[on])
+    np.testing.assert_array_equal(got[~on], np.broadcast_to(EYE_EPS, got[~on].shape))
+    if live == 1:   # a lone point: isotropic, regularised along e_y
+        np.testing.assert_allclose(got[on][0], np.diag([1.0, 1e-3, 1.0]), atol=1e-7)
+
+
+@pytest.mark.parametrize("xi", [[0.4, -0.3, 0.05, 0.01, -0.02, 0.04]])
+def test_gicp_align_live_covariances_equal_all_rows(xi):
+    """`gicp_align` computing its own covariances (live rows only) equals
+    `gicp_align` given `point_covariances`' all-rows output, bit for bit:
+    a masked row meets the GN sums with weight 0."""
+    rng = np.random.default_rng(8)
+    tgt = _structured(rng)
+    T_true = j_se3_exp(jnp.asarray(xi, dtype=jnp.float32))
+    src = np.array(j_se3_apply(j_se3_inverse(T_true), jnp.asarray(tgt)))
+    src = torch.tensor((src + rng.normal(0, 0.01, src.shape)).astype(np.float32))
+    sm = torch.tensor((rng.uniform(size=src.shape[0]) > 0.2).astype(np.float32))
+    tm = torch.tensor((rng.uniform(size=tgt.shape[0]) > 0.5).astype(np.float32))
+    tgt = torch.tensor(tgt)
+    cfg = GicpConfig(max_iterations=30)
+    own = pg.gicp_align(src, tgt, sm, tm, cfg=cfg)
+    given = pg.gicp_align(src, tgt, sm, tm, cfg=cfg, src_cov=pg.point_covariances(src, sm),
+                          tgt_cov=pg.point_covariances(tgt, tm))
+    assert torch.equal(own.transform, given.transform)
+    assert torch.equal(own.fitness, given.fitness)
+    assert int(own.iterations) == int(given.iterations) and bool(own.converged)
+    np.testing.assert_allclose(own.transform.numpy(), np.asarray(T_true), atol=2e-2)

@@ -299,29 +299,35 @@ def _nn_case(rng, n, m, live, device, scale=60.0):
 
 
 def _assert_nn_equal(src, tgt, mask):
-    """The per-call search, the prepared search (one launch each) and the
-    coordinate kernel against the all-rows plain version and the prepared
-    plain version: equal indices, distances and coordinates."""
+    """The per-call search and coordinate search (a packing launch and a
+    search launch each), and the prepared search and coordinate search (one
+    launch each, no host sync), against the all-rows plain version and the
+    prepared plain versions: equal indices, distances and coordinates."""
     before = (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES, nn.NN_PACK_LAUNCHES)
     ki, kd = nn.nearest_neighbor(src, tgt, mask)
     kd2, kq = nn.nearest_neighbor_with_coords(src, tgt, mask)
     torch.cuda.synchronize()
-    assert (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES, nn.NN_PACK_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
     torch.cuda.set_sync_debug_mode("error")
     try:
         ops = nn.nn_prepare(tgt, mask)
         si, sd = nn.nn_search(src, ops)
+        cd, cq = nn.nn_search_coords(src, ops)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert (nn.NN_SEARCH_LAUNCHES, nn.NN_PACK_LAUNCHES) == (before[0] + 2, before[2] + 2)
+    assert (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES, nn.NN_PACK_LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2] + 3)
     for a, b in zip((ops.rows, ops.orig, ops.count), nn.nn_pack_plain(tgt.cpu(), mask.cpu())):
         assert torch.equal(a.cpu(), b)
     pi, pd = nn.nearest_neighbor_plain(src, tgt, mask)
     qi, qd = nn.nn_search_plain(src, ops)
+    pcd, pcq = nn.nn_search_coords_plain(src, ops)
     assert ki.dtype == torch.int32 and torch.equal(ki, pi)
-    assert torch.equal(kd, pd) and torch.equal(kd2, pd)
-    assert torch.equal(kq, tgt[pi.long()])
+    assert torch.equal(kd, pd) and torch.equal(kd2, pd) and torch.equal(cd, pd)
+    assert torch.equal(kq, tgt[pi.long()]) and torch.equal(cq, kq)
+    assert torch.equal(pcd, pd) and torch.equal(pcq, kq)
     assert torch.equal(si, pi) and torch.equal(sd, pd)
     assert torch.equal(qi, pi) and torch.equal(qd, pd)
     return ki, kd
@@ -379,6 +385,28 @@ def test_nn_search_far_live_row_falls_back(cuda):
     assert bool((ki == 9000).all()) and bool((kd < 1e30).all())
 
 
+def test_nn_search_coords_one_launch_no_sync(cuda):
+    """A coordinate search on prepared targets is one launch of the search
+    kernel, counted as a coordinate search, that never waits for the
+    device; two launches give the same bits."""
+    src, tgt, mask = _nn_case(np.random.default_rng(8), 2048, 16384, 0.04, cuda)
+    ops = nn.nn_prepare(tgt, mask)
+    torch.cuda.synchronize()
+    before = (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES, nn.NN_PACK_LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d1, q1 = nn.nn_search_coords(src, ops)
+        d2, q2 = nn.nn_search_coords(src, ops)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (nn.NN_SEARCH_LAUNCHES, nn.NN_COORDS_LAUNCHES, nn.NN_PACK_LAUNCHES) == (
+        before[0], before[1] + 2, before[2])
+    assert torch.equal(d1, d2) and torch.equal(q1, q2)
+    pd, pq = nn.nn_search_coords_plain(src, ops)
+    assert torch.equal(d1, pd) and torch.equal(q1, pq)
+
+
 def test_nn_kernels_reject_what_they_do_not_take(cuda):
     src, tgt, mask = _nn_case(np.random.default_rng(4), 64, 64, 1.0, cuda)
     with pytest.raises(ValueError):
@@ -390,6 +418,10 @@ def test_nn_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         nn.nearest_neighbor_with_coords(src, tgt[:, :2].contiguous(), mask)
     ops = nn.nn_prepare(tgt, mask)
+    with pytest.raises(ValueError):
+        nn.nn_search_coords(src.double(), ops)
+    with pytest.raises(ValueError):
+        nn.nn_search_coords(src.cpu(), ops)
     with pytest.raises(ValueError):
         nn.nn_search(src.double(), ops)
     with pytest.raises(ValueError):

@@ -168,11 +168,12 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     rng = np.random.default_rng(2)
     src, tgt = torch.tensor(_cloud(rng, 20)), torch.tensor(_cloud(rng, 30))
     calls = []
-    for name in ("_nn_search_cuda", "_nn_coords_cuda", "_nn_pack_cuda"):
+    for name in ("_nn_search_cuda", "_nn_pack_cuda"):
         monkeypatch.setattr(pknn, name, lambda *a, **k: calls.append(1))
     pknn.nearest_neighbor(src, tgt)
     pknn.nearest_neighbor_with_coords(src, tgt)
     pknn.nn_search(src, pknn.nn_prepare(tgt))
+    pknn.nn_search_coords(src, pknn.nn_prepare(tgt))
     assert calls == []
     with pytest.raises(ValueError):
         pknn.nearest_neighbor(src, tgt, torch.ones(30, device="meta"))
@@ -182,6 +183,8 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
         pknn.nearest_neighbor(src, tgt[:0])
     with pytest.raises(ValueError):
         pknn.nn_search(src.to("meta"), pknn.nn_prepare(tgt))
+    with pytest.raises(ValueError):
+        pknn.nn_search_coords(src[:, :2], pknn.nn_prepare(tgt))
     with pytest.raises(ValueError):
         pknn.nn_prepare(tgt.to("meta"), torch.ones(30, device="meta"))
 
@@ -300,3 +303,61 @@ def test_k_smallest_is_the_stable_sort_prefix():
         got_i, got_d = pknn.k_smallest(d, k)
         assert torch.equal(got_i, want_i[:, :k]), trial
         assert torch.equal(got_d, want_d[:, :k]), trial
+
+
+# ---- the coordinate search on prepared targets (`nn_search_coords`, and the
+# per-call `nearest_neighbor_with_coords` built on it) against the Pallas
+# coordinate kernel in interpret mode: bit-equal d2 and coordinates.
+
+def _ragged():
+    """777 sources (not a multiple of the kernel's 128) against 5001 rows,
+    30% masked at random."""
+    rng = np.random.default_rng(45)
+    src, tgt = _cloud(rng, 777), _cloud(rng, 5001)
+    return src, tgt, (rng.uniform(size=5001) > 0.3).astype(np.float32)
+
+
+def _ties_across_ranks():
+    """16,384 rows (a cluster of 8 on the card), 2000 live at random: the
+    live rows split 250 a rank. Source 0 ties at d2 = 5 between the 3rd and
+    the 1500th live row (ranks 0 and 6): the first wins. Source 1 ties at
+    d2 = 2 between the 700th and 1900th, with a masked row on it."""
+    rng = np.random.default_rng(46)
+    tgt = (rng.uniform(60, 100, (16384, 3)) * rng.choice([-1.0, 1.0], (16384, 3)))
+    tgt = tgt.astype(np.float32)
+    mask = np.zeros(16384, np.float32)
+    live = np.sort(rng.choice(16384, 2000, replace=False))
+    mask[live] = 1.0
+    tgt[live[3]], tgt[live[1500]] = (1, 2, 0), (1, -2, 0)
+    tgt[live[700]], tgt[live[1900]] = (21, 0, 1), (19, 0, -1)
+    dead = np.flatnonzero(mask == 0)[5]
+    tgt[dead] = (20, 0, 0)
+    src = np.asarray([[0, 0, 0], [20, 0, 0]], np.float32)
+    return src, tgt, mask
+
+
+COORDS_CASES = {**PREPARED_CASES, "ragged": _ragged, "ties_across_ranks": _ties_across_ranks}
+
+
+@pytest.mark.parametrize("case", sorted(COORDS_CASES))
+def test_coords_search_matches_pallas(case):
+    src, tgt, mask = COORDS_CASES[case]()
+    jd, jq = _pallas(src, tgt, mask, coords=True)
+    ops = pknn.nn_prepare(torch.tensor(tgt), torch.tensor(mask))
+    for pd, pq in (pknn.nn_search_coords(torch.tensor(src), ops),
+                   pknn.nearest_neighbor_with_coords(torch.tensor(src), torch.tensor(tgt),
+                                                     torch.tensor(mask)),
+                   pknn.nearest_neighbor_with_coords_plain(torch.tensor(src),
+                                                           torch.tensor(tgt),
+                                                           torch.tensor(mask))):
+        assert pd.dtype == pq.dtype == torch.float32 and tuple(pq.shape) == (len(src), 3)
+        np.testing.assert_array_equal(pd.numpy(), jd)
+        np.testing.assert_array_equal(pq.numpy(), jq)
+    pi, _ = pknn.nn_search(torch.tensor(src), ops)
+    np.testing.assert_array_equal(jq, tgt[pi.numpy()])
+    if case == "ties_across_ranks":
+        live = np.flatnonzero(mask > 0.5)
+        np.testing.assert_array_equal(pi.numpy(), [live[3], live[700]])
+        np.testing.assert_array_equal(jd, [5.0, 2.0])
+    if case in ("all_masked", "far_live_row"):
+        np.testing.assert_array_equal(jq, np.broadcast_to(tgt[0], jq.shape))
