@@ -46,6 +46,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              (align=False) outside 0.034 +- 0.01 m. A third run prints the
              host-clock phase split (REVE, sorts, sector query, GN loop,
              insert). Also checks CUDA against CPU on a 24 x 256 input.
+5b. batch  — B-stream serving, `bench.py`'s third cell: 4 streams, stream b
+             the frames [256 b, 256 b + 256) of the bench sequence, through
+             run_scan_to_map_batch(block=8, use_const_velocity_rot=True),
+             2048 points, map capacity 2^18 a stream, on the REVE draws
+             of the JAX package's run of the same batch (its Threefry keys,
+             `utils.threefry`): warm-up, then one
+             timed run with the sweep launch count reset just before and
+             read just after. It must equal, summed over the warm-up frames,
+             the largest sweep count across streams, plus per block the
+             largest count of its 4 x 8 frames. Fails on a lost frame, on
+             non-finite outputs, or on a stream whose ATE (align=False,
+             against its ground truth re-anchored at its first frame) lies
+             outside the JAX CPU run's for that stream
+             (scripts/port_batch_reference.py) +- 0.01 m. Prints the
+             aggregate scans/s beside phase 5's single-stream figure and a
+             phase split; holds stream 0 against its single-stream run on
+             the card (0.05 m, ATE 0.005 m); forgets (40 m) and rehashes
+             the final maps on the card and on the CPU: equal tables.
 6. vgicp   — the VGICP sweep kernel against its plain PyTorch version on
              the card: the bench block (8 frames x 2048 points against a
              real 16,384-row submap of the warm map of phase 5), a fully
@@ -57,6 +75,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              bench block (CUDA events, median of 10, in turns): the plain
              version, the per-call wrapper (packing included), the call the
              GN loop makes on prepared operands, and the launch alone.
+             With its stream axis, at the batch cell's block shape (4
+             streams x 8 frames against the 4 streams' real submaps of
+             phase 5b's final maps, and again with one stream's submap
+             empty): against plain and against 4 single-target calls (bit
+             for bit expected; a difference is printed and must stay below
+             1e-6 relative); the batched call must be one
+             vgicp_sweep_kernel launch with no host sync, and is timed
+             against the 4 single-target calls.
 7. gicp    — the kNN-GICP tracker: the first 64 frames of the bench
              sequence through run_scan_to_map(gicp.use_vgicp=False,
              use_const_velocity_rot=True): warm-up, then one timed run with
@@ -115,16 +141,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              frame: the call on prepared sources, which must launch one
              vgicp_frozen_kernel and nothing else (profiler), and the
              launch alone.
-11. profile — one torch.profiler run of the s2s, s2m and inner-step
-             trackers (kNN GICP's is in phase 7): device kernel time, kernel
-             launches, the top kernels, and the device's idle share against
-             the unprofiled run time; the inner-step run lists every kernel
-             it launched. Then the host synchronisations (stream / device
+11. profile — one torch.profiler run of the s2s, s2m, batch and
+             inner-step trackers (kNN GICP's is in phase 7): device kernel
+             time, kernel launches, the top kernels, and the device's idle
+             share against the unprofiled run time; the inner-step run lists
+             every kernel it launched. The batch's kernel launches over the
+             s2m run's must stay below 2 (nothing loops over the streams). Then the host synchronisations (stream / device
              synchronise calls and host-to-device copies) per K4, K5, K2
              and K3 call on prepared operands and per K2 packing, which
              must be none, and per K4 call of the per-call wrapper.
 12. ab     — only with `--parent DIR` (a `git archive` of the parent commit
-             unpacked at DIR): the K2, K3 and K5 calls of both trees at the
+             unpacked at DIR): the K2, K3, K5 and K4 calls of both trees at the
              path shapes (K3 also per call), each tree in its own process,
              in turns (parent, this tree, this tree, parent), with each
              call's kernels and device time (profiler).
@@ -159,6 +186,17 @@ VGICP_REPLACES = "icp4dradar_tpu/ops/vgicp_fused.py:98"
 VG_RTOL, VG_ATOL = 1e-5, 1e-4
 S2M_FRAMES, S2M_BLOCK = 256, 8
 S2M_ATE_EXPECTED, S2M_ATE_BAND = 0.034, 0.01
+BATCH_STREAMS = 4
+# each stream's ATE in the JAX package's CPU run of the batch cell
+# (scripts/port_batch_reference.py, stream by stream with the split key);
+# the port is held to each +- the band
+BATCH_ATE_JAX = (0.03448, 0.04622, 0.03271, 0.04208)
+BATCH_ATE_BAND = 0.01
+# the card's batch stream 0 against its single-stream run (batched small
+# matrix products round unlike unbatched ones, and a GN loop's stopping
+# test turns an ulp into a sweep more or less)
+BATCH_SINGLE_ATE_TOL, BATCH_SINGLE_POS_TOL = 0.005, 0.05
+BATCH_LAUNCH_RATIO_MAX = 2.0
 LOST_FITNESS = 1e6
 NN_SOURCE = "icp4dradar_tpu_torch/csrc/nn_search.cu"
 NN_REPLACES = "icp4dradar_tpu/ops/knn.py:75"
@@ -637,7 +675,144 @@ def phase_s2m(torch, seq, scans):
         f"{same_its}, fallback blocks {fb_gpu} / {fb_cpu}")
     if d > 1e-3 or fb_gpu != 0 or fb_cpu != 0:
         raise RuntimeError("[s2m] CUDA and CPU paths disagree on 24x256")
-    return launches, state, out, s2m
+    return launches, state, out, s2m, F / dt
+
+
+def batch_launches_expected(its, block):
+    """K4 launches of a batched blocked run, from its (B, F) GN sweeps: a
+    warm-up frame launches as often as its slowest stream sweeps, a block as
+    often as its slowest frame of all streams."""
+    warm = its[:, :block].max(axis=0).sum()
+    blocks = its[:, block:].reshape(its.shape[0], -1, block).max(axis=(0, 2)).sum()
+    return int(warm + blocks)
+
+
+def phase_batch(torch, seq, scans, s2m_rate):
+    """B-stream serving (`bench.py`'s third cell): 4 streams, stream b the
+    frames [256 b, 256 b + 256) of the bench sequence, through
+    run_scan_to_map_batch(block=8, use_const_velocity_rot=True)."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.models import scan_to_map
+    from icp4dradar_tpu_torch.ops import vgicp_fused
+    from icp4dradar_tpu_torch.preprocess import reve_hypotheses
+    from icp4dradar_tpu_torch.utils import ate_rmse, reve_batch_uniforms
+
+    cfg = PipelineConfig()
+    Bs, F, blk = BATCH_STREAMS, S2M_FRAMES, S2M_BLOCK
+    batch = scans[:Bs * F]
+    batch = type(batch)(**{k: getattr(batch, k).reshape((Bs, F) + getattr(batch, k).shape[1:])
+                           for k in ("xyz", "doppler", "intensity", "mask", "time")})
+    # the REVE draws of the JAX package's run of the same batch (its
+    # Threefry keys, reproduced in numpy), so that each stream is held to
+    # the JAX run without the spread of another generator's draws
+    U = torch.from_numpy(reve_batch_uniforms(cfg.seed, Bs, F, blk,
+                                             reve_hypotheses(cfg.reve))).to(scans.xyz.device)
+
+    def run(phase_times=None):
+        out = scan_to_map.run_scan_to_map_batch(batch, cfg, uniforms=U, block=blk,
+                                                use_const_velocity_rot=True,
+                                                phase_times=phase_times)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    run()
+    log(f"[batch] warm-up run {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, out = run()
+    dt = time.perf_counter() - t0
+    launches = vgicp_fused.VGICP_SWEEP_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    repeats = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        run()
+        repeats.append(time.perf_counter() - t1)
+    rate = Bs * F / dt
+    log(f"[batch] {Bs} streams x {F} frames in {dt * 1e3:.2f} ms = {rate:.1f} aggregate scans/s "
+        f"(repeats: {', '.join(f'{Bs * F / r:.1f}' for r in repeats)}); single-stream s2m "
+        f"(phase 5) {s2m_rate:.1f} scans/s, ratio {rate / s2m_rate:.2f}; peak device memory "
+        f"{peak:.2f} GiB")
+    its = out.iterations.cpu().numpy()
+    expected = batch_launches_expected(its, blk)
+    log(f"[batch] vgicp_sweep launches {launches}, expected {expected} (per warm-up frame and "
+        f"per block, the largest sweep count across streams); GN sweeps per stream "
+        f"{its.sum(axis=1).tolist()}, per frame mean {its.mean():.2f}")
+    if launches <= 0 or launches != expected:
+        raise RuntimeError(f"[batch] launch count {launches} != {expected}")
+    for f in ("world_T", "correction", "velocity", "velocity_sigma", "fitness"):
+        x = getattr(out, f)
+        if tuple(x.shape[:2]) != (Bs, F) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"[batch] {f}: shape {tuple(x.shape)} or non-finite")
+    lost = int((out.fitness >= LOST_FITNESS).sum().item())
+    poses = out.world_T.cpu().numpy()
+    ates = []
+    for b in range(Bs):
+        gt = np.linalg.inv(seq.poses[b * F]) @ seq.poses[b * F:(b + 1) * F]
+        ates.append(ate_rmse(poses[b, :, :3, 3], gt[:, :3, 3], align=False))
+    log(f"[batch] lost frames {lost}, map voxels {state.vmap.num_voxels.long().tolist()}, ATE "
+        f"(align=False, ground truth re-anchored at each stream's first frame) "
+        + ", ".join(f"{a:.4f}" for a in ates) + " m; the JAX CPU run's "
+        + ", ".join(f"{a:.4f}" for a in BATCH_ATE_JAX) + f" m (+- {BATCH_ATE_BAND})")
+    if lost:
+        raise RuntimeError(f"[batch] {lost} lost frames")
+    for b, (a, j) in enumerate(zip(ates, BATCH_ATE_JAX)):
+        if not abs(a - j) <= BATCH_ATE_BAND:
+            raise RuntimeError(f"[batch] stream {b}: ATE {a:.4f} m outside {j} +- "
+                               f"{BATCH_ATE_BAND} m")
+    phases = {}
+    t0 = time.perf_counter()
+    run(phase_times=phases)
+    total = time.perf_counter() - t0
+    log(f"[batch] phase split (host clock, a synchronize around each phase; "
+        f"{total * 1e3:.2f} ms in all): " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" for k, v in sorted(phases.items(), key=lambda kv: -kv[1])))
+
+    # stream 0 alone through the single-stream runner on the same draws
+    _, one = scan_to_map.run_scan_to_map_blocked(batch[0], cfg, uniforms=U[0], block=blk,
+                                                 use_const_velocity_rot=True,
+                                                 sequential_fallback=False)
+    d = (out.world_T[0, :, :3, 3] - one.world_T[:, :3, 3]).abs().max().item()
+    gt = seq.poses[:F]
+    a1 = ate_rmse(one.world_T.cpu().numpy()[:, :3, 3], gt[:, :3, 3], align=False)
+    same_its = int((out.iterations[0] == one.iterations).sum().item())
+    log(f"[batch] stream 0 against its single-stream run on the card: max |position| "
+        f"difference {d:.3e} m, ATE {ates[0]:.4f} / {a1:.4f} m, GN sweeps equal on {same_its} "
+        f"of {F} frames")
+    if d > BATCH_SINGLE_POS_TOL or abs(ates[0] - a1) > BATCH_SINGLE_ATE_TOL:
+        raise RuntimeError(f"[batch] stream 0 and its single-stream run disagree: {d:.3e} m, "
+                           f"ATE {ates[0]:.4f} / {a1:.4f} m")
+    phase_map_cuda_cpu(torch, state, cfg)
+    return dict(launches=launches, rate=rate, state=state, out=out, batch=batch, uniforms=U)
+
+
+def phase_map_cuda_cpu(torch, state, cfg):
+    """Forget and rehash on the batch's final maps, on the card and on the
+    CPU: the tables must be equal."""
+    from icp4dradar_tpu_torch.mapping import voxel_map_forget_far, voxel_map_maybe_rehash
+
+    radius = 40.0
+    res = {}
+    for dev in ("cuda", "cpu"):
+        vm = state.vmap if dev == "cuda" else state.vmap.with_tables(
+            t.cpu() for t in state.vmap.tables())
+        center = state.world_T[:, :3, 3].to(dev)
+        t0 = time.perf_counter()
+        f = voxel_map_forget_far(vm, center, radius)
+        r = voxel_map_maybe_rehash(f, cfg.voxel_map.rehash_tombstone_fraction)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = (f, r, time.perf_counter() - t0)
+    same = all(torch.equal(a.cpu(), b) for k in (0, 1)
+               for a, b in zip(res["cuda"][k].tables(), res["cpu"][k].tables()))
+    kept = res["cuda"][1].num_voxels.long().tolist()
+    log(f"[batch] forget ({radius} m around the final poses) + maybe_rehash on the final maps: "
+        f"CUDA equal to CPU {same}; voxels {state.vmap.num_voxels.long().tolist()} -> {kept}; "
+        f"{res['cuda'][2] * 1e3:.2f} ms on the card, {res['cpu'][2] * 1e3:.2f} ms on the CPU")
+    if not same:
+        raise RuntimeError("[batch] forget/rehash: CUDA and CPU tables differ")
 
 
 def phase_vgicp(torch, state, out, s2m):
@@ -805,8 +980,8 @@ def phase_vgicp(torch, state, out, s2m):
     part = torch.empty((B, -(-ops.per_frame // lib.vgicp_sweep_sources_per_block()),
                         vf.NUM_ACC), dtype=torch.float64, device=dev)
     launch_args = (Tc.data_ptr(), ops.src.data_ptr(), ops.tgt.data_ptr(), ops.tgt_cov.data_ptr(),
-                   ops.tile_live.data_ptr(), ops.count.data_ptr(), B, ops.per_frame, 0,
-                   ops.tgt.shape[0], ops.tm, ops.ts, gate, eps, part.data_ptr(), None,
+                   ops.tile_live.data_ptr(), ops.count.data_ptr(), B, ops.per_frame, 0, 0, B,
+                   ops.rows, ops.tm, ops.ts, gate, eps, part.data_ptr(), None,
                    torch.cuda.current_stream().cuda_stream)
 
     def per_call():
@@ -848,6 +1023,149 @@ def phase_vgicp(torch, state, out, s2m):
         f"{p2:.4f} ms; bound {bound_ms:.5f} ms ({bound_by})")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None), (Tc, ops, bench, sub_n, axis2)
+
+
+def phase_vgicp_streams(torch, batch):
+    """K4 with its stream axis at the batch cell's block shape: the last 8
+    frames of each of the 4 streams at their tracked poses against the 4
+    streams' real submaps (the batch's final maps), and with stream 2's
+    submap empty. Each against the plain version (rtol 1e-5 / atol 1e-4)
+    and against 4 single-target calls (bit for bit expected; any difference
+    is printed and must stay below 1e-6 relative). The batched call on
+    prepared operands must be one vgicp_sweep_kernel launch with no host
+    sync; it is timed against the 4 single-target calls, in turns."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.geom import matrix_to_rpy
+    from icp4dradar_tpu_torch.mapping import voxel_map_sector_search_with_stats
+    from icp4dradar_tpu_torch.models.scan_to_map import (
+        _sort_scans_by_sensor_x, _sort_submap_by_axis,
+    )
+    from icp4dradar_tpu_torch.ops import vgicp_fused as vf
+    from icp4dradar_tpu_torch.ops.vgicp_fused import (
+        radar_point_covariances_packed, vgicp_iteration_batch, vgicp_iteration_plain,
+    )
+
+    cfg = PipelineConfig()
+    vm, g = cfg.voxel_map, cfg.gicp
+    kw = dict(max_correspondence_dist=g.max_correspondence_dist, cov_eps=g.cov_epsilon)
+    state, out, scans = batch["state"], batch["out"], batch["batch"]
+    S, B = BATCH_STREAMS, S2M_BLOCK
+    sc = _sort_scans_by_sensor_x(scans[:, -B:])
+    N = sc.xyz.shape[-2]
+    T = out.world_T[:, -B:]
+    pose0 = state.world_T
+    heading = matrix_to_rpy(pose0[:, :3, :3])[:, 2]
+    _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
+        state.vmap, pose0[:, :3, 3], vm.sector_radius, heading, vm.sector_half_angle_deg,
+        vm.submap_max_points, min_count=vm.stats_min_count, fallback_var=vm.stats_fallback_var)
+    hrad = heading * (np.pi / 180.0)
+    axis2 = torch.stack([torch.cos(hrad), torch.sin(hrad)], dim=-1)
+    sub_mean, sub_cov, submask = _sort_submap_by_axis(sub_mean, sub_cov, submask, axis2)
+    center = T[:, 0, :3, 3].clone()
+    Tc = T.clone()
+    Tc[..., :3, 3] -= center[:, None]
+    Tc = Tc.reshape(S * B, 4, 4).contiguous()
+    src, sm = sc.xyz.reshape(S * B, N, 3).contiguous(), sc.mask.reshape(S * B, N).contiguous()
+    scov = radar_point_covariances_packed(src, g.sigma_range, g.sigma_azimuth,
+                                          g.sigma_elevation).contiguous()
+    tgt = (sub_mean - center[:, None]).contiguous()
+    P = tgt.shape[1]
+    names = ("H", "g", "cost", "wsum", "d2sum", "best")
+    max_err = 0.0
+
+    def check(name, tmask, cnt):
+        nonlocal max_err
+        ops = vf.vgicp_prepare(src, sm, scov, tgt, sub_cov, tmask, tgt_count=cnt,
+                               gate_axis=axis2)
+        k = vf.vgicp_sweep(Tc, ops, return_best=True, _acc_groups=S * B, **kw)
+        torch.cuda.synchronize()
+        p = vgicp_iteration_plain(Tc, src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6),
+                                  tgt, sub_cov, tmask, tgt_count=cnt, gate_axis=axis2,
+                                  return_best=True, ts=ops.ts, _acc_groups=S * B, **kw)
+        errs, rel, equal = [], 0.0, True
+        nb = B * N // ops.ts
+        for n, a, b in zip(names, k, p):
+            a, b = a.double().cpu(), b.double().cpu()
+            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+                raise RuntimeError(f"[vgicp] {name}: non-finite {n}")
+            if bool(((a - b).abs() > VG_ATOL + VG_RTOL * b.abs()).any()):
+                raise RuntimeError(f"[vgicp] {name}: {n} beyond rtol {VG_RTOL} / atol "
+                                   f"{VG_ATOL} of the plain version")
+            errs.append((n, (a - b).abs().max().item()))
+        for st in range(S):
+            fs = slice(st * B, (st + 1) * B)
+            one = vgicp_iteration_batch(Tc[fs], src[fs], sm[fs], scov[fs], tgt[st], sub_cov[st],
+                                        tmask[st], tgt_count=cnt[st], gate_axis=axis2[st],
+                                        return_best=True, **kw)
+            pairs = [(k[i][fs], one[i]) for i in range(5)]
+            pairs.append((k[5][st * nb:(st + 1) * nb], one[5]))
+            for a, b in pairs:
+                equal &= torch.equal(a, b)
+                d = (a.double() - b.double()).abs()
+                rel = max(rel, (d / b.double().abs().clamp(min=1e-30)).max().item())
+        log(f"[vgicp] {name}: against plain " + "; ".join(f"{n} abs {e:.3e}" for n, e in errs)
+            + f"; against {S} single-target calls: bit for bit {equal}, largest relative "
+            f"difference {rel:.3e}")
+        if rel > 1e-6:
+            raise RuntimeError(f"[vgicp] {name}: {rel:.3e} relative from the single-target calls")
+        max_err = max([max_err] + [e for n, e in errs if n != "best"])
+        return ops, k
+
+    counts = sub_n.tolist()
+    ops, _ = check(f"streams S={S} x B={B} x {N} against {P}-row submaps ({counts} live)",
+                   submask.contiguous(), sub_n)
+    empty_mask, empty_n = submask.clone(), sub_n.clone()
+    empty_mask[2], empty_n[2] = 0.0, 0
+    _, k = check(f"streams S={S} x B={B}, stream 2's submap empty", empty_mask.contiguous(),
+                 empty_n)
+    if float(k[3][2 * B:3 * B].abs().sum()) != 0.0:
+        raise RuntimeError("[vgicp] the empty stream matched something")
+
+    singles = [vf.vgicp_prepare(src[st * B:(st + 1) * B], sm[st * B:(st + 1) * B],
+                                scov[st * B:(st + 1) * B], tgt[st], sub_cov[st], submask[st],
+                                tgt_count=sub_n[st], gate_axis=axis2[st]) for st in range(S)]
+    Ts = [Tc[st * B:(st + 1) * B].contiguous() for st in range(S)]
+    calls = 20
+
+    def batched():
+        for _ in range(calls):
+            vf.vgicp_sweep(Tc, ops, _acc_groups=S * B, **kw)
+
+    def separate():
+        for _ in range(calls):
+            for st in range(S):
+                vf.vgicp_sweep(Ts[st], singles[st], _acc_groups=B, **kw)
+
+    def plain():
+        vgicp_iteration_plain(Tc, src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6), tgt,
+                              sub_cov, submask, tgt_count=sub_n, gate_axis=axis2, ts=ops.ts,
+                              _acc_groups=S * B, **kw)
+
+    b1, s1, s2, b2 = (time_cuda(torch, f) / calls for f in (batched, separate, separate, batched))
+    p1 = time_cuda(torch, plain, reps=3, warmup=1)
+    dev_ms = kernel_device_ms(torch, lambda: vf.vgicp_sweep(Tc, ops, _acc_groups=S * B, **kw),
+                              ("vgicp_sweep_kernel",))
+    kernels = call_kernels(torch, lambda: vf.vgicp_sweep(Tc, ops, _acc_groups=S * B, **kw))
+    log(f"[vgicp] kernels of one batched call (profiler; the sweep, then _finish's sum, "
+        f"cast and unpack): {fmt_kernels(kernels)}")
+    if kernels is not None and not (0.5 < kernels.get("vgicp_sweep_kernel", (0, 0))[0] <= 1.0):
+        raise RuntimeError(f"[vgicp] one batched call launched {fmt_kernels(kernels)}; "
+                           f"expected one vgicp_sweep_kernel")
+    syncs = count_syncs(torch, lambda: vf.vgicp_sweep(Tc, ops, _acc_groups=S * B, **kw))
+    log(f"[vgicp] host syncs of one batched call (synchronise calls, host-to-device copies): "
+        f"{syncs[0]:.2f}, {syncs[1]:.2f}")
+    if syncs[0] or syncs[1]:
+        raise RuntimeError(f"[vgicp] the batched call syncs the host: {syncs}")
+    live = [min(P, c) for c in counts]
+    nbytes = 4 * (16 * S * B + 10 * S * B * N + 10 * sum(live) + S + 30 * S * B)
+    flops = VGICP_FLOPS_PER_PAIR * B * N * sum(live) + VGICP_FLOPS_PER_SOURCE * S * B * N
+    bound_ms, bound_by = roofline(nbytes, flops)
+    log(f"[vgicp] time at S={S} streams x B={B} x {N} against {P}-row submaps ({sum(live)} live "
+        f"rows): the batched call on prepared operands {b1:.4f} / {b2:.4f} ms (device time "
+        f"{fmt_ms(dev_ms)} a launch, profiler), {S} single-target calls {s1:.4f} / {s2:.4f} ms, "
+        f"plain {p1:.4f} ms; bound {bound_ms:.5f} ms ({bound_by})")
+    return dict(batch_ms=(b1 + b2) / 2, batch_device_ms=dev_ms, batch_separate_ms=(s1 + s2) / 2,
+                batch_plain_ms=p1, batch_bound_ms=bound_ms, batch_max_abs_err=max_err)
 
 
 def _lost(out):
@@ -1571,7 +1889,7 @@ def range_device(torch, prof, name):
             sum(kernels(e) for e in ranges), widest)
 
 
-def phase_profile(torch, scans, s2m, track):
+def phase_profile(torch, scans, s2m, track, batch):
     """One profiled run of the s2s, s2m and inner-step trackers
     (`profile_run`; the kNN-GICP tracker's is in phase 7): three unprofiled
     runs for the idle share, one for the inner-step run, the longest. The
@@ -1579,25 +1897,35 @@ def phase_profile(torch, scans, s2m, track):
     vgicp_frozen_kernel."""
     from icp4dradar_tpu_torch.config import PipelineConfig
     from icp4dradar_tpu_torch.models import (
-        run_scan_to_map, run_scan_to_map_blocked, run_scan_to_scan,
+        run_scan_to_map, run_scan_to_map_batch, run_scan_to_map_blocked, run_scan_to_scan,
     )
 
     cfg = PipelineConfig()
     inner_cfg = cfg.override(**{"gicp.inner_gn_steps": 1})
     profile_run(torch, "s2s", 3, lambda: run_scan_to_scan(scans, cfg, use_doppler_prior=True))
-    profile_run(torch, "s2m", 3, lambda: run_scan_to_map_blocked(
+    _, s2m_launches = profile_run(torch, "s2m", 3, lambda: run_scan_to_map_blocked(
         s2m, cfg, block=S2M_BLOCK, use_const_velocity_rot=True))
+    _, batch_launches = profile_run(torch, "batch", 3, lambda: run_scan_to_map_batch(
+        batch["batch"], cfg, uniforms=batch["uniforms"], block=S2M_BLOCK,
+        use_const_velocity_rot=True))
+    ratio = batch_launches / max(s2m_launches, 1)
+    log(f"[profile] batch of {BATCH_STREAMS} streams: {batch_launches} kernel launches against "
+        f"the single-stream s2m run's {s2m_launches}, ratio {ratio:.3f} (at most "
+        f"{BATCH_LAUNCH_RATIO_MAX}: nothing loops over the streams)")
+    if not ratio < BATCH_LAUNCH_RATIO_MAX:
+        raise RuntimeError(f"[profile] the batch launches {ratio:.3f} x the single stream's")
     profile_run(torch, "inner", 1, lambda: run_scan_to_map(
         track, inner_cfg, use_const_velocity_rot=True),
         expect=({"vgicp_sweep_kernel", "vgicp_frozen_kernel"}, set()))
 
 
 def ab_child(tree):
-    """Times the K2, K3 and K5 calls of the package in `tree` (this tree or
-    the parent commit's) at the path shapes, on inputs made from a seed,
+    """Times the K2, K3, K5 and K4 calls of the package in `tree` (this tree
+    or the parent commit's) at the path shapes, on inputs made from a seed,
     and prints one JSON line. K2 and K3: 2048 sources against 16,384 rows
     whose first 542 are live (the sector query front-packs them); K5: one
-    2048-point frame on a sweep's payload. A tree without
+    2048-point frame on a sweep's payload; K4: the s2m block (8 frames of
+    2048 sources, one 16,384-row submap, 801 rows live). A tree without
     `nn_search_coords` times K3 through its per-call
     `nearest_neighbor_with_coords` alone."""
     import importlib
@@ -1654,24 +1982,45 @@ def ab_child(tree):
     def k5():
         return vf.vgicp_frozen(T1, fops, best)
 
+    # K4: the s2m block, 8 frames of 2048 sources against one 16,384-row
+    # submap whose first 801 rows are live, operands prepared once
+    B4, P4, L4 = 8, 16384, 801
+    vox4 = rng.uniform([-60, -60, -2], [60, 60, 4], (L4, 3)).astype(np.float32)
+    tgt4 = np.zeros((P4, 3), np.float32)
+    tgt4[:L4] = vox4
+    tcov4 = np.zeros((P4, 6), np.float32)
+    tcov4[:, :3] = np.abs(rng.normal(0.05, 0.02, (P4, 3))) + 0.01
+    src4 = (vox4[rng.integers(L4, size=(B4, N))] + rng.normal(0, 0.3, (B4, N, 3))
+            ).astype(np.float32)
+    src4, tgt4, tcov4 = (torch.from_numpy(x).to(dev) for x in (src4, tgt4, tcov4))
+    ops4 = vf.vgicp_prepare(src4, torch.ones((B4, N), device=dev),
+                            vf.radar_point_covariances_packed(src4).contiguous(), tgt4, tcov4,
+                            (torch.arange(P4, device=dev) < L4).float(),
+                            tgt_count=torch.tensor(L4, device=dev))
+    T4 = torch.eye(4, device=dev).repeat(B4, 1, 1)
+
+    def k4():
+        return vf.vgicp_sweep(T4, ops4, _acc_groups=B4)
+
     def many(fn):
         def run():
             for _ in range(calls):
                 fn()
         return run
 
-    fns = (k2, per_call, k3, k3_per_call, k5)
+    fns = (k2, per_call, k3, k3_per_call, k5, k4)
     t = [time_cuda(torch, many(f)) / calls for f in fns + fns[::-1]]
-    ms = [(a + b) / 2 for a, b in zip(t[:5], t[::-1][:5])]
+    ms = [(a + b) / 2 for a, b in zip(t[:6], t[::-1][:6])]
     res.update(k2_call_ms=ms[0], k2_per_call_ms=ms[1], k3_call_ms=ms[2],
-               k3_per_call_ms=ms[3], k5_call_ms=ms[4], k2_kernels=call_kernels(torch, k2),
-               k3_kernels=call_kernels(torch, k3), k5_kernels=call_kernels(torch, k5))
+               k3_per_call_ms=ms[3], k5_call_ms=ms[4], k4_call_ms=ms[5],
+               k2_kernels=call_kernels(torch, k2), k3_kernels=call_kernels(torch, k3),
+               k5_kernels=call_kernels(torch, k5), k4_kernels=call_kernels(torch, k4))
     print(json.dumps(res), flush=True)
     return 0
 
 
 def phase_ab(parent):
-    """A/B of the K2, K3 and K5 calls against the parent commit's tree (a
+    """A/B of the K2, K3, K5 and K4 calls against the parent commit's tree (a
     `git archive` unpacked at `parent`), each tree in its own process, in
     turns: parent, this tree, this tree, parent."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1684,7 +2033,7 @@ def phase_ab(parent):
         res = json.loads(r.stdout.strip().splitlines()[-1])
         runs.append(res)
         dev = {k: call_device_ms(res[k] or {})
-               for k in ("k2_kernels", "k3_kernels", "k5_kernels")}
+               for k in ("k2_kernels", "k3_kernels", "k5_kernels", "k4_kernels")}
         log(f"[ab] {'parent' if tree == parent else 'this tree'} ({res['package']}): K2 call "
             f"{res['k2_call_ms']:.4f} ms (per-call nearest_neighbor "
             f"{res['k2_per_call_ms']:.4f} ms), device {dev['k2_kernels']:.4f} ms "
@@ -1692,7 +2041,9 @@ def phase_ab(parent):
             f"(per-call nearest_neighbor_with_coords {res['k3_per_call_ms']:.4f} ms), device "
             f"{dev['k3_kernels']:.4f} ms ({fmt_kernels(res['k3_kernels'])}); K5 call "
             f"{res['k5_call_ms']:.4f} ms, device {dev['k5_kernels']:.4f} ms "
-            f"({fmt_kernels(res['k5_kernels'])})")
+            f"({fmt_kernels(res['k5_kernels'])}); K4 call (the s2m block, one target "
+            f"set) {res['k4_call_ms']:.4f} ms, device {dev['k4_kernels']:.4f} ms "
+            f"({fmt_kernels(res['k4_kernels'])})")
     return runs
 
 
@@ -1700,8 +2051,8 @@ def main(argv) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="a tree of the parent commit: time its K2, K3 and "
-                                     "K5 calls beside this tree's (A/B, phase 12)")
+    ap.add_argument("--parent", help="a tree of the parent commit: time its K2, K3, K5 "
+                                     "and K4 calls beside this tree's (A/B, phase 12)")
     ap.add_argument("--ab-tree", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ab_tree:
@@ -1730,13 +2081,15 @@ def main(argv) -> int:
 
     icp = phase_kernel(torch, scans)
     icp_launches, scans_per_s, ate = phase_slice(torch, seq, scans)
-    vg_launches, state, out, s2m = phase_s2m(torch, seq, scans)
+    vg_launches, state, out, s2m, s2m_rate = phase_s2m(torch, seq, scans)
+    batch = phase_batch(torch, seq, scans, s2m_rate)
     vg, sweep_ops = phase_vgicp(torch, state, out, s2m)
+    vg_streams = phase_vgicp_streams(torch, batch)
     (nn_launches, pack_launches), state, out, track = phase_gicp(torch, seq, scans)
     nn, coords_launches, coords, pack, search_ops = phase_knn(torch, state, out, track)
     frozen_launches, state, out, track = phase_inner(torch, seq, scans)
     frozen, frozen_ops = phase_frozen(torch, state, out, track)
-    phase_profile(torch, scans, s2m, track)
+    phase_profile(torch, scans, s2m, track, batch)
     phase_syncs(torch, sweep_ops, frozen_ops, search_ops)
     if parent is not None:
         phase_ab(parent)
@@ -1747,7 +2100,8 @@ def main(argv) -> int:
         {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": icp_launches, **icp},
         {"name": "vgicp_sweep", "route": "cuda", "source": VGICP_SOURCE,
-         "replaces": VGICP_REPLACES, "launches": vg_launches, **vg},
+         "replaces": VGICP_REPLACES, "launches": vg_launches, **vg,
+         "batch_launches": batch["launches"], **vg_streams},
         {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_REPLACES, "launches": nn_launches, **nn},
         {"name": "nn_pack", "route": "cuda", "source": NN_SOURCE,

@@ -43,7 +43,12 @@
 // same ops, so with the same bits), and finish with the GN epilogue.
 // Operands come packed once per registration (ops/vgicp_fused.py): targets
 // (P, 4) [mean, penalty] with each tile's live rows first in row order and
-// a per-tile live count, covariances (P, 8) in the same order. A tile with
+// a per-tile live count, covariances (P, 8) in the same order. Serving
+// (B-stream batches) stacks S such target sets, one per stream, and a
+// launch's frames are S runs of consecutive frames, one per stream: a
+// block reads its frame's set (the JAX package's vmapped pallas_call gives
+// its kernel a batch grid axis with one target set per stream). The stream
+// changes only the base a block reads from, not how it sweeps. A tile with
 // a live row sweeps only those (a masked row's d2 >= 1e30 never beats one);
 // a tile without sweeps all its rows at the penalty, as the Pallas kernel.
 // The tile is staged with cp.async in 16-byte rows. The live count is read
@@ -260,12 +265,13 @@ __device__ __forceinline__ void close_chunk(float cm, int chunk, float& m, int& 
 __global__ void __launch_bounds__(kSweepThreads, 2)
 vgicp_sweep_kernel(const float* __restrict__ T,          // (B, 4, 4)
                    const float* __restrict__ src,        // (B * N, 10)
-                   const float4* __restrict__ tgt,       // (P,) [mean, penalty]
-                   const float* __restrict__ tgt_cov,    // (P, 8)
-                   const int* __restrict__ tile_live,    // (ceil(P / tm),)
-                   const int* __restrict__ tgt_count,    // (1,) live rows
-                   int N, int src_offset, int P, int tm, int ts, float gate,
-                   float eps, double* __restrict__ out,  // (B, nblk, 30)
+                   const float4* __restrict__ tgt,       // (S * P,) [mean, penalty]
+                   const float* __restrict__ tgt_cov,    // (S * P, 8)
+                   const int* __restrict__ tile_live,    // (S, ceil(P / tm))
+                   const int* __restrict__ tgt_count,    // (S,) live rows
+                   int N, int src_offset, int frame0, int stream_frames, int P, int tm,
+                   int ts, float gate, float eps,
+                   double* __restrict__ out,             // (B, nblk, 30)
                    float* __restrict__ best_out) {       // (ns, 10, ts) or null
   __shared__ __align__(16) float4 s_mean[kMaxTile];
   __shared__ float s_min[kSweepWarps][kSweepSources];
@@ -298,9 +304,15 @@ vgicp_sweep_kernel(const float* __restrict__ T,          // (B, 4, 4)
   for (int k = 0; k < 3; ++k) pe[k] = warp == 0 ? pa[0][k] : pa[1][k];
   const int col = (warp & 1) * 32 + lane;
 
-  // live tiles: tile 0 always, then every tile that starts below the count
-  const int cnt = *tgt_count;
+  // the frame's stream (frames of a stream are consecutive) and its
+  // target set: rows, covariances, per-tile live counts and live count
+  const int stream = (frame0 + b) / stream_frames;
   const int nt = (P + tm - 1) / tm;
+  tgt += (size_t)stream * P;
+  tgt_cov += (size_t)stream * P * kCovCols;
+  tile_live += (size_t)stream * nt;
+  // live tiles: tile 0 always, then every tile that starts below the count
+  const int cnt = tgt_count[stream];
   const int nt_live = cnt <= 0 ? 1 : min(nt, (cnt + tm - 1) / tm);
 
   float best_d2 = kBig;  // warps 0 and 1 carry the sweep's best
@@ -522,23 +534,27 @@ extern "C" int vgicp_sweep_sources_per_block() { return kSweepSources; }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). B frames
 // of N sources each (src rows b*N .. b*N+N-1, global source index
-// src_offset + b*N + i for the best layout) against the packed targets (P
-// rows of [mean, penalty], covariances (P, 8), tiles of tm <= 1024 rows with
-// their live counts); B must fit grid.y (<= 65535), the caller splits larger
-// batches. out gets the per-block float64 rows.
+// src_offset + b*N + i for the best layout) against packed target sets of
+// P rows each ([mean, penalty], covariances (P, 8), tiles of tm <= 1024 rows
+// with their live counts, one live count), one set per stream: frame b of
+// this launch is frame frame0 + b of the call and reads the set of stream
+// (frame0 + b) / stream_frames (one stream, stream_frames = the call's
+// frames: the single-target sweep). B must fit grid.y (<= 65535), the
+// caller splits larger batches. out gets the per-block float64 rows.
 extern "C" int vgicp_sweep_launch(const float* T, const float* src, const float* tgt,
                                   const float* tgt_cov, const int* tile_live,
                                   const int* tgt_count, int B, int N, int src_offset,
-                                  int P, int tm, int ts, float gate, float eps,
-                                  double* out, float* best, void* stream) {
+                                  int frame0, int stream_frames, int P, int tm, int ts,
+                                  float gate, float eps, double* out, float* best,
+                                  void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || P <= 0 || tm <= 0 || tm > kMaxTile ||
-      ts <= 0) {
+      ts <= 0 || frame0 < 0 || stream_frames <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((N + kSweepSources - 1) / kSweepSources, B);
   vgicp_sweep_kernel<<<grid, kSweepThreads, 0, (cudaStream_t)stream>>>(
       T, src, reinterpret_cast<const float4*>(tgt), tgt_cov, tile_live, tgt_count, N,
-      src_offset, P, tm, ts, gate, eps, out, best);
+      src_offset, frame0, stream_frames, P, tm, ts, gate, eps, out, best);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,9 @@ numpy arrays:
                                 voxel_size=jax_map.voxel_size,
                                 max_probes=jax_map.max_probes)
 
+A map or stack of scans with a leading stream axis (B, ...), as the JAX
+package's `run_scan_to_map_batch` makes them, crosses the same way.
+
 Tensors land on the card unless the caller names another device.
 """
 
@@ -51,9 +54,10 @@ def scan_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> RadarSca
 
 
 def scans_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> RadarScan:
-    """Stacked (F, ...) RadarScan from stacked numpy arrays."""
-    if np.ndim(arrays["xyz"]) != 3:
-        raise ValueError(f"stacked xyz must be (F, N, 3), got "
+    """Stacked (F, ...) RadarScan from stacked numpy arrays, or (B, F, ...)
+    streams for `run_scan_to_map_batch`."""
+    if np.ndim(arrays["xyz"]) not in (3, 4):
+        raise ValueError(f"stacked xyz must be (F, N, 3) or (B, F, N, 3), got "
                          f"{np.shape(arrays['xyz'])}")
     return scan_from_numpy(arrays, device)
 
@@ -61,7 +65,9 @@ def scans_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> RadarSc
 def voxel_map_from_numpy(arrays: Mapping[str, np.ndarray], voxel_size: float = 0.5,
                          max_probes: int = 8, device="cuda") -> VoxelHashMap:
     """VoxelHashMap from {keys (C,3) int32, points, intensity, occupied,
-    stat_n, stat_sum, stat_sq (float32)} numpy arrays, placed on `device`."""
+    stat_n, stat_sum, stat_sq (float32)} numpy arrays, placed on `device`.
+    Arrays with a leading (B,) axis, the leaves of the JAX package's vmapped
+    map, give a batched map of B tables."""
     missing = [k for k in VOXEL_MAP_FIELDS if k not in arrays]
     if missing:
         raise KeyError(f"voxel map arrays lack fields {missing}")
@@ -74,5 +80,6 @@ def voxel_map_from_numpy(arrays: Mapping[str, np.ndarray], voxel_size: float = 0
 
 
 def voxel_map_to_numpy(vmap: VoxelHashMap) -> dict:
-    """{field: numpy array} of a VoxelHashMap (its tables), host copies."""
+    """{field: numpy array} of a VoxelHashMap (its tables, (B, C, ...) for a
+    batched map), host copies."""
     return {k: getattr(vmap, k).detach().cpu().numpy() for k in VOXEL_MAP_FIELDS}

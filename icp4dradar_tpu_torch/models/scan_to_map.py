@@ -8,13 +8,20 @@ extracts the inlier scan (:328-342); the first scan builds the map
 around the current position (:392-396), registers the scan against it
 (:399-406), composes the correction (:411-412) and inserts the corrected
 scan (:382-390). As in the JAX package, registration runs BEFORE insertion
-and the pipeline's own pose tracks the map.
+and the pipeline's own pose tracks the map. With a finite
+`voxel_map.forget_radius` each insert is followed by forgetting the voxels
+beyond it and, once tombstones pile up, a rehash.
 
 - `run_scan_to_map`: the per-frame tracker, a Python frame loop.
 - `run_scan_to_map_blocked`: one sector query and one batched insert per
   `block` frames; the frames of a block register jointly against the frozen
   block submap in one frame-parallel GN (one fused sweep per iteration for
   the whole block), with a sequential re-track of blocks that look lost.
+- `run_scan_to_map_batch`: B independent streams, each with its own map
+  (serving). Every stage batches over the streams inside its launches: one
+  REVE pass, one sector query, one joint GN (one sweep an iteration over
+  all B x block frames, each stream against its own submap) and one insert
+  per block for all streams; no Python loop over streams.
 
 RANSAC draws for REVE are an input, (F, 3H) (`preprocess/reve.py`); when
 absent they come from a `torch.Generator` seeded with `cfg.seed`.
@@ -29,10 +36,10 @@ honours `use_vgicp` in its warm-up frames only: its blocks always run
 VGICP (`ROADMAP.md` queue 3).
 
 Not ported yet, each raising NotImplementedError that names its place in
-`ROADMAP.md`: a finite `voxel_map.forget_radius` (forget + rehash),
-`gt_poses` / `insert_before_registration` and `run_scan_to_map_batch`
-(queue 1 item 16); `rigid_union`, `accumulate_scans > 1` and its
-`aux_world_xyz` / `insert_override` are left out for good ("Not ported").
+`ROADMAP.md`: `gt_poses` / `insert_before_registration` (queue 1 item 2)
+and kNN GICP inside a batch (queue 1 item 8); `rigid_union`,
+`accumulate_scans > 1` and its `aux_world_xyz` / `insert_override` are left
+out for good ("Not ported").
 """
 
 from __future__ import annotations
@@ -53,8 +60,10 @@ from icp4dradar_tpu_torch.io.scan import RadarScan
 from icp4dradar_tpu_torch.mapping import (
     VoxelHashMap,
     voxel_map_create,
+    voxel_map_forget_far,
     voxel_map_insert,
     voxel_map_knn_exact,
+    voxel_map_maybe_rehash,
     voxel_map_sector_search,
     voxel_map_sector_search_with_stats,
 )
@@ -65,10 +74,15 @@ from icp4dradar_tpu_torch.preprocess.reve import (
     estimate_ego_velocity,
 )
 from icp4dradar_tpu_torch.registration.gicp import covariances_from_neighbors, gicp_align
-from icp4dradar_tpu_torch.registration.vgicp import vgicp_align, vgicp_align_block
+from icp4dradar_tpu_torch.registration.vgicp import (
+    vgicp_align,
+    vgicp_align_block,
+    vgicp_align_streams,
+)
 
 # Blocks of `run_scan_to_map_blocked` in this process that fell back to the
-# sequential re-track (a lost or unhealthy joint registration).
+# sequential re-track (a lost or unhealthy joint registration); a batch
+# counts each stream's block.
 SEQUENTIAL_FALLBACK_BLOCKS = 0
 
 # Frames per REVE chunk in the blocked runner's precompute: the (frames, N,
@@ -76,14 +90,12 @@ SEQUENTIAL_FALLBACK_BLOCKS = 0
 REVE_FRAME_CHUNK = 64
 
 
-def _not_ported(what: str, where: str = "queue 1 item 16") -> NotImplementedError:
+def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to icp4dradar_tpu_torch "
                                f"(ROADMAP.md {where})")
 
 
 def _check_cfg(cfg: PipelineConfig) -> None:
-    if math.isfinite(cfg.voxel_map.forget_radius):
-        raise _not_ported("a finite voxel_map.forget_radius (forget + rehash)")
     if int(cfg.accumulate_scans) > 1:
         raise _not_ported("accumulate_scans > 1", "'Not ported'")
 
@@ -117,13 +129,14 @@ def _apply_tracking_gate(cfg: PipelineConfig, pose, new_T, fitness, insert_mask)
 
 @dataclass(frozen=True)
 class ScanToMapState:
-    world_T: torch.Tensor       # (4,4) current odometry (ref currOdom)
-    vmap: VoxelHashMap
+    world_T: torch.Tensor       # ([B,] 4,4) current odometry (ref currOdom)
+    vmap: VoxelHashMap          # one table, or one per stream (a batch)
 
 
 @dataclass(frozen=True)
 class ScanToMapOutput:
-    """Per-frame record; stacked (F, ...) from the runners."""
+    """Per-frame record; stacked (F, ...) from the runners, (B, F, ...) from
+    a batch."""
 
     world_T: torch.Tensor         # (4,4) pose after this frame
     correction: torch.Tensor      # (4,4) correction transform
@@ -137,14 +150,17 @@ class ScanToMapOutput:
     insert_mask: torch.Tensor     # (N,) gated inlier mask actually inserted
 
 
-def _stack_outputs(outs) -> ScanToMapOutput:
-    return ScanToMapOutput(**{f.name: torch.stack([getattr(o, f.name) for o in outs])
+def _map_outputs(fn, *outs) -> ScanToMapOutput:
+    return ScanToMapOutput(**{f.name: fn([getattr(o, f.name) for o in outs])
                               for f in dataclasses.fields(ScanToMapOutput)})
 
 
-def _cat_outputs(parts) -> ScanToMapOutput:
-    return ScanToMapOutput(**{f.name: torch.cat([getattr(o, f.name) for o in parts])
-                              for f in dataclasses.fields(ScanToMapOutput)})
+def _stack_outputs(outs, dim=0) -> ScanToMapOutput:
+    return _map_outputs(lambda xs: torch.stack(xs, dim), *outs)
+
+
+def _cat_outputs(parts, dim=0) -> ScanToMapOutput:
+    return _map_outputs(lambda xs: torch.cat(xs, dim), *parts)
 
 
 @contextlib.contextmanager
@@ -164,12 +180,15 @@ def _phase(times: Optional[Dict[str, float]], name: str, device):
 
 
 def scan_to_map_init(cfg: PipelineConfig = PipelineConfig(), dtype=torch.float32,
-                     device="cuda") -> ScanToMapState:
+                     device="cuda", streams: Optional[int] = None) -> ScanToMapState:
+    """A fresh pose and map; with `streams` = B, B of each (a batch)."""
     vm = voxel_map_create(capacity=cfg.voxel_map.capacity,
                           voxel_size=cfg.voxel_map.voxel_size,
                           max_probes=cfg.voxel_map.max_probes,
-                          dtype=dtype, device=device)
-    return ScanToMapState(world_T=torch.eye(4, dtype=dtype, device=device), vmap=vm)
+                          dtype=dtype, device=device, streams=streams)
+    eye = torch.eye(4, dtype=dtype, device=device)
+    return ScanToMapState(world_T=eye if streams is None else eye.repeat(streams, 1, 1),
+                          vmap=vm)
 
 
 def _with_rotation(R: torch.Tensor) -> torch.Tensor:
@@ -186,6 +205,19 @@ def _add_doppler_step(pose, velocity, valid):
     step = pose[..., :3, :3] @ velocity[..., None]
     out[..., :3, 3] += torch.where(valid[..., None], step[..., 0], 0.0)
     return out
+
+
+def _forget(vmap: VoxelHashMap, pose, cfg: PipelineConfig, phase_times, dev) -> VoxelHashMap:
+    """With a finite `voxel_map.forget_radius`: tombstone the voxels beyond
+    it around the pose ([B,] 4,4), then rehash the tables whose tombstones
+    exceed `rehash_tombstone_fraction` (the JAX runners' step after each
+    insert, `scan_to_map.py:253-255, 741-748`)."""
+    vmcfg = cfg.voxel_map
+    if not math.isfinite(vmcfg.forget_radius):
+        return vmap
+    with _phase(phase_times, "forget", dev):
+        vmap = voxel_map_forget_far(vmap, pose[..., :3, 3], vmcfg.forget_radius)
+        return voxel_map_maybe_rehash(vmap, vmcfg.rehash_tombstone_fraction)
 
 
 def scan_to_map_step(
@@ -205,13 +237,21 @@ def scan_to_map_step(
     """One tracked frame: VGICP, or kNN GICP with `gicp.use_vgicp=False`.
     An empty map (first frame) gives an identity correction and seeds the
     map. uniforms: (3H,) REVE draws. `prior_delta` (4,4): body-frame motion
-    prior composed into the prediction once the map exists."""
+    prior composed into the prediction once the map exists.
+
+    On a batched state (B poses, a map of B tables) the frame is one scan
+    per stream, (B, N) fields, uniforms (B, 3H) and prior_delta (B,4,4):
+    one REVE pass, one sector query, one `vgicp_align_streams` and one
+    insert for all streams (VGICP only)."""
     _check_cfg(cfg)
     if gt_pose is not None or insert_before_registration:
-        raise _not_ported("gt_pose / insert_before_registration")
+        raise _not_ported("gt_pose / insert_before_registration", "queue 1 item 2")
     if aux_world_xyz is not None or aux_mask is not None or insert_override is not None:
         raise _not_ported("aux_world_xyz / insert_override (scan accumulation)",
                           "'Not ported'")
+    batched = state.vmap.streams is not None
+    if batched and not cfg.gicp.use_vgicp:
+        raise _not_ported("kNN GICP (gicp.use_vgicp=False) inside a batch", "queue 1 item 8")
     vmcfg = cfg.voxel_map
     dev = scan.device
     with _phase(phase_times, "reve", dev):
@@ -221,25 +261,29 @@ def scan_to_map_step(
     pose = state.world_T
     has_map = state.vmap.num_voxels > 0
     if prior_delta is not None:
-        pose = torch.where(has_map, pose @ prior_delta, pose)
+        pose = torch.where(has_map[..., None, None], pose @ prior_delta, pose)
     if use_doppler_prior:
         # the first scan seeds the map at the initial pose
         pose = _add_doppler_step(pose, est.velocity, est.valid & has_map)
 
-    heading = matrix_to_rpy(pose[:3, :3])[2]
+    heading = matrix_to_rpy(pose[..., :3, :3])[..., 2]
     if cfg.gicp.use_vgicp:
         with _phase(phase_times, "sector_query", dev):
             _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
-                state.vmap, pose[:3, 3], vmcfg.sector_radius, heading,
+                state.vmap, pose[..., :3, 3], vmcfg.sector_radius, heading,
                 vmcfg.sector_half_angle_deg, vmcfg.submap_max_points,
                 min_count=vmcfg.stats_min_count, fallback_var=vmcfg.stats_fallback_var)
         with _phase(phase_times, "gn", dev):
             src_cov6 = radar_point_covariances_packed(
                 scan.xyz, cfg.gicp.sigma_range, cfg.gicp.sigma_azimuth,
                 cfg.gicp.sigma_elevation)
-            g = vgicp_align(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
-                            src_cov6=src_cov6, init_transform=pose, cfg=cfg.gicp,
-                            tgt_count=sub_n)
+            if batched:
+                g = vgicp_align_streams(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
+                                        src_cov6, pose, cfg.gicp, tgt_count=sub_n)
+            else:
+                g = vgicp_align(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
+                                src_cov6=src_cov6, init_transform=pose, cfg=cfg.gicp,
+                                tgt_count=sub_n)
         reg_T = g.transform
     else:
         with _phase(phase_times, "sector_query", dev):
@@ -265,23 +309,58 @@ def scan_to_map_step(
     with _phase(phase_times, "insert", dev):
         vmap = voxel_map_insert(state.vmap, se3_apply(new_T, scan.xyz), insert_mask,
                                 scan.intensity)
+    vmap = _forget(vmap, new_T, cfg, phase_times, dev)
     out = ScanToMapOutput(
         world_T=new_T, correction=new_T @ se3_inverse(pose), velocity=est.velocity,
         velocity_sigma=est.sigma, velocity_valid=est.valid, fitness=g.fitness,
-        num_inliers=torch.sum(inlier_mask), submap_points=sub_n,
+        num_inliers=torch.sum(inlier_mask, dim=-1), submap_points=sub_n,
         iterations=g.iterations, insert_mask=insert_mask,
     )
     return ScanToMapState(world_T=new_T, vmap=vmap), out
 
 
 def _uniforms_for(scans: RadarScan, cfg: PipelineConfig, uniforms, generator):
+    """The given REVE draws, or draws for every frame ((F, 3H), or (B, F,
+    3H) for stacked streams, drawn stream by stream) from `generator`, by
+    default one seeded with cfg.seed."""
     if uniforms is not None:
         return uniforms
     dev = scans.device
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(cfg.seed)
-    return draw_reve_uniforms((scans.xyz.shape[0],), cfg.reve, generator, dev)
+    lead = scans.time.shape
+    if len(lead) == 1:
+        return draw_reve_uniforms(lead, cfg.reve, generator, dev)
+    return torch.stack([draw_reve_uniforms(lead[1:], cfg.reve, generator, dev)
+                        for _ in range(lead[0])])
+
+
+def _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
+                  use_const_velocity_rot, init_state, phase_times, streams):
+    """The per-frame tracker over (F, ...) scans, or with `streams` = B over
+    (B, F, ...) scans, every frame of every stream in one batched step."""
+    F = scans.xyz.shape[-3]
+    dt, dev = scans.xyz.dtype, scans.device
+    state = (init_state if init_state is not None
+             else scan_to_map_init(cfg, dt, dev, streams=streams))
+    prev_rot = torch.eye(4, dtype=dt, device=dev).expand(state.world_T.shape)
+
+    def at(x, f):
+        return x[f] if streams is None else x[:, f]
+
+    outs = []
+    for f in range(F):
+        pd = at(prior_deltas, f) if prior_deltas is not None else (
+            prev_rot if use_const_velocity_rot else None)
+        new_state, out = scan_to_map_step(
+            state, at(scans, f), at(uniforms, f), cfg, use_doppler_prior=use_doppler_prior,
+            prior_delta=pd, phase_times=phase_times)
+        delta = se3_inverse(state.world_T) @ new_state.world_T
+        prev_rot = _with_rotation(delta[..., :3, :3])
+        state = new_state
+        outs.append(out)
+    return state, _stack_outputs(outs, dim=0 if streams is None else 1)
 
 
 def run_scan_to_map(
@@ -305,24 +384,10 @@ def run_scan_to_map(
     existing {pose, map}."""
     _check_cfg(cfg)
     if gt_poses is not None or insert_before_registration:
-        raise _not_ported("gt_poses / insert_before_registration")
-    F = scans.xyz.shape[0]
-    dt, dev = scans.xyz.dtype, scans.device
-    uniforms = _uniforms_for(scans, cfg, uniforms, generator)
-    state = init_state if init_state is not None else scan_to_map_init(cfg, dt, dev)
-    prev_rot = torch.eye(4, dtype=dt, device=dev)
-    outs = []
-    for f in range(F):
-        pd = prior_deltas[f] if prior_deltas is not None else (
-            prev_rot if use_const_velocity_rot else None)
-        new_state, out = scan_to_map_step(
-            state, scans[f], uniforms[f], cfg, use_doppler_prior=use_doppler_prior,
-            prior_delta=pd, phase_times=phase_times)
-        delta = se3_inverse(state.world_T) @ new_state.world_T
-        prev_rot = _with_rotation(delta[:3, :3])
-        state = new_state
-        outs.append(out)
-    return state, _stack_outputs(outs)
+        raise _not_ported("gt_poses / insert_before_registration", "queue 1 item 2")
+    return _track_frames(scans, cfg, _uniforms_for(scans, cfg, uniforms, generator),
+                         use_doppler_prior, prior_deltas, use_const_velocity_rot, init_state,
+                         phase_times, None)
 
 
 def _sort_scans_by_sensor_x(scans: RadarScan) -> RadarScan:
@@ -342,22 +407,43 @@ def _sort_scans_by_sensor_x(scans: RadarScan) -> RadarScan:
 
 
 def _sort_submap_by_axis(sub_mean, sub_cov, submask, axis2):
-    """Sort compacted submap rows by their projection onto `axis2` (2,)
-    (stable); invalid rows keep +inf keys so the front-packed live count
-    stays valid."""
-    u = torch.where(submask > 0.5, sub_mean[:, 0] * axis2[0] + sub_mean[:, 1] * axis2[1],
-                    math.inf)
-    idx = torch.sort(u, stable=True).indices
-    return sub_mean[idx], sub_cov[idx], submask[idx]
+    """Sort compacted submap rows ([S,] P) by their projection onto `axis2`
+    ([S,] 2) (stable); invalid rows keep +inf keys so the front-packed live
+    count stays valid."""
+    u = torch.where(submask > 0.5, sub_mean[..., 0] * axis2[..., 0, None]
+                    + sub_mean[..., 1] * axis2[..., 1, None], math.inf)
+    idx = torch.sort(u, dim=-1, stable=True).indices
+
+    def take(x):
+        return torch.gather(x, -2, idx[..., None].expand(x.shape))
+
+    return take(sub_mean), take(sub_cov), torch.gather(submask, -1, idx)
 
 
 def _estimate_frames(scans: RadarScan, uniforms, cfg: PipelineConfig):
-    """REVE over stacked frames in chunks of REVE_FRAME_CHUNK."""
-    parts = [estimate_ego_velocity(scans[s:s + REVE_FRAME_CHUNK],
-                                   uniforms[s:s + REVE_FRAME_CHUNK], cfg.reve)
-             for s in range(0, scans.xyz.shape[0], REVE_FRAME_CHUNK)]
-    return EgoVelocityEstimate(**{f.name: torch.cat([getattr(p, f.name) for p in parts])
-                                  for f in dataclasses.fields(EgoVelocityEstimate)})
+    """REVE over stacked frames, (F, ...) or (B, F, ...) for stacked
+    streams, in chunks of REVE_FRAME_CHUNK frames."""
+    lead = uniforms.shape[:-1]
+    flat = RadarScan(**{f.name: getattr(scans, f.name).reshape((-1,) + getattr(
+        scans, f.name).shape[len(lead):]) for f in dataclasses.fields(RadarScan)})
+    u = uniforms.reshape(-1, uniforms.shape[-1])
+    parts = [estimate_ego_velocity(flat[s:s + REVE_FRAME_CHUNK],
+                                   u[s:s + REVE_FRAME_CHUNK], cfg.reve)
+             for s in range(0, u.shape[0], REVE_FRAME_CHUNK)]
+    return EgoVelocityEstimate(**{
+        f.name: torch.cat([getattr(p, f.name) for p in parts]).unflatten(0, lead)
+        for f in dataclasses.fields(EgoVelocityEstimate)})
+
+
+def _velocity_hold(velocity, valid):
+    """(..., F, 3), (..., F) -> the last valid velocity at or before each
+    frame (zeros before the first) and whether one exists: frames with an
+    invalid REVE estimate dead-reckon on it instead of freezing."""
+    F = valid.shape[-1]
+    frame = torch.arange(F, device=valid.device)
+    last = torch.cummax(torch.where(valid, frame, -1), dim=-1).values
+    held = torch.gather(velocity, -2, last.clamp(min=0)[..., None].expand(velocity.shape))
+    return torch.where((last >= 0)[..., None], held, 0.0), last >= 0
 
 
 def run_scan_to_map_blocked(
@@ -395,22 +481,39 @@ def run_scan_to_map_blocked(
 
     uniforms: (F, 3H) REVE draws (warm-up frames first). `phase_times`:
     when a dict, host-clock seconds per phase (reve, sort, sector_query,
-    map_knn, gn, insert) are added to it, with a device synchronize around each
-    phase. Requires (F - block) % block == 0 (F % block == 0 with
-    `init_state`)."""
-    global SEQUENTIAL_FALLBACK_BLOCKS
+    map_knn, gn, insert, forget) are added to it, with a device synchronize
+    around each phase. Requires (F - block) % block == 0 (F % block == 0
+    with `init_state`)."""
     _check_cfg(cfg)
     if rigid_union:
         raise _not_ported("rigid_union", "'Not ported'")
-    F = scans.xyz.shape[0]
-    dt, dev = scans.xyz.dtype, scans.device
     uniforms = _uniforms_for(scans, cfg, uniforms, generator)
+    return _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
+                        use_const_velocity_rot, use_band_gating, parallel_frames,
+                        init_state, sequential_fallback, phase_times, None)
+
+
+def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
+                 use_const_velocity_rot, use_band_gating, parallel_frames, init_state,
+                 sequential_fallback, phase_times, streams):
+    """The blocked tracker over (F, ...) scans, or with `streams` = B over
+    (B, F, ...) scans (uniforms (B, F, 3H), prior_deltas (B, F, 4, 4), a
+    batched init_state), every stage running all streams in its launches.
+    Only the sequential re-track of an unhealthy block steps frame by frame
+    and stream by stream (the unhealthy streams alone, each as the
+    single-stream tracker re-tracks it); `parallel_frames=False` steps frame
+    by frame, all streams together."""
+    global SEQUENTIAL_FALLBACK_BLOCKS
+    F = scans.xyz.shape[-3]
+    dt, dev = scans.xyz.dtype, scans.device
+
+    def frames(x, k):
+        """Frame(s) k of a ([B,] F, ...) tensor or scan."""
+        return x[k] if streams is None else x[:, k]
+
     if block <= 1 or (init_state is None and F <= block):
-        return run_scan_to_map(scans, cfg, uniforms=uniforms,
-                               use_doppler_prior=use_doppler_prior,
-                               prior_deltas=prior_deltas,
-                               use_const_velocity_rot=use_const_velocity_rot,
-                               init_state=init_state, phase_times=phase_times)
+        return _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
+                             use_const_velocity_rot, init_state, phase_times, streams)
     if init_state is not None:
         if F % block != 0:
             raise ValueError(f"run_scan_to_map_blocked with init_state needs "
@@ -428,88 +531,93 @@ def run_scan_to_map_blocked(
             scans = _sort_scans_by_sensor_x(scans)
 
     if F0 > 0:
-        state, warm_outs = run_scan_to_map(
-            scans[:F0], cfg, uniforms=uniforms[:F0], use_doppler_prior=use_doppler_prior,
-            prior_deltas=None if prior_deltas is None else prior_deltas[:F0],
-            use_const_velocity_rot=use_const_velocity_rot, phase_times=phase_times)
-        warm_delta = se3_inverse(warm_outs.world_T[-2]) @ warm_outs.world_T[-1]
-        prev_rot = _with_rotation(warm_delta[:3, :3])
+        warm = slice(0, F0)
+        state, warm_outs = _track_frames(
+            frames(scans, warm), cfg, frames(uniforms, warm), use_doppler_prior,
+            None if prior_deltas is None else frames(prior_deltas, warm),
+            use_const_velocity_rot, None, phase_times, streams)
+        warm_delta = se3_inverse(frames(warm_outs.world_T, -2)) @ frames(warm_outs.world_T, -1)
+        prev_rot = _with_rotation(warm_delta[..., :3, :3])
     else:
         state, warm_outs = init_state, None
-        prev_rot = torch.eye(4, dtype=dt, device=dev)
+        prev_rot = torch.eye(4, dtype=dt, device=dev).expand(state.world_T.shape)
 
     # Frame-parallel precompute: REVE and the measurement-model scan
     # covariances depend only on the raw scan, never on the pose chain.
-    rest = scans[F0:]
+    rest = frames(scans, slice(F0, None))
     with _phase(phase_times, "reve", dev):
-        est_all = _estimate_frames(rest, uniforms[F0:], cfg)
+        est_all = _estimate_frames(rest, frames(uniforms, slice(F0, None)), cfg)
+        # velocity hold: frames with an invalid REVE estimate dead-reckon
+        # on the last valid ego velocity instead of freezing
+        held_vel, held_valid = _velocity_hold(est_all.velocity, est_all.valid)
     with _phase(phase_times, "gn", dev):
         cov_all = radar_point_covariances_packed(
             rest.xyz, cfg.gicp.sigma_range, cfg.gicp.sigma_azimuth,
             cfg.gicp.sigma_elevation)
 
-    def frame_step(pose, prev_rot, frozen, k):
-        """Register frame k of the rest against the frozen block submap."""
-        sub_mean, sub_cov, submask, sub_n, axis2 = frozen
-        pose_in = pose
+    def pick(x, k, idx):
+        """Frame k of the rest for the streams idx: an int (one stream, as a
+        single-stream tensor) or slice(None) (all)."""
+        return x[k] if streams is None else x[idx, k]
+
+    def predict(pose, prev_rot, k, idx):
+        """The prior step of frame k of the rest."""
         if prior_deltas is not None:
-            pose = pose @ prior_deltas[F0 + k]
+            pose = pose @ pick(prior_deltas, F0 + k, idx)
         elif use_const_velocity_rot:
             pose = pose @ prev_rot
         if use_doppler_prior:
-            pose = _add_doppler_step(pose, held_vel[k], held_valid[k])
-        inl = est_all.inlier_mask[k]
-        g = vgicp_align(rest.xyz[k], sub_mean, sub_cov, inl, submask,
-                        src_cov6=cov_all[k], init_transform=pose, cfg=cfg.gicp,
-                        tgt_count=sub_n, gate_axis=axis2)
-        new_T, insert_mask, _ = _apply_tracking_gate(cfg, pose, g.transform,
-                                                     g.fitness, inl)
-        delta = se3_inverse(pose_in) @ new_T
-        out = ScanToMapOutput(
-            world_T=new_T, correction=new_T @ se3_inverse(pose),
-            velocity=held_vel[k], velocity_sigma=est_all.sigma[k],
-            velocity_valid=held_valid[k], fitness=g.fitness,
-            num_inliers=torch.sum(inl), submap_points=sub_n,
-            iterations=g.iterations, insert_mask=insert_mask)
-        return new_T, _with_rotation(delta[:3, :3]), out
+            pose = _add_doppler_step(pose, pick(held_vel, k, idx), pick(held_valid, k, idx))
+        return pose
 
-    def sequential(pose, prev_rot, frozen, ks):
+    def frame_step(pose, prev_rot, frozen, k, idx):
+        """Register frame k of the rest against the frozen block submap(s):
+        one stream (a (4,4) pose) or all of them."""
+        sub_mean, sub_cov, submask, sub_n, axis2 = frozen
+        pred = predict(pose, prev_rot, k, idx)
+        inl = pick(est_all.inlier_mask, k, idx)
+        xyz, cov = pick(rest.xyz, k, idx), pick(cov_all, k, idx)
+        if pose.dim() == 2:
+            g = vgicp_align(xyz, sub_mean, sub_cov, inl, submask, src_cov6=cov,
+                            init_transform=pred, cfg=cfg.gicp, tgt_count=sub_n,
+                            gate_axis=axis2)
+        else:
+            g = vgicp_align_streams(xyz, sub_mean, sub_cov, inl, submask, cov, pred,
+                                    cfg.gicp, tgt_count=sub_n, gate_axis=axis2)
+        new_T, insert_mask, _ = _apply_tracking_gate(cfg, pred, g.transform, g.fitness, inl)
+        delta = se3_inverse(pose) @ new_T
+        out = ScanToMapOutput(
+            world_T=new_T, correction=new_T @ se3_inverse(pred),
+            velocity=pick(held_vel, k, idx), velocity_sigma=pick(est_all.sigma, k, idx),
+            velocity_valid=pick(held_valid, k, idx), fitness=g.fitness,
+            num_inliers=torch.sum(inl, dim=-1), submap_points=sub_n,
+            iterations=g.iterations, insert_mask=insert_mask)
+        return new_T, _with_rotation(delta[..., :3, :3]), out
+
+    def sequential(pose, prev_rot, frozen, ks, idx):
         outs = []
         for k in ks:
-            pose, prev_rot, out = frame_step(pose, prev_rot, frozen, k)
+            pose, prev_rot, out = frame_step(pose, prev_rot, frozen, k, idx)
             outs.append(out)
-        return pose, prev_rot, _stack_outputs(outs)
-
-    # velocity hold over the whole sequence (a running "last valid"):
-    # frames with an invalid REVE estimate dead-reckon on the last valid
-    # ego velocity instead of freezing
-    hv = torch.zeros(3, dtype=dt, device=dev)
-    hb = torch.zeros((), dtype=torch.bool, device=dev)
-    vels, valids = [], []
-    for k in range(F - F0):
-        hv = torch.where(est_all.valid[k], est_all.velocity[k], hv)
-        hb = hb | est_all.valid[k]
-        vels.append(hv)
-        valids.append(hb)
-    held_vel, held_valid = torch.stack(vels), torch.stack(valids)
+        return pose, prev_rot, _stack_outputs(outs, dim=pose.dim() - 2)
 
     block_outs = []
     for blk in range(nblocks):
         ks = list(range(blk * block, (blk + 1) * block))
-        k0, k1 = ks[0], ks[-1] + 1
+        kb = slice(ks[0], ks[-1] + 1)
         pose0 = state.world_T
-        heading = matrix_to_rpy(pose0[:3, :3])[2]
+        heading = matrix_to_rpy(pose0[..., :3, :3])[..., 2]
         with _phase(phase_times, "sector_query", dev):
             _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
-                state.vmap, pose0[:3, 3], vmcfg.sector_radius, heading,
+                state.vmap, pose0[..., :3, 3], vmcfg.sector_radius, heading,
                 vmcfg.sector_half_angle_deg, vmcfg.submap_max_points,
                 min_count=vmcfg.stats_min_count, fallback_var=vmcfg.stats_fallback_var)
         axis2 = None
         if use_band_gating:
-            # sort the frozen submap by the block-start forward axis
+            # sort each frozen submap by its block-start forward axis
             with _phase(phase_times, "sort", dev):
                 hrad = heading * (math.pi / 180.0)
-                axis2 = torch.stack([torch.cos(hrad), torch.sin(hrad)])
+                axis2 = torch.stack([torch.cos(hrad), torch.sin(hrad)], dim=-1)
                 sub_mean, sub_cov, submask = _sort_submap_by_axis(
                     sub_mean, sub_cov, submask, axis2)
         frozen = (sub_mean, sub_cov, submask, sub_n, axis2)
@@ -520,63 +628,120 @@ def run_scan_to_map_blocked(
                 # the shared frozen submap, so prior drift does not compound
                 preds, pose = [], pose0
                 for k in ks:
-                    if prior_deltas is not None:
-                        pose = pose @ prior_deltas[F0 + k]
-                    elif use_const_velocity_rot:
-                        pose = pose @ prev_rot
-                    if use_doppler_prior:
-                        pose = _add_doppler_step(pose, held_vel[k], held_valid[k])
+                    pose = predict(pose, prev_rot, k, slice(None))
                     preds.append(pose)
-                preds = torch.stack(preds)
-                inl = est_all.inlier_mask[k0:k1]
+                preds = torch.stack(preds, dim=-3)                  # ([B,] block, 4, 4)
+                inl = frames(est_all.inlier_mask, kb)
                 g, wsum = vgicp_align_block(
-                    rest.xyz[k0:k1], sub_mean, sub_cov, inl, submask, cov_all[k0:k1],
-                    preds, cfg=cfg.gicp, tgt_count=sub_n, gate_axis=axis2)
+                    frames(rest.xyz, kb), sub_mean, sub_cov, inl, submask,
+                    frames(cov_all, kb), preds, cfg=cfg.gicp, tgt_count=sub_n,
+                    gate_axis=axis2)
                 # a frame that matches nothing reports fitness 0: fold the
                 # matched fraction into an EFFECTIVE fitness so both the
                 # fallback test and the tracking gate see the failure
                 nval = torch.clamp(torch.sum(inl, dim=-1), min=1.0)
                 fitness = torch.where(wsum / nval < 0.25, 1e6, g.fitness)
-                healthy = True
-                if sequential_fallback:
-                    healthy = bool(torch.all((fitness < cfg.tracking.max_fitness)
-                                             & torch.isfinite(fitness)))
-                if healthy:
-                    new_T, masks, _ = _apply_tracking_gate(cfg, preds, g.transform,
-                                                           fitness, inl)
-                    outs = ScanToMapOutput(
-                        world_T=new_T, correction=new_T @ se3_inverse(preds),
-                        velocity=held_vel[k0:k1], velocity_sigma=est_all.sigma[k0:k1],
-                        velocity_valid=held_valid[k0:k1], fitness=fitness,
-                        num_inliers=torch.sum(inl, dim=-1),
-                        submap_points=sub_n.expand(block), iterations=g.iterations,
-                        insert_mask=masks)
-                    pose = new_T[-1]
-                    # cv-rot seed for the next block from the last two
-                    # CORRECTED poses
-                    prev_rot = _with_rotation(
-                        (se3_inverse(new_T[-2]) @ new_T[-1])[:3, :3])
-                else:
-                    SEQUENTIAL_FALLBACK_BLOCKS += 1
-                    pose, prev_rot, outs = sequential(pose0, prev_rot, frozen, ks)
+                new_T, masks, _ = _apply_tracking_gate(cfg, preds, g.transform, fitness, inl)
+                outs = ScanToMapOutput(
+                    world_T=new_T, correction=new_T @ se3_inverse(preds),
+                    velocity=frames(held_vel, kb), velocity_sigma=frames(est_all.sigma, kb),
+                    velocity_valid=frames(held_valid, kb), fitness=fitness,
+                    num_inliers=torch.sum(inl, dim=-1),
+                    submap_points=sub_n[..., None].expand(fitness.shape),
+                    iterations=g.iterations, insert_mask=masks)
+                pose = frames(new_T, -1)
+                # cv-rot seed for the next block from the last two
+                # CORRECTED poses
+                next_rot = _with_rotation(
+                    (se3_inverse(frames(new_T, -2)) @ frames(new_T, -1))[..., :3, :3])
+                healthy = torch.all((fitness < cfg.tracking.max_fitness)
+                                    & torch.isfinite(fitness), dim=-1)
+                if sequential_fallback and streams is None:
+                    if not bool(healthy):
+                        SEQUENTIAL_FALLBACK_BLOCKS += 1
+                        pose, next_rot, outs = sequential(pose0, prev_rot, frozen, ks, None)
+                elif sequential_fallback:
+                    # only the streams whose block looks lost re-track, each
+                    # as the single-stream tracker re-tracks it
+                    for b in torch.nonzero(~healthy)[:, 0].tolist():
+                        SEQUENTIAL_FALLBACK_BLOCKS += 1
+                        p_b, r_b, o_b = sequential(
+                            pose0[b], prev_rot[b],
+                            tuple(None if x is None else x[b] for x in frozen), ks, b)
+                        pose, next_rot = pose.clone(), next_rot.clone()
+                        pose[b], next_rot[b] = p_b, r_b
+                        outs = _map_outputs(lambda xs: xs[0].index_copy(
+                            0, torch.tensor([b], device=dev), xs[1][None]), outs, o_b)
+                prev_rot = next_rot
             else:
-                pose, prev_rot, outs = sequential(pose0, prev_rot, frozen, ks)
+                pose, prev_rot, outs = sequential(pose0, prev_rot, frozen, ks, slice(None))
         with _phase(phase_times, "insert", dev):
             lb = vmcfg.block_insert_leader_budget
-            world_pts = se3_apply(outs.world_T, rest.xyz[k0:k1])
-            vmap = voxel_map_insert(state.vmap, world_pts.reshape(-1, 3),
-                                    outs.insert_mask.reshape(-1),
-                                    rest.intensity[k0:k1].reshape(-1),
+            world_pts = se3_apply(outs.world_T, frames(rest.xyz, kb))
+            vmap = voxel_map_insert(state.vmap, world_pts.flatten(-3, -2),
+                                    outs.insert_mask.flatten(-2, -1),
+                                    frames(rest.intensity, kb).flatten(-2, -1),
                                     leader_budget=lb if lb > 0 else None)
+        vmap = _forget(vmap, pose, cfg, phase_times, dev)
         state = ScanToMapState(world_T=pose, vmap=vmap)
         block_outs.append(outs)
 
     if warm_outs is not None:
         block_outs.insert(0, warm_outs)
-    return state, _cat_outputs(block_outs)
+    return state, _cat_outputs(block_outs, dim=0 if streams is None else 1)
 
 
-def run_scan_to_map_batch(scans: RadarScan, cfg: PipelineConfig = PipelineConfig(),
-                          **kwargs):
-    """B independent sequences, each with its own map (serving): not ported."""
-    raise _not_ported("run_scan_to_map_batch (batched serving)")
+def run_scan_to_map_batch(
+    scans: RadarScan,
+    cfg: PipelineConfig = PipelineConfig(),
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    block: int = 0,
+    **kwargs,
+) -> Tuple[ScanToMapState, ScanToMapOutput]:
+    """Track B independent sequences at once (serving): `scans` has a
+    leading stream axis (B, F, ...), each stream gets its own map, and every
+    stage (REVE, sector query, VGICP sweep, insert, forget) runs all streams
+    in the same launches. `block` > 1 runs the blocked tracker (the keyword
+    arguments of `run_scan_to_map_blocked`; `sequential_fallback` defaults
+    to False, as the JAX package sets it under vmap, and with True only the
+    unhealthy streams of a block re-track), else the per-frame one (those
+    of `run_scan_to_map`).
+
+    uniforms: (B, F, 3H) REVE draws; without them each stream draws its
+    (F, 3H) in turn from `generator`, by default one seeded with cfg.seed.
+    Returns the batched state (world_T (B,4,4), a map of B tables) and
+    (B, F, ...) outputs. kNN GICP (`gicp.use_vgicp=False`) is not ported to
+    a batch."""
+    if scans.xyz.dim() != 4:
+        raise ValueError(f"run_scan_to_map_batch takes (B, F, N, 3) scans, got "
+                         f"{tuple(scans.xyz.shape)}")
+    if not cfg.gicp.use_vgicp:
+        raise _not_ported("kNN GICP (gicp.use_vgicp=False) inside a batch", "queue 1 item 8")
+    uniforms = _uniforms_for(scans, cfg, uniforms, generator)
+    if block > 1:
+        kwargs.setdefault("sequential_fallback", False)
+        return _batch_blocked(scans, cfg, uniforms, block, **kwargs)
+    return _batch_frames(scans, cfg, uniforms, **kwargs)
+
+
+def _batch_frames(scans, cfg, uniforms, gt_poses=None, insert_before_registration=False,
+                  use_doppler_prior=True, prior_deltas=None, use_const_velocity_rot=False,
+                  init_state=None, phase_times=None):
+    _check_cfg(cfg)
+    if gt_poses is not None or insert_before_registration:
+        raise _not_ported("gt_poses / insert_before_registration", "queue 1 item 2")
+    return _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
+                         use_const_velocity_rot, init_state, phase_times, scans.xyz.shape[0])
+
+
+def _batch_blocked(scans, cfg, uniforms, block, use_doppler_prior=True, prior_deltas=None,
+                   use_const_velocity_rot=False, use_band_gating=True, parallel_frames=True,
+                   init_state=None, rigid_union=False, sequential_fallback=False,
+                   phase_times=None):
+    _check_cfg(cfg)
+    if rigid_union:
+        raise _not_ported("rigid_union", "'Not ported'")
+    return _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
+                        use_const_velocity_rot, use_band_gating, parallel_frames,
+                        init_state, sequential_fallback, phase_times, scans.xyz.shape[0])

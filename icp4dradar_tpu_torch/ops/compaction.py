@@ -19,19 +19,35 @@ def mask_compact(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scatter `values[mask]` into the first slots of an (out_size, ...)
     buffer, in their original order. values: (N, ...); mask: (N,) in {0,1}.
-    Entries beyond out_size are dropped (check `count`).
+    With a leading stream axis, values (S, N, ...) and mask (S, N), each
+    stream compacts into its own (S, out_size, ...) buffer. Entries beyond
+    out_size are dropped (check `count`).
 
     Returns (out (out_size, ...), out_mask (out_size,) of values' dtype,
-    count () int32 clipped to out_size). No host sync: rows that are masked
-    out or overflow all land in one extra bin that is sliced off."""
+    count () int32 clipped to out_size), each with the leading (S,) axis
+    when given one. One cumsum and one scatter for all streams, no host
+    sync: rows that are masked out or overflow all land in one extra bin
+    per stream that is sliced off."""
     maskb = mask > 0.5
-    pos = torch.cumsum(maskb.to(torch.int32), dim=0) - 1
-    count = torch.sum(maskb.to(torch.int32))
+    count = torch.sum(maskb.to(torch.int32), dim=-1)
+    # one flat cumsum for all streams (a scan along a few long rows is far
+    # slower on the card), less each stream's start
+    pos = torch.cumsum(maskb.reshape(-1).to(torch.int32), dim=0).reshape(maskb.shape) - 1
+    if maskb.dim() == 2:
+        pos = pos - (torch.cumsum(count, dim=0) - count)[:, None]
     dest = torch.where(maskb & (pos < out_size), pos, out_size).to(torch.int64)
-    out = torch.full((out_size + 1,) + tuple(values.shape[1:]), fill,
+    lead = tuple(mask.shape[:-1])                 # () or (S,)
+    if lead:
+        S = lead[0]
+        dest = (dest + torch.arange(S, device=dest.device)[:, None] * (out_size + 1)).reshape(-1)
+        values = values.reshape((-1,) + tuple(values.shape[2:]))
+    rows = (out_size + 1) * (lead[0] if lead else 1)
+    out = torch.full((rows,) + tuple(values.shape[1:]), fill,
                      dtype=values.dtype, device=values.device)
     out.index_copy_(0, dest, values)
-    out_mask = torch.zeros(out_size + 1, dtype=values.dtype, device=values.device)
+    out_mask = torch.zeros(rows, dtype=values.dtype, device=values.device)
     out_mask.index_fill_(0, dest, 1)
-    return (out[:out_size], out_mask[:out_size],
-            torch.clamp(count, max=out_size).to(torch.int32))
+    ax = len(lead)
+    out = out.reshape(lead + (out_size + 1,) + tuple(values.shape[1:])).narrow(ax, 0, out_size)
+    out_mask = out_mask.reshape(lead + (out_size + 1,)).narrow(ax, 0, out_size)
+    return out, out_mask, torch.clamp(count, max=out_size).to(torch.int32)

@@ -28,6 +28,12 @@ by the sector query's compaction); tile 0 is always swept.
   the plain version; CUDA tensors launch the hand-written kernels of
   `csrc/vgicp_sweep.cu` or raise, and copy nothing from the host (no host
   sync inside a call).
+- A stream axis (serving, `run_scan_to_map_batch`): targets (S, P, ...)
+  with per-stream live counts pack into S target sets, and the frames are
+  S runs of frames / S frames, run s sweeping set s, in the same one launch
+  (the JAX package vmaps its `pallas_call`, whose batching rule gives the
+  kernel a batch grid axis with one target set per stream). One stream is
+  the single-target sweep, with the same bits.
 - `vgicp_iteration` / `vgicp_iteration_batch` keep the JAX package's
   signatures and layouts: they prepare the operands for one call and sweep.
 - `vgicp_iteration_plain` is plain torch with the kernel's semantics on the
@@ -220,6 +226,10 @@ class VgicpOperands:
       live rows per tile; `count` (1,) int32 live rows of the caller's
       layout (tiles past it are skipped). All None, and tm 0, for
       sources-only operands (the frozen step).
+    - `streams` S > 1 (serving): S target sets of P rows each, stacked
+      (S * P, 4) / (S * P, 8), `tile_live` (S, P / tm), `count` (S,); the
+      frames are S runs of frames / S consecutive frames, run s sweeping
+      set s.
     - `dtype`: the caller's dtype of the results."""
 
     src: torch.Tensor
@@ -233,6 +243,12 @@ class VgicpOperands:
     tile_live: Optional[torch.Tensor] = None
     count: Optional[torch.Tensor] = None
     tm: int = 0
+    streams: int = 1
+
+    @property
+    def rows(self) -> int:
+        """P, the target rows of one stream."""
+        return self.tgt.shape[0] // self.streams
 
 
 def _check_devices(name, tensors):
@@ -273,30 +289,41 @@ def _pack_sources(src_xyz, src_mask, src_cov6, ts, frames):
 
 
 def _pack_targets(tgt_mean, tgt_cov6, tgt_mask, tgt_count, device):
-    """Targets (P,4) [mean3, penalty] and (P,8) [cov6, 0, 0] with each tile's
-    live rows first in row order (a stable sort on the device), the per-tile
-    live counts, the live count and the tile rows."""
-    P = tgt_mean.shape[0]
-    if tgt_cov6.shape != (P, 6) or tgt_mask.shape != (P,) or tgt_mean.shape != (P, 3):
+    """Targets ([S,] P, 3) / ([S,] P, 6) / ([S,] P) -> (S * P, 4) [mean3,
+    penalty] and (S * P, 8) [cov6, 0, 0] with each tile's live rows first in
+    row order (one stable sort on the device for all streams), the per-tile
+    live counts ([S,] P / tm), the live counts ((S,), (1,) for one set) and
+    the tile rows."""
+    streamed = tgt_mean.dim() == 3
+    if not streamed:
+        tgt_mean, tgt_cov6, tgt_mask = tgt_mean[None], tgt_cov6[None], tgt_mask[None]
+    S, P = tgt_mean.shape[:2]
+    if tgt_cov6.shape != (S, P, 6) or tgt_mask.shape != (S, P) or tgt_mean.shape != (S, P, 3):
         raise ValueError(f"targets: mean {tuple(tgt_mean.shape)}, cov "
                          f"{tuple(tgt_cov6.shape)}, mask {tuple(tgt_mask.shape)}")
     if P == 0:
         raise ValueError("empty target cloud")
     f32 = torch.float32
     tm = target_tile_rows(P)
+    nt = -(-P // tm)
     live = tgt_mask > 0.5
     tile = torch.arange(P, device=device) // tm
-    order = torch.argsort(2 * tile + (~live).to(tile.dtype), stable=True)
+    order = torch.argsort(2 * tile + (~live).to(tile.dtype), dim=-1, stable=True)
+    order = (order + torch.arange(S, device=device)[:, None] * P).reshape(-1)
     pen = torch.where(live, 0.0, _BIG).to(f32)
-    tgt = torch.cat([tgt_mean.to(f32), pen[:, None]], dim=-1)[order].contiguous()
-    cov = torch.cat([tgt_cov6.to(f32), tgt_cov6.new_zeros((P, 2), dtype=f32)], dim=-1)
-    tile_live = torch.zeros(-(-P // tm), dtype=torch.int32, device=device).index_add_(
-        0, tile, live.to(torch.int32))
+    tgt = torch.cat([tgt_mean.to(f32), pen[..., None]], dim=-1).reshape(S * P, 4)
+    cov = torch.cat([tgt_cov6.to(f32), tgt_cov6.new_zeros((S, P, 2), dtype=f32)],
+                    dim=-1).reshape(S * P, 8)
+    tile_live = torch.zeros(S * nt, dtype=torch.int32, device=device).index_add_(
+        0, (tile + torch.arange(S, device=device)[:, None] * nt).reshape(-1),
+        live.to(torch.int32).reshape(-1)).reshape(S, nt)
     if tgt_count is None:
-        count = torch.full((1,), P, dtype=torch.int32, device=device)
+        count = torch.full((S,), P, dtype=torch.int32, device=device)
     else:
-        count = torch.as_tensor(tgt_count, device=device).to(torch.int32).reshape(1)
-    return tgt, cov[order].contiguous(), tile_live, count, tm
+        count = torch.as_tensor(tgt_count, device=device).to(torch.int32).reshape(S)
+    if not streamed:
+        tile_live = tile_live[0]
+    return tgt[order].contiguous(), cov[order].contiguous(), tile_live, count, tm, S
 
 
 def vgicp_prepare(
@@ -319,16 +346,21 @@ def vgicp_prepare(
     size min(ts, N)). Targets (P,3) / (P,6) / (P,); leave them out for a
     frozen step's sources-only operands. `tgt_count`: live target rows when
     front-packed (tiles past it are skipped). `gate_axis` (2,) is checked
-    for shape only. All on the CPU or all on one CUDA device (float32
-    there); nothing is read on the host."""
+    for shape only. With a stream axis on the targets, (S,P,3) / (S,P,6) /
+    (S,P), `tgt_count` (S,) and `gate_axis` (S,2), the B frames are S runs
+    of B / S frames, run s against target set s (serving). All on the CPU
+    or all on one CUDA device (float32 there); nothing is read on the
+    host."""
     tgts = (tgt_mean, tgt_cov6, tgt_mask)
     if any(x is None for x in tgts) and not all(x is None for x in tgts):
         raise ValueError("give all of tgt_mean, tgt_cov6 and tgt_mask, or none")
     tensors = (src_xyz, src_mask, src_cov6) + tuple(x for x in tgts if x is not None) + tuple(
         x for x in (tgt_count, gate_axis) if torch.is_tensor(x))
     _check_devices("vgicp_prepare", tensors)
-    if gate_axis is not None and tuple(gate_axis.shape) != (2,):
-        raise ValueError(f"gate_axis has shape {tuple(gate_axis.shape)}, expected (2,)")
+    lead = tuple(tgt_mean.shape[:-2]) if tgt_mean is not None else ()
+    if gate_axis is not None and tuple(gate_axis.shape) != lead + (2,):
+        raise ValueError(f"gate_axis has shape {tuple(gate_axis.shape)}, expected "
+                         f"{lead + (2,)}")
     dtype = src_xyz.dtype
     if src_xyz.dim() == 3:
         B, N = src_xyz.shape[0], src_xyz.shape[1]
@@ -343,9 +375,12 @@ def vgicp_prepare(
                         n=src_xyz.shape[0], dtype=dtype)
     if tgt_mean is None:
         return ops
-    tgt, cov, tile_live, count, tm = _pack_targets(tgt_mean, tgt_cov6, tgt_mask, tgt_count,
-                                                   src.device)
-    return replace(ops, tgt=tgt, tgt_cov=cov, tile_live=tile_live, count=count, tm=tm)
+    tgt, cov, tile_live, count, tm, S = _pack_targets(tgt_mean, tgt_cov6, tgt_mask,
+                                                      tgt_count, src.device)
+    if frames % S:
+        raise ValueError(f"{frames} frames do not split over {S} streams")
+    return replace(ops, tgt=tgt, tgt_cov=cov, tile_live=tile_live, count=count, tm=tm,
+                   streams=S)
 
 
 def _frames_T(T, ops, groups):
@@ -567,7 +602,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
     if lib.vgicp_sweep_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.vgicp_sweep_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, f, p, p, p]
+        lib.vgicp_sweep_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p, p,
+                                           p]
         lib.vgicp_sweep_launch.restype = i
         lib.vgicp_sweep_sources_per_block.argtypes = []
         lib.vgicp_sweep_sources_per_block.restype = i
@@ -596,10 +632,13 @@ def _vgicp_sweep_cuda(Tk, ops, gate, eps, return_best, groups):
 def _launch_sweep(Tk, ops, gate, eps, out, best=None):
     """The sweep kernel's launches alone, on prepared operands: per-block
     float64 sums into out (frames, nblk, 30) and, if given, the payload
-    into best. Counts each launch."""
+    into best. One launch covers every stream's frames; a call of more than
+    _GRID_Y_MAX frames launches once per chunk, each chunk passing its first
+    frame so that the kernel finds each frame's stream. Counts each
+    launch."""
     global VGICP_SWEEP_LAUNCHES
     lib = _lib()
-    Nf, P = ops.per_frame, ops.tgt.shape[0]
+    Nf, P = ops.per_frame, ops.rows
     with torch.cuda.device(ops.src.device):
         stream = torch.cuda.current_stream().cuda_stream
         for b0 in range(0, ops.frames, _GRID_Y_MAX):
@@ -607,11 +646,11 @@ def _launch_sweep(Tk, ops, gate, eps, out, best=None):
             rc = lib.vgicp_sweep_launch(
                 _row_ptr(Tk, b0), _row_ptr(ops.src, b0 * Nf), ops.tgt.data_ptr(),
                 ops.tgt_cov.data_ptr(), ops.tile_live.data_ptr(), ops.count.data_ptr(), nb,
-                Nf, b0 * Nf, P, ops.tm, ops.ts, gate, eps, _row_ptr(out, b0),
-                best.data_ptr() if best is not None else None, stream)
+                Nf, b0 * Nf, b0, ops.frames // ops.streams, P, ops.tm, ops.ts, gate, eps,
+                _row_ptr(out, b0), best.data_ptr() if best is not None else None, stream)
             if rc != 0:
                 raise RuntimeError(f"vgicp_sweep kernel launch failed: CUDA error "
-                                   f"{rc} (B={nb}, N={Nf}, P={P})")
+                                   f"{rc} (B={nb}, N={Nf}, P={P}, S={ops.streams})")
             VGICP_SWEEP_LAUNCHES += 1
 
 
@@ -664,15 +703,26 @@ def vgicp_iteration_plain(
 
 
 def _sweep_plain(Tk, ops, gate, eps, return_best, groups, max_tile_elems=1 << 24):
-    P, tm = ops.tgt.shape[0], ops.tm
-    live_tiles = max(1, min(-(-P // tm), -(-int(ops.count.item()) // tm)))
-    payload = torch.cat([ops.tgt[:, :3], ops.tgt_cov[:, :6]], dim=-1)
+    S, P, tm = ops.streams, ops.rows, ops.tm
+    # live tiles per stream: tile 0 always, then every tile below the count
+    counts = ops.count.cpu().tolist()
+    live_tiles = torch.tensor([max(1, min(-(-P // tm), -(-c // tm))) for c in counts])
+    tgt = ops.tgt.reshape(S, P, 4)
+    payload = torch.cat([tgt[..., :3], ops.tgt_cov.reshape(S, P, 8)[..., :6]], dim=-1)
     src = ops.src.reshape(ops.frames, ops.per_frame, 10)
+    fps = ops.frames // S
     frames = max(1, max_tile_elems // (ops.per_frame * tm))
     accs, bests = [], []
     for f0 in range(0, ops.frames, frames):
-        acc, best = _plain_chunk(Tk[f0:f0 + frames], src[f0:f0 + frames], ops.tgt, payload,
-                                 tm, live_tiles, gate, eps)
+        sid = torch.arange(f0, min(ops.frames, f0 + frames)) // fps
+        # one target set: shared by the chunk's frames, as a single sweep
+        # reads it; several: each frame gathers its stream's set
+        if S == 1:
+            t, pay = tgt[0], payload[0]
+        else:
+            t, pay = tgt[sid.to(tgt.device)], payload[sid.to(tgt.device)]
+        acc, best = _plain_chunk(Tk[f0:f0 + frames], src[f0:f0 + frames], t, pay,
+                                 tm, live_tiles[sid].to(tgt.device), gate, eps)
         accs.append(acc)
         bests.append(best)
     best = None
@@ -683,28 +733,33 @@ def _sweep_plain(Tk, ops, gate, eps, return_best, groups, max_tile_elems=1 << 24
 
 def _plain_chunk(T, src, tgt, payload, tm, live_tiles, gate, eps):
     """(b,4,4), (b,Nf,10) sources against targets (P,4) [mean3, penalty]
-    with payloads (P,9) [mean3, cov6] -> ((b,30) float64 sums, (b,Nf,10)
-    best rows [d2, mean3, cov6])."""
+    with payloads (P,9) [mean3, cov6], shared by the b frames, or per frame
+    (b,P,4) / (b,P,9); a frame sweeps its first live_tiles[frame] tiles ->
+    ((b,30) float64 sums, (b,Nf,10) best rows [d2, mean3, cov6])."""
     R = [[T[:, r, c, None] for c in range(3)] for r in range(3)]
     s = [src[..., k] for k in range(10)]
     # p = R s + t, summed left to right: (b, Nf) per coordinate
     p = [R[r][0] * s[0] + R[r][1] * s[1] + R[r][2] * s[2] + T[:, r, 3, None]
          for r in range(3)]
+    per_frame = tgt.dim() == 3
     best_d2 = torch.full_like(p[0], _BIG)
     best_pay = torch.zeros(p[0].shape + (9,), dtype=p[0].dtype, device=p[0].device)
-    for j in range(live_tiles):
-        t = tgt[j * tm:(j + 1) * tm]                          # (rows, 4)
-        d2 = t[:, 3]
+    for j in range(int(live_tiles.max())):
+        rows = slice(j * tm, (j + 1) * tm)
+        t = tgt[:, None, rows] if per_frame else tgt[rows]    # ((b, 1,) rows, 4)
+        d2 = t[..., 3]
         for k in range(3):
-            diff = t[:, k] - p[k][..., None]                  # (b, Nf, rows)
+            diff = t[..., k] - p[k][..., None]                # (b, Nf, rows)
             d2 = d2 + diff * diff
         dmin = torch.amin(d2, dim=-1)
         onehot = (d2 <= dmin[..., None]).to(d2.dtype)
         del d2
-        pay = ((onehot @ payload[j * tm:(j + 1) * tm])
+        pay = ((onehot @ payload[:, rows] if per_frame else onehot @ payload[rows])
                / torch.clamp(onehot.sum(dim=-1), min=1.0)[..., None])
         del onehot
-        better = dmin < best_d2
+        # strictly smaller across tiles; frames whose stream has fewer live
+        # tiles skip this one
+        better = (dmin < best_d2) & (j < live_tiles)[:, None]
         best_d2 = torch.where(better, dmin, best_d2)
         best_pay = torch.where(better[..., None], pay, best_pay)
     terms = _gn_accumulators(R, p, s[3], s[4:10], list(best_pay.unbind(-1)),

@@ -11,4 +11,5 @@ from icp4dradar_tpu_torch.registration.gicp import (  # noqa: F401
 from icp4dradar_tpu_torch.registration.vgicp import (  # noqa: F401
     vgicp_align,
     vgicp_align_block,
+    vgicp_align_streams,
 )

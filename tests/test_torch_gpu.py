@@ -1,6 +1,7 @@
-"""Card tests of the port's CUDA kernels (ICP moments, VGICP sweep and its
-frozen-payload step, the 1-NN search on prepared targets and its coordinate
-form) against their plain PyTorch versions.
+"""Card tests of the port's CUDA kernels (ICP moments, VGICP sweep with its
+stream axis and its frozen-payload step, the 1-NN search on prepared
+targets and its coordinate form) against their plain PyTorch versions, and
+of the batched voxel map on the card against the CPU.
 Marked `gpu`: they skip where torch.cuda.is_available() is False. This
 file imports neither jax nor the JAX package, so on a machine with a card
 and no jax it runs without the suite's conftest:
@@ -281,6 +282,91 @@ def test_vgicp_kernel_rejects_what_it_does_not_take(cuda):
         vgicp_iteration(T[0], src[0].double(), sm[0], scov[0], tgt, tcov, tmask)
     with pytest.raises(ValueError):
         vgicp_iteration(T[0], src[0], sm[0].cpu(), scov[0], tgt, tcov, tmask)
+
+
+def _streams_case(rng, S, F, N, P, counts, device):
+    """S streams of F frames of N sources, each stream against its own
+    P-row submap whose first counts[s] rows are live."""
+    xi = rng.normal(0.0, [0.3, 0.3, 0.05, 0.01, 0.01, 0.05], (S * F, 6)).astype(np.float32)
+    T = se3_exp(torch.from_numpy(xi)).contiguous()
+    src = torch.from_numpy(rng.uniform(-20, 20, (S * F, N, 3)).astype(np.float32))
+    sm = torch.from_numpy((rng.uniform(size=(S * F, N)) > 0.1).astype(np.float32))
+    scov = radar_point_covariances_packed(src)
+    tgt = torch.from_numpy(rng.uniform(-20, 20, (S, P, 3)).astype(np.float32))
+    tcov = np.zeros((S, P, 6), np.float32)
+    tcov[..., :3] = np.abs(rng.normal(0.05, 0.02, (S, P, 3))) + 0.01
+    tcov[..., 3:] = rng.normal(0.0, 0.003, (S, P, 3))
+    cnt = torch.tensor(counts, dtype=torch.int32)
+    tmask = (torch.arange(P)[None] < cnt[:, None]).float()
+    return [x.to(device) for x in (T, src, sm, scov, tgt, torch.from_numpy(tcov), tmask, cnt)]
+
+
+@pytest.mark.parametrize("S,F,N,P,counts", [
+    (4, 8, 2048, 16384, (801, 0, 542, 16384)),    # serving: 4 x 8 frames, an empty stream
+    (3, 1, 512, 2100, (1100, 2100, 7)),           # the per-frame batch: one frame a stream
+    (2, 40000, 8, 16, (16, 9))])                  # two launches: grid.y holds 65,535 frames
+def test_vgicp_kernel_stream_axis(cuda, S, F, N, P, counts):
+    """K4 with a stream axis: frame b sweeps the submap of stream b // F. One
+    launch per 65,535 frames (the second chunk starts inside stream 1), no
+    host sync; equal to S single-target calls bit for bit, and to the plain
+    version within the tolerance of the single-target tests."""
+    from icp4dradar_tpu_torch.ops.vgicp_fused import vgicp_prepare, vgicp_sweep
+
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _streams_case(
+        np.random.default_rng(S + F), S, F, N, P, counts, cuda)
+    ts = min(2048, N)
+    ops = vgicp_prepare(src, sm, scov, tgt, tcov, tmask, ts=ts, tgt_count=cnt)
+    before = vgicp_fused.VGICP_SWEEP_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k = vgicp_sweep(T, ops, return_best=True, _acc_groups=S * F)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert vgicp_fused.VGICP_SWEEP_LAUNCHES == before + -(-(S * F) // 65535)
+    nb = F * N // ts
+    for s in range(S):
+        fs = slice(s * F, (s + 1) * F)
+        one = vgicp_iteration_batch(T[fs], src[fs], sm[fs], scov[fs], tgt[s], tcov[s],
+                                    tmask[s], ts=ts, tgt_count=cnt[s], return_best=True)
+        for a, b in zip(k[:5], one[:5]):
+            assert torch.equal(a[fs], b.reshape(a[fs].shape))   # one frame: no (1,) axis
+        assert torch.equal(k[5][s * nb:(s + 1) * nb], one[5])
+        if counts[s] == 0:
+            assert float(k[3][fs].abs().sum()) == 0.0
+    if F * S <= 64:
+        p = vgicp_iteration_plain(T, src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6),
+                                  tgt, tcov, tmask, tgt_count=cnt, ts=ts, return_best=True,
+                                  _acc_groups=S * F)
+        _assert_vgicp_close(k, p)
+
+
+def test_batched_map_cuda_matches_cpu(cuda):
+    """A batched map's insert (with and without the leader budget), forget
+    and rehash on the card give the CPU's tables, bit for bit."""
+    from icp4dradar_tpu_torch.mapping import (
+        voxel_map_create, voxel_map_forget_far, voxel_map_insert, voxel_map_maybe_rehash,
+        voxel_map_rehash,
+    )
+
+    rng = np.random.default_rng(4)
+    S, n = 3, 2048
+    maps = {d: voxel_map_create(1 << 14, streams=S, device=d) for d in ("cpu", cuda)}
+    for rnd in range(4):
+        pts = rng.uniform(-30, 30, (S, n, 3)).astype(np.float32) + [2.0 * rnd, 0.0, 0.0]
+        mask = (rng.uniform(size=(S, n)) > 0.1).astype(np.float32)
+        inten = rng.uniform(0, 30, (S, n)).astype(np.float32)
+        lb = 1500 if rnd % 2 else None
+        maps = {d: voxel_map_insert(m, *(torch.from_numpy(x).to(d) for x in (pts, mask, inten)),
+                                    leader_budget=lb) for d, m in maps.items()}
+    center = torch.tensor([[20.0, 0.0, 0.0], [-25.0, 5.0, 0.0], [0.0, 0.0, 0.0]])
+    forgot = {d: voxel_map_forget_far(m, center.to(d), 15.0) for d, m in maps.items()}
+    for stage in (maps, forgot,
+                  {d: voxel_map_rehash(m) for d, m in forgot.items()},
+                  {d: voxel_map_maybe_rehash(m, 0.05) for d, m in forgot.items()}):
+        for a, b in zip(stage["cpu"].tables(), stage[cuda].tables()):
+            assert torch.equal(a, b.cpu())
+    assert bool((forgot["cpu"].num_voxels < maps["cpu"].num_voxels).all())
 
 
 # ---- the masked 1-NN search (csrc/nn_search.cu, K2 and K3) against its

@@ -112,3 +112,42 @@ def test_draws_come_from_a_seeded_generator():
                           device="cpu")
     with pytest.raises(ValueError):
         pr.estimate_ego_velocity(ps, a[:, :10], cfg)
+
+
+@pytest.mark.parametrize("seed", [0, 42, 123456789])
+def test_threefry_draws_are_jax_random_bit_for_bit(seed):
+    """`utils.threefry` reproduces `jax.random.key`, `split` and `uniform`
+    (float32) in numpy, so a run on a card without jax can take the JAX
+    package's REVE draws."""
+    from icp4dradar_tpu_torch.utils import threefry as tf
+
+    k = jax.random.key(seed)
+    np.testing.assert_array_equal(tf.key(seed), np.asarray(jax.random.key_data(k)))
+    ks = jax.random.split(k, 7)
+    np.testing.assert_array_equal(tf.split(tf.key(seed), 7), np.asarray(jax.random.key_data(ks)))
+    for i in (0, 6):
+        for n in (1, 456, 1001):
+            np.testing.assert_array_equal(tf.uniform(tf.split(tf.key(seed), 7)[i], n),
+                                          np.asarray(jax.random.uniform(ks[i], (n,))))
+
+
+@pytest.mark.parametrize("block,frames", [(8, 24), (0, 6)])
+def test_batch_uniforms_are_the_jax_batch_draws(block, frames):
+    """`reve_batch_uniforms` gives each stream the draws of JAX's
+    run_scan_to_map_batch: stream b's key split(key(seed), B)[b], split
+    into warm-up and block keys by the blocked runner, or one key a frame
+    by the per-frame one."""
+    from icp4dradar_tpu_torch.utils import reve_batch_uniforms
+
+    cfg, B = JaxReveConfig(), 3
+    H = pr.reve_hypotheses(cfg)
+    want = []
+    for key in jax.random.split(jax.random.key(7), B):
+        if block:
+            kwarm, kblocks = jax.random.split(key)
+            keys = list(jax.random.split(kwarm, block)) + list(
+                jax.random.split(kblocks, frames - block))
+        else:
+            keys = list(jax.random.split(key, frames))
+        want.append([np.asarray(jax.random.uniform(k, (3 * H,))) for k in keys])
+    np.testing.assert_array_equal(reve_batch_uniforms(7, B, frames, block, H), np.asarray(want))

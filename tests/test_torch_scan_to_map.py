@@ -5,7 +5,9 @@ with JAX's own REVE draws injected; the blocked runner's sequential
 fallback on a block of structureless scans; the kNN-GICP tracker
 (`gicp.use_vgicp=False`, with and without the exact map k-NN), inner GN
 steps, and both knobs in the blocked runner; the CLI's default scene
-against the JAX package; the CLI's scan_to_map mode.
+against the JAX package; the CLI's scan_to_map mode; the options that are
+not ported raising (B-stream serving and forgetting are in
+tests/test_torch_batch.py and tests/test_torch_forget.py).
 
 Tolerance. REVE, the map and the sector query agree exactly on the same
 inputs (tests/test_torch_voxel_map.py, tests/test_torch_reve.py), but the
@@ -169,7 +171,7 @@ def test_sequential_blocks_and_no_fallback_run():
 
 
 @pytest.mark.parametrize("override,kw", [
-    ({"voxel_map.forget_radius": 100.0}, {}),
+    ({"gicp.use_vgicp": False}, {}),                   # kNN GICP inside a batch
     ({}, {"rigid_union": True}),
     ({}, {"gt_poses": torch.eye(4).expand(4, 4, 4)}),
 ])
@@ -177,11 +179,13 @@ def test_unported_options_raise(override, kw):
     cfg = config_from_dict(_cfg().override(**override).to_dict()) if override else \
         config_from_dict(_cfg().to_dict())
     _, _, ps = _sequence()
+    if override:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+            pm.run_scan_to_map_batch(ps[None, :4], cfg, block=2)
+        return
     runner = pm.run_scan_to_map if "gt_poses" in kw else pm.run_scan_to_map_blocked
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner(ps[:4], cfg, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.run_scan_to_map_batch(ps[None, :4], cfg)
 
 
 def _per_frame_pair(override, n=10):

@@ -519,3 +519,125 @@ def test_vgicp_align_block_ignores_inner_steps():
                                     cfg=GicpConfig(max_iterations=15, inner_gn_steps=1))
     torch.testing.assert_close(r1.transform, r0.transform, rtol=0, atol=0)
     assert torch.equal(r1.iterations, r0.iterations) and torch.equal(w1, w0)
+
+
+def _streams(seed, S, F, N, P, counts):
+    """S streams of F frames against S submaps of P rows, counts[s] live."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-20, 20, (S * F, N, 3)).astype(np.float32)
+    sm = (rng.uniform(size=(S * F, N)) > 0.1).astype(np.float32)
+    scov = np.asarray(jv.radar_point_covariances_packed(
+        jnp.asarray(src.reshape(-1, 3)))).reshape(S * F, N, 6)
+    tgt = rng.uniform(-20, 20, (S, P, 3)).astype(np.float32)
+    tcov = np.stack([_covs(rng, P) for _ in range(S)])
+    tmask = (np.arange(P)[None] < np.asarray(counts)[:, None]).astype(np.float32)
+    T = np.stack([_pose([0.1 * b, -0.2, 0.05, 0.02, 0.01 * b, 0.1]) for b in range(S * F)])
+    return T, src, sm, scov, tgt, tcov, tmask, np.asarray(counts, np.int32)
+
+
+def test_stream_axis_plain_matches_single_targets_and_pallas():
+    """The sweep with a stream axis (frames b of stream b // F against
+    submap b // F, one of them empty): equal to S single-target calls bit
+    for bit, in one chunk of frames and in chunks that straddle streams;
+    each stream within the sums' tolerance of the Pallas kernel run in
+    interpret mode on that stream (`_assert_sums`: the JAX sums run in f32),
+    payloads equal."""
+    S, F, N, P, ts = 3, 2, 256, 1500, 128
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _streams(21, S, F, N, P, (1400, 0, 700))
+    t = [torch.tensor(x) for x in (T, src, sm, scov, tgt, tcov, tmask, cnt)]
+    ops = pv.vgicp_prepare(*t[1:7], ts=ts, tgt_count=t[7])
+    assert ops.streams == S and ops.tile_live.shape == (S, 2) and ops.count.tolist() == [1400, 0, 700]
+    got = pv.vgicp_sweep(t[0], ops, max_correspondence_dist=3.0, return_best=True,
+                         _acc_groups=S * F)
+    chunked = pv._sweep_plain(t[0].contiguous(), ops, pv.sweep_gate(3.0),
+                              float(np.float32(1e-3)), True, S * F, max_tile_elems=N * 1024)
+    nb = F * N // ts
+    for s in range(S):
+        fs = slice(s * F, (s + 1) * F)
+        one = pv.vgicp_iteration_batch(t[0][fs], t[1][fs], t[2][fs], t[3][fs], t[4][s], t[5][s],
+                                       t[6][s], ts=ts, tgt_count=t[7][s],
+                                       max_correspondence_dist=3.0, return_best=True)
+        jo = jv.vgicp_iteration_batch(*map(jnp.asarray, (T[fs], src[fs], sm[fs], scov[fs],
+                                                         tgt[s], tcov[s], tmask[s])),
+                                      tgt_count=jnp.int32(cnt[s]), ts=ts, interpret=True,
+                                      max_correspondence_dist=3.0, return_best=True)
+        for name, a, c, b in zip(NAMES, got, chunked, one):
+            assert torch.equal(a[fs], b) and torch.equal(c[fs], b), name
+        _assert_sums(jo, [x[fs] for x in got[:5]])
+        assert torch.equal(got[5][s * nb:(s + 1) * nb], one[5])
+        np.testing.assert_array_equal(got[5][s * nb:(s + 1) * nb].numpy()[:, 1:],
+                                      np.asarray(jo[5])[:, 1:])
+    assert float(got[3][F:2 * F].abs().sum()) == 0.0          # the empty stream
+    with pytest.raises(ValueError):                            # 6 frames over 4 streams
+        pv.vgicp_prepare(t[1], t[2], t[3], torch.cat([t[4], t[4][:1]]),
+                         torch.cat([t[5], t[5][:1]]), torch.cat([t[6], t[6][:1]]))
+
+
+def test_vgicp_align_streams_matches_single_calls_and_jax():
+    """S one-frame streams, each against its own submap and centred on its
+    own prediction, in one GN loop with per-stream active masks: each
+    stream within 1e-5 m of `vgicp_align` on it alone with the same
+    iteration count (batched and single small products round apart), the
+    same with one inner step a sweep, and within the JAX aligner's
+    tolerance of the JAX package's."""
+    S = 3
+    world, tcov, scans, poses = _scene(5, B=S)
+    init = poses @ np.stack([_pose([0.3 * s - 0.3, 0.15, 0.0, 0.0, 0.0, 0.01 * s])
+                             for s in range(S)])
+    shift = np.asarray([[0.0, 0.0, 0.0], [30.0, -5.0, 0.0], [-12.0, 40.0, 0.0]], np.float32)
+    tgt = np.stack([world + shift[s] for s in range(S)])
+    init[:, :3, 3] += shift
+    sm = np.ones(scans.shape[:2], np.float32)
+    tmask = np.ones((S, world.shape[0]), np.float32)
+    tmask[1, 300:] = 0.0
+    cnt = torch.tensor([world.shape[0], 300, world.shape[0]], dtype=torch.int32)
+    scov = pv.radar_point_covariances_packed(torch.tensor(scans))
+    t = [torch.tensor(x) for x in (scans, tgt, np.stack([tcov] * S), sm, tmask)]
+    for inner in (0, 1):
+        cfg = GicpConfig(max_iterations=15, inner_gn_steps=inner)
+        r = preg.vgicp_align_streams(*t, scov, torch.tensor(init), cfg, tgt_count=cnt)
+        assert r.transform.shape == (S, 4, 4) and r.iterations.shape == (S,)
+        for s in range(S):
+            o = preg.vgicp_align(t[0][s], t[1][s], t[2][s], t[3][s], t[4][s], src_cov6=scov[s],
+                                 init_transform=torch.tensor(init[s]), cfg=cfg,
+                                 tgt_count=cnt[s])
+            np.testing.assert_allclose(r.transform[s].numpy(), o.transform.numpy(), atol=1e-5)
+            assert int(r.iterations[s]) == int(o.iterations)
+            assert bool(r.converged[s]) == bool(o.converged)
+            np.testing.assert_allclose(float(r.fitness[s]), float(o.fitness), rtol=1e-4)
+            if inner == 0:
+                jr = jreg.vgicp_align(*(jnp.asarray(x[s]) for x in (scans, tgt,
+                                                                     np.stack([tcov] * S),
+                                                                     sm, tmask)),
+                                      init_transform=jnp.asarray(init[s]), cfg=cfg)
+                _assert_pose(r.transform[s], jr.transform)
+        assert (r.iterations % (1 + inner) == 0).all()
+
+
+def test_vgicp_align_block_stream_axis_matches_per_stream_calls():
+    """The block aligner with a stream axis (S x B frames, stream s centred
+    at its first prediction, held once none of its frames is active) gives
+    each stream what the block aligner gives it alone, bit for bit."""
+    S, B = 2, 3
+    world, tcov, scans, poses = _scene(6, B=S * B)
+    N = scans.shape[1]
+    rng = np.random.default_rng(9)
+    shift = np.asarray([[0.0, 0.0, 0.0], [-20.0, 15.0, 0.5]], np.float32)
+    tgt = np.stack([world + shift[s] for s in range(S)])
+    init = poses.copy().reshape(S, B, 4, 4)
+    init[:, :, :3, 3] += shift[:, None] + rng.normal(0, 0.1, (S, B, 3)).astype(np.float32)
+    sm = (rng.uniform(size=(S, B, N)) > 0.05).astype(np.float32)
+    src = scans.reshape(S, B, N, 3)
+    scov = pv.radar_point_covariances_packed(torch.tensor(src))
+    tmask = np.ones((S, world.shape[0]), np.float32)
+    tmask[1, ::3] = 0.0
+    cfg = GicpConfig(max_iterations=15)
+    t = [torch.tensor(x) for x in (src, tgt, np.stack([tcov] * S), sm, tmask)]
+    r, w = preg.vgicp_align_block(*t, scov, torch.tensor(init), cfg=cfg)
+    assert r.transform.shape == (S, B, 4, 4) and w.shape == (S, B)
+    for s in range(S):
+        o, ow = preg.vgicp_align_block(t[0][s], t[1][s], t[2][s], t[3][s], t[4][s], scov[s],
+                                       torch.tensor(init[s]), cfg=cfg)
+        for a, b in zip((r.transform[s], r.iterations[s], r.fitness[s], r.converged[s], w[s]),
+                        (o.transform, o.iterations, o.fitness, o.converged, ow)):
+            assert torch.equal(a, b)

@@ -230,3 +230,130 @@ def test_voxel_map_knn_exact_matches_jax(k, max_dist, chunk):
     np.testing.assert_allclose(got[0].numpy(), d2, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError):
         pvh.voxel_map_knn_exact(pmap, torch.tensor(q), k, max_dist=np.inf)
+
+
+def test_mask_compact_stream_axis_matches_single_calls():
+    """values (S, N, ...) and mask (S, N): each stream's compaction equals
+    the single call on it, with per-stream counts."""
+    rng = np.random.default_rng(3)
+    vals = torch.tensor(rng.normal(size=(3, 200, 4)).astype(np.float32))
+    mask = torch.tensor((rng.uniform(size=(3, 200)) > np.array([[0.6], [1.0], [0.1]]))
+                        .astype(np.float32))
+    for out_size in (5, 150):
+        got = mask_compact(vals, mask, out_size)
+        assert got[0].shape == (3, out_size, 4) and got[2].shape == (3,)
+        for s in range(3):
+            for g, w in zip(got, mask_compact(vals[s], mask[s], out_size)):
+                assert torch.equal(g[s], w)
+
+
+def _forgetful_map(seed=13):
+    """A JAX map of three overlapping batches and its port copy."""
+    rng = np.random.default_rng(seed)
+    jmap = jvh.voxel_map_create(capacity=1 << 12, voxel_size=0.5)
+    for k in range(3):
+        pts, mask, inten = _batch(rng, B, 12.0, center=(4.0 * k, 0.0, 0.0))
+        jmap = _jinsert(jmap, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(inten))
+    return jmap, _to_port(jmap)
+
+
+def test_forget_and_rehash_match_jax():
+    """Forgetting tombstones the far voxels (keys kept), the rehash rebuilds
+    the table from the live ones, and maybe_rehash does so only above its
+    tombstone fraction: the same tables as the JAX package's, every field
+    exact."""
+    jmap, pmap = _forgetful_map()
+    center = np.asarray([10.0, 2.0, 0.0], np.float32)
+    jf = jvh.voxel_map_forget_far(jmap, jnp.asarray(center), 9.0)
+    pf = pvh.voxel_map_forget_far(pmap, torch.tensor(center), 9.0)
+    tombs = int(((pf.keys[:, 0] != pvh._EMPTY) & (pf.occupied <= 0.5)).sum())
+    assert 0 < int(pf.num_voxels) < int(pmap.num_voxels) and tombs > 0.1 * pf.capacity
+    steps = [(jf, pf), (jvh.voxel_map_rehash(jf), pvh.voxel_map_rehash(pf)),
+             (jvh.voxel_map_maybe_rehash(jf, 0.1), pvh.voxel_map_maybe_rehash(pf, 0.1)),
+             (jvh.voxel_map_maybe_rehash(jf, 0.9), pvh.voxel_map_maybe_rehash(pf, 0.9))]
+    for jm, pm in steps:
+        got = voxel_map_to_numpy(pm)
+        for k in VOXEL_MAP_FIELDS:
+            np.testing.assert_array_equal(got[k], np.asarray(getattr(jm, k)), err_msg=k)
+    rehashed = steps[1][1]
+    assert float(rehashed.num_voxels) == float(pf.num_voxels)
+    assert int((rehashed.keys[:, 0] != pvh._EMPTY).sum()) == int(pf.num_voxels)
+    assert steps[3][1] is pf                      # below the fraction: untouched
+
+
+def test_batched_map_ops_match_single_tables():
+    """A map of S tables: insert (with and without a binding leader
+    budget), both sector queries, forget, rehash and maybe_rehash each give
+    stream s what the single-table call gives table s, bit for bit; maybe
+    rehash rebuilds only the streams above the fraction."""
+    rng = np.random.default_rng(14)
+    S, C = 3, 1 << 11
+    single = [pvh.voxel_map_create(C, device="cpu") for _ in range(S)]
+    batched = pvh.voxel_map_create(C, device="cpu", streams=S)
+    assert batched.streams == S and batched.capacity == C and single[0].streams is None
+
+    def same():
+        for s in range(S):
+            for a, b in zip(batched.stream(s).tables(), single[s].tables()):
+                assert torch.equal(a, b)
+
+    for rnd, budget in enumerate((None, 64, None)):
+        parts = [_batch(rng, B, 6.0 + 3 * s, center=(2.0 * rnd, 0.0, 0.0), dup=20)
+                 for s in range(S)]
+        single = [pvh.voxel_map_insert(m, *(torch.tensor(x) for x in p), leader_budget=budget)
+                  for m, p in zip(single, parts)]
+        batched = pvh.voxel_map_insert(batched, *(torch.tensor(np.stack(x)) for x in zip(*parts)),
+                                       leader_budget=budget)
+        same()
+    center = torch.tensor([[2.0, 0.0, 0.0], [-4.0, 3.0, 0.0], [30.0, 0.0, 0.0]])
+    heading = torch.tensor([20.0, 170.0, -90.0])
+    got = pvh.voxel_map_sector_search_with_stats(batched, center, 9.0, heading, 60.0, 300)
+    plain = pvh.voxel_map_sector_search(batched, center, 9.0, heading, 60.0, 300)
+    for s in range(S):
+        want = pvh.voxel_map_sector_search_with_stats(single[s], center[s], 9.0, heading[s],
+                                                      60.0, 300)
+        for g, w in zip(got, want):
+            assert torch.equal(g[s], w)
+        for g, w in zip(plain, pvh.voxel_map_sector_search(single[s], center[s], 9.0,
+                                                           heading[s], 60.0, 300)):
+            assert torch.equal(g[s], w)
+    assert int(got[2][2]) == 0                    # a sector off the map
+    batched = pvh.voxel_map_forget_far(batched, center, 5.0)
+    single = [pvh.voxel_map_forget_far(m, center[s], 5.0) for s, m in enumerate(single)]
+    same()
+    tombs = [int(((m.keys[:, 0] != pvh._EMPTY) & (m.occupied <= 0.5)).sum()) for m in single]
+    frac = (sorted(tombs)[0] + sorted(tombs)[1]) / 2 / C        # between two streams
+    rehashed = pvh.voxel_map_maybe_rehash(batched, frac)
+    for s in range(S):
+        want = pvh.voxel_map_maybe_rehash(single[s], frac)
+        assert (want is single[s]) == (tombs[s] <= frac * C)
+        for a, b in zip(rehashed.stream(s).tables(), want.tables()):
+            assert torch.equal(a, b)
+    batched, single = pvh.voxel_map_rehash(batched), [pvh.voxel_map_rehash(m) for m in single]
+    same()
+
+
+def test_batched_map_matches_vmapped_jax():
+    """The batched map against the JAX package's vmapped map, (S, C, ...)
+    leaves through interop: inserts, then forget + maybe_rehash, as the
+    JAX batch runner's block step calls them under vmap."""
+    rng = np.random.default_rng(15)
+    S, C = 2, 1 << 10
+    jins = jax.jit(jax.vmap(jvh.voxel_map_insert))
+    jmap = jax.vmap(lambda _: jvh.voxel_map_create(capacity=C))(jnp.arange(S))
+    pmap = _to_port(jmap)
+    assert pmap.streams == S and pmap.keys.shape == (S, C, 3)
+    for rnd in range(2):
+        parts = [_batch(rng, B, 5.0, center=(3.0 * rnd + s, 0.0, 0.0), dup=10) for s in range(S)]
+        arrays = [np.stack(x) for x in zip(*parts)]
+        jmap = jins(jmap, *map(jnp.asarray, arrays))
+        pmap = pvh.voxel_map_insert(pmap, *(torch.tensor(x) for x in arrays))
+    _assert_same_map(pmap, jmap)
+    center = np.asarray([[3.0, 0.0, 0.0], [-2.0, 1.0, 0.0]], np.float32)
+    jmap = jax.vmap(lambda m, c: jvh.voxel_map_maybe_rehash(
+        jvh.voxel_map_forget_far(m, c, 4.0), 0.05))(jmap, jnp.asarray(center))
+    pmap = pvh.voxel_map_maybe_rehash(pvh.voxel_map_forget_far(pmap, torch.tensor(center), 4.0),
+                                      0.05)
+    _assert_same_map(pmap, jmap)
+    # the JAX map's num_voxels sums over every axis of a vmapped map
+    assert float(pmap.num_voxels.sum()) == float(jmap.num_voxels)
