@@ -4,8 +4,10 @@ velocity, src/iterative_closest_point.cpp:412-429), the 6x6 SPD solve of
 one Gauss-Newton step (closed form for VGICP, Cholesky for kNN GICP), the
 3x3 symmetric eigenvalues behind REVE's `max_r_cond` gate
 (src/radar_odometry.cpp:598) and the extreme eigenvectors behind GICP's
-plane-regularised covariances; and the float32 fused multiply-add and
-square root, each rounded once, on any device."""
+plane-regularised covariances; the float32 fused multiply-add and square
+root, each rounded once, on any device; and small products and a sum whose
+rounding does not depend on the batch (`small_matmul`, `small_matvec`,
+`pairwise_sum`)."""
 
 from __future__ import annotations
 
@@ -38,6 +40,42 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def small_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for small factors ((..., m, k) @ (..., k, n), k of a few),
+    rounding alike at every batch size, so that a stream's numbers do not
+    depend on the streams computed beside it. On the card the products are
+    summed over k along the innermost axis (cuBLAS picks its kernel, and with
+    it the rounding, by the batch count); on the CPU it is the product
+    itself (its small-matrix kernel rounds each matrix alone)."""
+    if A.device.type != "cuda":
+        return A @ B
+    return torch.sum(A[..., :, None, :] * B.transpose(-1, -2)[..., None, :, :], dim=-1)
+
+
+def small_matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(..., m, k) A times (..., k) x, with `small_matmul`'s property."""
+    if A.device.type != "cuda":
+        return torch.einsum("...ij,...j->...i", A, x)
+    return torch.sum(A * x[..., None, :], dim=-1)
+
+
+def pairwise_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over `dim` by halving (zero-padded to a power of two): elementwise
+    adds in an order fixed by the length of `dim` alone, so that a row's sum
+    rounds alike whatever the other dimensions hold (one frame or a batch of
+    them) and on every device, as a library reduction or matrix product
+    need not."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = torch.nn.functional.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form adjugate inverse of (..., 3, 3); singular -> zeros."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
@@ -65,7 +103,7 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
 
 def solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Closed-form solve of (..., 3, 3) @ x = (..., 3) via the adjugate."""
-    return torch.einsum("...ij,...j->...i", inv3x3(A), b)
+    return small_matvec(inv3x3(A), b)
 
 
 def solve_spd6(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -75,12 +113,10 @@ def solve_spd6(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     A, B, C = H[..., :3, :3], H[..., :3, 3:], H[..., 3:, 3:]
     b1, b2 = b[..., :3], b[..., 3:]
     Ainv = inv3x3(A)
-    BtAinv = B.transpose(-1, -2) @ Ainv
-    S = C - BtAinv @ B
-    x2 = torch.einsum("...ij,...j->...i", inv3x3(S),
-                      b2 - torch.einsum("...ij,...j->...i", BtAinv, b1))
-    x1 = torch.einsum("...ij,...j->...i", Ainv,
-                      b1 - torch.einsum("...ij,...j->...i", B, x2))
+    BtAinv = small_matmul(B.transpose(-1, -2), Ainv)
+    S = C - small_matmul(BtAinv, B)
+    x2 = small_matvec(inv3x3(S), b2 - small_matvec(BtAinv, b1))
+    x1 = small_matvec(Ainv, b1 - small_matvec(B, x2))
     return torch.cat([x1, x2], dim=-1)
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from icp4dradar_tpu_torch.geom.linalg import small_matmul
 from icp4dradar_tpu_torch.geom.so3 import _eye3_like, so3_exp, so3_hat, so3_log
 
 
@@ -30,12 +31,12 @@ def se3_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = T[..., :3, :3].transpose(-1, -2)
-    return se3_from_rt(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+    return se3_from_rt(Rt, -small_matmul(Rt, T[..., :3, 3:4])[..., 0])
 
 
 def se3_apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (...,4,4) to points (...,N,3)."""
-    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+    return small_matmul(pts, T[..., :3, :3].transpose(-1, -2)) + T[..., None, :3, 3]
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
@@ -54,8 +55,8 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
                     (theta - torch.sin(theta))
                     / torch.where(small, 1.0, theta2 * theta))
-    V = _eye3_like(K) + b[..., None] * K + c[..., None] * (K @ K)
-    return se3_from_rt(R, (V @ v[..., None])[..., 0])
+    V = _eye3_like(K) + b[..., None] * K + c[..., None] * small_matmul(K, K)
+    return se3_from_rt(R, small_matmul(V, v[..., None])[..., 0])
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
@@ -76,6 +77,6 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
         1.0 / 12.0 + theta2 / 720.0,
         (1.0 - half * cot_half) / torch.where(small, 1.0, theta2),
     )
-    Vinv = _eye3_like(K) - 0.5 * K + cot_term[..., None] * (K @ K)
-    v = (Vinv @ t[..., None])[..., 0]
+    Vinv = _eye3_like(K) - 0.5 * K + cot_term[..., None] * small_matmul(K, K)
+    v = small_matmul(Vinv, t[..., None])[..., 0]
     return torch.cat([v, w], dim=-1)

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from icp4dradar_tpu_torch.geom.linalg import fma_f32, sqrt_f32
+from icp4dradar_tpu_torch.geom.linalg import fma_f32, small_matmul, sqrt_f32
 
 _EPS = 1e-8
 
@@ -107,7 +107,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     b = torch.where(small, 0.5 - theta2 / 24.0,
                     (1.0 - torch.cos(theta)) / torch.where(small, 1.0, theta2))
     K = so3_hat(w)
-    return _eye3_like(K) + a[..., None] * K + b[..., None] * (K @ K)
+    return _eye3_like(K) + a[..., None] * K + b[..., None] * small_matmul(K, K)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -171,7 +171,7 @@ def so3_project(R: torch.Tensor, iters: int = 2) -> torch.Tensor:
     frames in the JAX package."""
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
     for _ in range(iters):
-        R = R @ (1.5 * eye - 0.5 * (R.transpose(-1, -2) @ R))
+        R = small_matmul(R, 1.5 * eye - 0.5 * small_matmul(R.transpose(-1, -2), R))
     return R
 
 

@@ -21,7 +21,9 @@ beyond it and, once tombstones pile up, a rehash.
   (serving). Every stage batches over the streams inside its launches: one
   REVE pass, one sector query, one joint GN (one sweep an iteration over
   all B x block frames, each stream against its own submap) and one insert
-  per block for all streams; no Python loop over streams.
+  per block for all streams; no Python loop over streams. The
+  single-stream runners run their stream as a batch of one, so that a
+  stream tracks alike, bit for bit, alone and in a batch.
 
 RANSAC draws for REVE are an input, (F, 3H) (`preprocess/reve.py`); when
 absent they come from a `torch.Generator` seeded with `cfg.seed`.
@@ -54,6 +56,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from icp4dradar_tpu_torch.config import PipelineConfig
+from icp4dradar_tpu_torch.geom.linalg import small_matmul as mm
 from icp4dradar_tpu_torch.geom.se3 import se3_apply, se3_inverse
 from icp4dradar_tpu_torch.geom.so3 import matrix_to_rpy, so3_project
 from icp4dradar_tpu_torch.io.scan import RadarScan
@@ -74,11 +77,7 @@ from icp4dradar_tpu_torch.preprocess.reve import (
     estimate_ego_velocity,
 )
 from icp4dradar_tpu_torch.registration.gicp import covariances_from_neighbors, gicp_align
-from icp4dradar_tpu_torch.registration.vgicp import (
-    vgicp_align,
-    vgicp_align_block,
-    vgicp_align_streams,
-)
+from icp4dradar_tpu_torch.registration.vgicp import vgicp_align_block, vgicp_align_streams
 
 # Blocks of `run_scan_to_map_blocked` in this process that fell back to the
 # sequential re-track (a lost or unhealthy joint registration); a batch
@@ -117,7 +116,7 @@ def _apply_tracking_gate(cfg: PipelineConfig, pose, new_T, fitness, insert_mask)
     corr_t = torch.linalg.vector_norm(new_T[..., :3, 3] - pose[..., :3, 3], dim=-1)
     # rotation-correction angle from the relative rotation's trace (a
     # rotation-first walk-off can keep translation and fitness plausible)
-    dR = pose[..., :3, :3].transpose(-1, -2) @ new_T[..., :3, :3]
+    dR = mm(pose[..., :3, :3].transpose(-1, -2), new_T[..., :3, :3])
     trace = dR[..., 0, 0] + dR[..., 1, 1] + dR[..., 2, 2]
     corr_r = torch.rad2deg(torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)))
     accept = ((fitness < t.max_fitness) & (corr_t < t.max_correction_t)
@@ -153,6 +152,22 @@ class ScanToMapOutput:
 def _map_outputs(fn, *outs) -> ScanToMapOutput:
     return ScanToMapOutput(**{f.name: fn([getattr(o, f.name) for o in outs])
                               for f in dataclasses.fields(ScanToMapOutput)})
+
+
+def _stream_outputs(out: ScanToMapOutput, b) -> ScanToMapOutput:
+    return _map_outputs(lambda xs: xs[0][b], out)
+
+
+def _lift_state(state: Optional[ScanToMapState]) -> Optional[ScanToMapState]:
+    """A single-stream state as a batch of one (views)."""
+    if state is None:
+        return None
+    return ScanToMapState(world_T=state.world_T[None],
+                          vmap=state.vmap.with_tables(t[None] for t in state.vmap.tables()))
+
+
+def _stream_state(state: ScanToMapState, b) -> ScanToMapState:
+    return ScanToMapState(world_T=state.world_T[b], vmap=state.vmap.stream(b))
 
 
 def _stack_outputs(outs, dim=0) -> ScanToMapOutput:
@@ -202,7 +217,7 @@ def _add_doppler_step(pose, velocity, valid):
     """Advance the pose by one frame of body-frame ego velocity where
     `valid`."""
     out = pose.clone()
-    step = pose[..., :3, :3] @ velocity[..., None]
+    step = mm(pose[..., :3, :3], velocity[..., None])
     out[..., :3, 3] += torch.where(valid[..., None], step[..., 0], 0.0)
     return out
 
@@ -242,15 +257,23 @@ def scan_to_map_step(
     On a batched state (B poses, a map of B tables) the frame is one scan
     per stream, (B, N) fields, uniforms (B, 3H) and prior_delta (B,4,4):
     one REVE pass, one sector query, one `vgicp_align_streams` and one
-    insert for all streams (VGICP only)."""
+    insert for all streams (VGICP only when B > 1). A single-stream state
+    steps as a batch of one, so that a stream tracks alike, bit for bit,
+    alone and in a batch."""
     _check_cfg(cfg)
     if gt_pose is not None or insert_before_registration:
         raise _not_ported("gt_pose / insert_before_registration", "queue 1 item 2")
     if aux_world_xyz is not None or aux_mask is not None or insert_override is not None:
         raise _not_ported("aux_world_xyz / insert_override (scan accumulation)",
                           "'Not ported'")
-    batched = state.vmap.streams is not None
-    if batched and not cfg.gicp.use_vgicp:
+    if state.vmap.streams is None:
+        new_state, out = scan_to_map_step(
+            _lift_state(state), scan[None], uniforms[None], cfg,
+            use_doppler_prior=use_doppler_prior,
+            prior_delta=None if prior_delta is None else prior_delta[None],
+            phase_times=phase_times)
+        return _stream_state(new_state, 0), _stream_outputs(out, 0)
+    if state.vmap.streams > 1 and not cfg.gicp.use_vgicp:
         raise _not_ported("kNN GICP (gicp.use_vgicp=False) inside a batch", "queue 1 item 8")
     vmcfg = cfg.voxel_map
     dev = scan.device
@@ -261,7 +284,7 @@ def scan_to_map_step(
     pose = state.world_T
     has_map = state.vmap.num_voxels > 0
     if prior_delta is not None:
-        pose = torch.where(has_map[..., None, None], pose @ prior_delta, pose)
+        pose = torch.where(has_map[..., None, None], mm(pose, prior_delta), pose)
     if use_doppler_prior:
         # the first scan seeds the map at the initial pose
         pose = _add_doppler_step(pose, est.velocity, est.valid & has_map)
@@ -277,44 +300,40 @@ def scan_to_map_step(
             src_cov6 = radar_point_covariances_packed(
                 scan.xyz, cfg.gicp.sigma_range, cfg.gicp.sigma_azimuth,
                 cfg.gicp.sigma_elevation)
-            if batched:
-                g = vgicp_align_streams(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
-                                        src_cov6, pose, cfg.gicp, tgt_count=sub_n)
-            else:
-                g = vgicp_align(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
-                                src_cov6=src_cov6, init_transform=pose, cfg=cfg.gicp,
-                                tgt_count=sub_n)
-        reg_T = g.transform
+            g = vgicp_align_streams(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
+                                    src_cov6, pose, cfg.gicp, tgt_count=sub_n)
+        reg_T, fitness, iterations = g.transform, g.fitness, g.iterations
     else:
+        # kNN GICP runs one stream (a batch of one): its single table
+        one, p0 = state.vmap.stream(0), pose[0]
         with _phase(phase_times, "sector_query", dev):
             submap, submask, sub_n = voxel_map_sector_search(
-                state.vmap, pose[:3, 3], vmcfg.sector_radius, heading,
+                one, p0[:3, 3], vmcfg.sector_radius, heading[0],
                 vmcfg.sector_half_angle_deg, vmcfg.submap_max_points)
         tgt_cov = None
         if cfg.gicp.use_exact_map_knn:
             # the submap's covariance neighbourhoods from the exact
             # whole-map k-NN, gated at max_correspondence_dist
             with _phase(phase_times, "map_knn", dev):
-                d2n, pn = voxel_map_knn_exact(state.vmap, submap,
-                                              cfg.gicp.k_correspondences,
+                d2n, pn = voxel_map_knn_exact(one, submap, cfg.gicp.k_correspondences,
                                               max_dist=cfg.gicp.max_correspondence_dist)
                 tgt_cov = covariances_from_neighbors(submap, pn, torch.isfinite(d2n),
                                                      cfg.gicp.cov_epsilon)
         with _phase(phase_times, "gn", dev):
-            g = gicp_align(se3_apply(pose, scan.xyz), submap, inlier_mask, submask,
+            g = gicp_align(se3_apply(p0, scan.xyz[0]), submap, inlier_mask[0], submask,
                            cfg=cfg.gicp, tgt_cov=tgt_cov)
-        reg_T = g.transform @ pose                  # left-compose (ref :412)
-    new_T, insert_mask, _ = _apply_tracking_gate(cfg, pose, reg_T, g.fitness,
-                                                 inlier_mask)
+        reg_T = mm(g.transform, p0)[None]                 # left-compose (ref :412)
+        fitness, iterations, sub_n = g.fitness[None], g.iterations[None], sub_n[None]
+    new_T, insert_mask, _ = _apply_tracking_gate(cfg, pose, reg_T, fitness, inlier_mask)
     with _phase(phase_times, "insert", dev):
         vmap = voxel_map_insert(state.vmap, se3_apply(new_T, scan.xyz), insert_mask,
                                 scan.intensity)
     vmap = _forget(vmap, new_T, cfg, phase_times, dev)
     out = ScanToMapOutput(
-        world_T=new_T, correction=new_T @ se3_inverse(pose), velocity=est.velocity,
-        velocity_sigma=est.sigma, velocity_valid=est.valid, fitness=g.fitness,
+        world_T=new_T, correction=mm(new_T, se3_inverse(pose)), velocity=est.velocity,
+        velocity_sigma=est.sigma, velocity_valid=est.valid, fitness=fitness,
         num_inliers=torch.sum(inlier_mask, dim=-1), submap_points=sub_n,
-        iterations=g.iterations, insert_mask=insert_mask,
+        iterations=iterations, insert_mask=insert_mask,
     )
     return ScanToMapState(world_T=new_T, vmap=vmap), out
 
@@ -337,30 +356,35 @@ def _uniforms_for(scans: RadarScan, cfg: PipelineConfig, uniforms, generator):
 
 
 def _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
-                  use_const_velocity_rot, init_state, phase_times, streams):
-    """The per-frame tracker over (F, ...) scans, or with `streams` = B over
-    (B, F, ...) scans, every frame of every stream in one batched step."""
-    F = scans.xyz.shape[-3]
+                  use_const_velocity_rot, init_state, phase_times):
+    """The per-frame tracker over (B, F, ...) scans: every frame of every
+    stream in one batched step."""
+    B, F = scans.xyz.shape[:2]
     dt, dev = scans.xyz.dtype, scans.device
-    state = (init_state if init_state is not None
-             else scan_to_map_init(cfg, dt, dev, streams=streams))
+    state = init_state if init_state is not None else scan_to_map_init(cfg, dt, dev, streams=B)
     prev_rot = torch.eye(4, dtype=dt, device=dev).expand(state.world_T.shape)
-
-    def at(x, f):
-        return x[f] if streams is None else x[:, f]
-
     outs = []
     for f in range(F):
-        pd = at(prior_deltas, f) if prior_deltas is not None else (
+        pd = prior_deltas[:, f] if prior_deltas is not None else (
             prev_rot if use_const_velocity_rot else None)
         new_state, out = scan_to_map_step(
-            state, at(scans, f), at(uniforms, f), cfg, use_doppler_prior=use_doppler_prior,
+            state, scans[:, f], uniforms[:, f], cfg, use_doppler_prior=use_doppler_prior,
             prior_delta=pd, phase_times=phase_times)
-        delta = se3_inverse(state.world_T) @ new_state.world_T
+        delta = mm(se3_inverse(state.world_T), new_state.world_T)
         prev_rot = _with_rotation(delta[..., :3, :3])
         state = new_state
         outs.append(out)
-    return state, _stack_outputs(outs, dim=0 if streams is None else 1)
+    return state, _stack_outputs(outs, dim=1)
+
+
+def _alone(run, scans, uniforms, prior_deltas, init_state, *args):
+    """Run a batched tracker on one (F, ...) stream as a batch of one, the
+    op forms of a stream of a batch, and return its unbatched state and
+    (F, ...) outputs."""
+    state, out = run(scans[None], uniforms[None],
+                     None if prior_deltas is None else prior_deltas[None],
+                     _lift_state(init_state), *args)
+    return _stream_state(state, 0), _stream_outputs(out, 0)
 
 
 def run_scan_to_map(
@@ -385,9 +409,9 @@ def run_scan_to_map(
     _check_cfg(cfg)
     if gt_poses is not None or insert_before_registration:
         raise _not_ported("gt_poses / insert_before_registration", "queue 1 item 2")
-    return _track_frames(scans, cfg, _uniforms_for(scans, cfg, uniforms, generator),
-                         use_doppler_prior, prior_deltas, use_const_velocity_rot, init_state,
-                         phase_times, None)
+    return _alone(lambda sc, u, pd, st: _track_frames(
+        sc, cfg, u, use_doppler_prior, pd, use_const_velocity_rot, st, phase_times),
+        scans, _uniforms_for(scans, cfg, uniforms, generator), prior_deltas, init_state)
 
 
 def _sort_scans_by_sensor_x(scans: RadarScan) -> RadarScan:
@@ -487,33 +511,31 @@ def run_scan_to_map_blocked(
     _check_cfg(cfg)
     if rigid_union:
         raise _not_ported("rigid_union", "'Not ported'")
-    uniforms = _uniforms_for(scans, cfg, uniforms, generator)
-    return _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
-                        use_const_velocity_rot, use_band_gating, parallel_frames,
-                        init_state, sequential_fallback, phase_times, None)
+    return _alone(lambda sc, u, pd, st: _run_blocked(
+        sc, cfg, u, block, use_doppler_prior, pd, use_const_velocity_rot, use_band_gating,
+        parallel_frames, st, sequential_fallback, phase_times),
+        scans, _uniforms_for(scans, cfg, uniforms, generator), prior_deltas, init_state)
 
 
 def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                  use_const_velocity_rot, use_band_gating, parallel_frames, init_state,
-                 sequential_fallback, phase_times, streams):
-    """The blocked tracker over (F, ...) scans, or with `streams` = B over
-    (B, F, ...) scans (uniforms (B, F, 3H), prior_deltas (B, F, 4, 4), a
-    batched init_state), every stage running all streams in its launches.
-    Only the sequential re-track of an unhealthy block steps frame by frame
-    and stream by stream (the unhealthy streams alone, each as the
-    single-stream tracker re-tracks it); `parallel_frames=False` steps frame
-    by frame, all streams together."""
+                 sequential_fallback, phase_times):
+    """The blocked tracker over (B, F, ...) scans (uniforms (B, F, 3H),
+    prior_deltas (B, F, 4, 4), a batched init_state), every stage running
+    all streams in its launches. The sequential re-track of an unhealthy
+    block steps frame by frame over the unhealthy streams alone;
+    `parallel_frames=False` steps frame by frame, all streams together."""
     global SEQUENTIAL_FALLBACK_BLOCKS
-    F = scans.xyz.shape[-3]
+    F = scans.xyz.shape[1]
     dt, dev = scans.xyz.dtype, scans.device
 
     def frames(x, k):
-        """Frame(s) k of a ([B,] F, ...) tensor or scan."""
-        return x[k] if streams is None else x[:, k]
+        """Frame(s) k of every stream of a (B, F, ...) tensor or scan."""
+        return x[:, k]
 
     if block <= 1 or (init_state is None and F <= block):
         return _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
-                             use_const_velocity_rot, init_state, phase_times, streams)
+                             use_const_velocity_rot, init_state, phase_times)
     if init_state is not None:
         if F % block != 0:
             raise ValueError(f"run_scan_to_map_blocked with init_state needs "
@@ -535,8 +557,8 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
         state, warm_outs = _track_frames(
             frames(scans, warm), cfg, frames(uniforms, warm), use_doppler_prior,
             None if prior_deltas is None else frames(prior_deltas, warm),
-            use_const_velocity_rot, None, phase_times, streams)
-        warm_delta = se3_inverse(frames(warm_outs.world_T, -2)) @ frames(warm_outs.world_T, -1)
+            use_const_velocity_rot, None, phase_times)
+        warm_delta = mm(se3_inverse(frames(warm_outs.world_T, -2)), frames(warm_outs.world_T, -1))
         prev_rot = _with_rotation(warm_delta[..., :3, :3])
     else:
         state, warm_outs = init_state, None
@@ -556,38 +578,33 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
             cfg.gicp.sigma_elevation)
 
     def pick(x, k, idx):
-        """Frame k of the rest for the streams idx: an int (one stream, as a
-        single-stream tensor) or slice(None) (all)."""
-        return x[k] if streams is None else x[idx, k]
+        """Frame k of the rest for the streams idx: an index tensor or
+        slice(None) (all)."""
+        return x[idx, k]
 
     def predict(pose, prev_rot, k, idx):
         """The prior step of frame k of the rest."""
         if prior_deltas is not None:
-            pose = pose @ pick(prior_deltas, F0 + k, idx)
+            pose = mm(pose, pick(prior_deltas, F0 + k, idx))
         elif use_const_velocity_rot:
-            pose = pose @ prev_rot
+            pose = mm(pose, prev_rot)
         if use_doppler_prior:
             pose = _add_doppler_step(pose, pick(held_vel, k, idx), pick(held_valid, k, idx))
         return pose
 
     def frame_step(pose, prev_rot, frozen, k, idx):
-        """Register frame k of the rest against the frozen block submap(s):
-        one stream (a (4,4) pose) or all of them."""
+        """Register frame k of the rest of the streams idx against their
+        frozen block submaps."""
         sub_mean, sub_cov, submask, sub_n, axis2 = frozen
         pred = predict(pose, prev_rot, k, idx)
         inl = pick(est_all.inlier_mask, k, idx)
         xyz, cov = pick(rest.xyz, k, idx), pick(cov_all, k, idx)
-        if pose.dim() == 2:
-            g = vgicp_align(xyz, sub_mean, sub_cov, inl, submask, src_cov6=cov,
-                            init_transform=pred, cfg=cfg.gicp, tgt_count=sub_n,
-                            gate_axis=axis2)
-        else:
-            g = vgicp_align_streams(xyz, sub_mean, sub_cov, inl, submask, cov, pred,
-                                    cfg.gicp, tgt_count=sub_n, gate_axis=axis2)
+        g = vgicp_align_streams(xyz, sub_mean, sub_cov, inl, submask, cov, pred,
+                                cfg.gicp, tgt_count=sub_n, gate_axis=axis2)
         new_T, insert_mask, _ = _apply_tracking_gate(cfg, pred, g.transform, g.fitness, inl)
-        delta = se3_inverse(pose) @ new_T
+        delta = mm(se3_inverse(pose), new_T)
         out = ScanToMapOutput(
-            world_T=new_T, correction=new_T @ se3_inverse(pred),
+            world_T=new_T, correction=mm(new_T, se3_inverse(pred)),
             velocity=pick(held_vel, k, idx), velocity_sigma=pick(est_all.sigma, k, idx),
             velocity_valid=pick(held_valid, k, idx), fitness=g.fitness,
             num_inliers=torch.sum(inl, dim=-1), submap_points=sub_n,
@@ -599,7 +616,7 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
         for k in ks:
             pose, prev_rot, out = frame_step(pose, prev_rot, frozen, k, idx)
             outs.append(out)
-        return pose, prev_rot, _stack_outputs(outs, dim=pose.dim() - 2)
+        return pose, prev_rot, _stack_outputs(outs, dim=1)
 
     block_outs = []
     for blk in range(nblocks):
@@ -643,7 +660,7 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                 fitness = torch.where(wsum / nval < 0.25, 1e6, g.fitness)
                 new_T, masks, _ = _apply_tracking_gate(cfg, preds, g.transform, fitness, inl)
                 outs = ScanToMapOutput(
-                    world_T=new_T, correction=new_T @ se3_inverse(preds),
+                    world_T=new_T, correction=mm(new_T, se3_inverse(preds)),
                     velocity=frames(held_vel, kb), velocity_sigma=frames(est_all.sigma, kb),
                     velocity_valid=frames(held_valid, kb), fitness=fitness,
                     num_inliers=torch.sum(inl, dim=-1),
@@ -653,25 +670,22 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                 # cv-rot seed for the next block from the last two
                 # CORRECTED poses
                 next_rot = _with_rotation(
-                    (se3_inverse(frames(new_T, -2)) @ frames(new_T, -1))[..., :3, :3])
+                    mm(se3_inverse(frames(new_T, -2)), frames(new_T, -1))[..., :3, :3])
                 healthy = torch.all((fitness < cfg.tracking.max_fitness)
                                     & torch.isfinite(fitness), dim=-1)
-                if sequential_fallback and streams is None:
-                    if not bool(healthy):
-                        SEQUENTIAL_FALLBACK_BLOCKS += 1
-                        pose, next_rot, outs = sequential(pose0, prev_rot, frozen, ks, None)
-                elif sequential_fallback:
-                    # only the streams whose block looks lost re-track, each
-                    # as the single-stream tracker re-tracks it
-                    for b in torch.nonzero(~healthy)[:, 0].tolist():
-                        SEQUENTIAL_FALLBACK_BLOCKS += 1
-                        p_b, r_b, o_b = sequential(
-                            pose0[b], prev_rot[b],
-                            tuple(None if x is None else x[b] for x in frozen), ks, b)
-                        pose, next_rot = pose.clone(), next_rot.clone()
-                        pose[b], next_rot[b] = p_b, r_b
-                        outs = _map_outputs(lambda xs: xs[0].index_copy(
-                            0, torch.tensor([b], device=dev), xs[1][None]), outs, o_b)
+                if sequential_fallback:
+                    # only the streams whose block looks lost re-track, all
+                    # of them together (one host read a block)
+                    lost = torch.nonzero(~healthy)[:, 0]
+                    if lost.numel():
+                        SEQUENTIAL_FALLBACK_BLOCKS += lost.numel()
+                        p_l, r_l, o_l = sequential(
+                            pose0[lost], prev_rot[lost],
+                            tuple(None if x is None else x[lost] for x in frozen), ks, lost)
+                        pose, next_rot = pose.index_copy(0, lost, p_l), \
+                            next_rot.index_copy(0, lost, r_l)
+                        outs = _map_outputs(lambda xs: xs[0].index_copy(0, lost, xs[1]),
+                                            outs, o_l)
                 prev_rot = next_rot
             else:
                 pose, prev_rot, outs = sequential(pose0, prev_rot, frozen, ks, slice(None))
@@ -688,7 +702,7 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
 
     if warm_outs is not None:
         block_outs.insert(0, warm_outs)
-    return state, _cat_outputs(block_outs, dim=0 if streams is None else 1)
+    return state, _cat_outputs(block_outs, dim=1)
 
 
 def run_scan_to_map_batch(
@@ -732,7 +746,7 @@ def _batch_frames(scans, cfg, uniforms, gt_poses=None, insert_before_registratio
     if gt_poses is not None or insert_before_registration:
         raise _not_ported("gt_poses / insert_before_registration", "queue 1 item 2")
     return _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
-                         use_const_velocity_rot, init_state, phase_times, scans.xyz.shape[0])
+                         use_const_velocity_rot, init_state, phase_times)
 
 
 def _batch_blocked(scans, cfg, uniforms, block, use_doppler_prior=True, prior_deltas=None,
@@ -744,4 +758,4 @@ def _batch_blocked(scans, cfg, uniforms, block, use_doppler_prior=True, prior_de
         raise _not_ported("rigid_union", "'Not ported'")
     return _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                         use_const_velocity_rot, use_band_gating, parallel_frames,
-                        init_state, sequential_fallback, phase_times, scans.xyz.shape[0])
+                        init_state, sequential_fallback, phase_times)

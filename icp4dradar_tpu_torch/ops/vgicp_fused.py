@@ -61,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from icp4dradar_tpu_torch.geom.linalg import pairwise_sum
 from icp4dradar_tpu_torch.ops import _build
 
 _BIG = 1e30
@@ -396,8 +397,11 @@ def _frames_T(T, ops, groups):
 def _finish(acc_rows, groups, dtype, best, return_best):
     """A sweep's (frames, rows, 30) or (frames, 30) float64 partial sums ->
     unpacked f32 results, summed over `groups` consecutive frame groups (1
-    group: one result). One sum, a cast and a gather on the device."""
-    acc = acc_rows.reshape(groups, -1, NUM_ACC).sum(dim=1).to(torch.float32)
+    group: one result). A pairwise sum (its order fixed by a group's rows
+    alone: a library reduction over them splits its work by the number of
+    groups, so a stream's sums would round by the size of its batch), a
+    cast and a gather on the device."""
+    acc = pairwise_sum(acc_rows.reshape(groups, -1, NUM_ACC), dim=1).to(torch.float32)
     out = _unpack_accumulators(acc if groups > 1 else acc[0], dtype)
     return out + (best,) if return_best else out
 

@@ -23,7 +23,12 @@ from dataclasses import dataclass
 import torch
 
 from icp4dradar_tpu_torch.config import ReveConfig
-from icp4dradar_tpu_torch.geom.linalg import condition_number, inv3x3
+from icp4dradar_tpu_torch.geom.linalg import (
+    condition_number,
+    inv3x3,
+    pairwise_sum,
+    small_matmul,
+)
 from icp4dradar_tpu_torch.io.scan import RadarScan
 
 
@@ -118,7 +123,7 @@ def estimate_ego_velocity(
     v_hyp = (y[..., 0:1] * cross12 + y[..., 1:2] * _cross(r2, r0)
              + y[..., 2:3] * _cross(r0, r1)) * inv_det[..., None]   # (..., H, 3)
     v_hyp = torch.nan_to_num(v_hyp, nan=0.0, posinf=0.0, neginf=0.0)
-    resid = torch.abs(d @ v_hyp.transpose(-1, -2) - vr[..., None])  # (..., N, H)
+    resid = torch.abs(small_matmul(d, v_hyp.transpose(-1, -2)) - vr[..., None])  # (..., N, H)
     inl = (resid < cfg.inlier_thresh) & gated[..., None]
     del resid
     counts = torch.sum(inl, dim=-2)                       # (..., H)
@@ -130,12 +135,19 @@ def estimate_ego_velocity(
     w = inlier_mask.to(scan.mask.dtype)
     K = d * w[..., None]
     eye = torch.eye(3, dtype=K.dtype, device=K.device)
-    KtK = K.transpose(-1, -2) @ K + 1e-9 * eye
+    # K^T K and K^T v over the N points as pairwise sums of elementwise
+    # products, and K v elementwise: a matrix product's rounding may depend
+    # on the batch (its kernel's choice), so a frame's estimate would
+    # depend on the frames estimated beside it
+    sums = pairwise_sum(torch.cat([(K[..., :, None] * K[..., None, :]).flatten(-2),
+                                   K * (vr * w)[..., None]], dim=-1), dim=-2)
+    KtK = sums[..., :9].unflatten(-1, (3, 3)) + 1e-9 * eye
     KtK_inv = inv3x3(KtK)
-    v_fit = (KtK_inv @ (K.transpose(-1, -2) @ (vr * w)[..., None]))[..., 0]
-    r = ((d @ v_fit[..., None])[..., 0] - vr) * w
+    v_fit = small_matmul(KtK_inv, sums[..., 9:, None])[..., 0]
+    r = (d[..., 0] * v_fit[..., 0, None] + d[..., 1] * v_fit[..., 1, None]
+         + d[..., 2] * v_fit[..., 2, None] - vr) * w
     n_in = torch.clamp(torch.sum(w, dim=-1), min=1.0)
-    s2 = torch.sum(r * r, dim=-1) / torch.clamp(n_in - 3.0, min=1.0)
+    s2 = pairwise_sum(r * r) / torch.clamp(n_in - 3.0, min=1.0)
     cov = s2[..., None, None] * KtK_inv
     sigma = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1), min=0.0))
 

@@ -12,6 +12,7 @@ with the covariance estimation moved from query time to map-build time.
 `vgicp_align_streams` and the stream axis of `vgicp_align_block` run S
 independent streams (serving) in the same launches: one sweep a GN
 iteration over every stream's frames, each against its own submap.
+`vgicp_align` is its one-stream case.
 
 The JAX package's `lax.while_loop` over GN iterations is a Python loop here:
 its condition costs one host sync per iteration, the only one (the sweep
@@ -29,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from icp4dradar_tpu_torch.config import GicpConfig
-from icp4dradar_tpu_torch.geom.linalg import solve_spd6
+from icp4dradar_tpu_torch.geom.linalg import small_matmul, solve_spd6
 from icp4dradar_tpu_torch.geom.se3 import se3_exp
 from icp4dradar_tpu_torch.ops.vgicp_fused import (
     radar_point_covariances_packed,
@@ -49,7 +50,7 @@ def _gn_update(T, H, g, cfg: GicpConfig, active=None):
     xi = torch.where(torch.isfinite(xi), xi, 0.0)
     if active is not None:
         xi = torch.where(active[..., None], xi, 0.0)   # converged frames hold
-    return se3_exp(xi) @ T, torch.sum(torch.abs(xi), dim=-1)
+    return small_matmul(se3_exp(xi), T), torch.sum(torch.abs(xi), dim=-1)
 
 
 def vgicp_align(
@@ -76,42 +77,16 @@ def vgicp_align(
         tgt_mask = torch.ones(tgt_mean.shape[0], dtype=dt, device=dev)
     if src_cov6 is None:
         src_cov6 = radar_point_covariances_packed(src_xyz)
-    T = (torch.eye(4, dtype=dt, device=dev) if init_transform is None
-         else init_transform.clone())
-    # Optimize in a cloud-centered frame: world coordinates at kilometer
-    # scale would cancel in f32 and condition the hat(p) coupling poorly;
-    # shifting by the predicted position keeps everything at sensor range.
-    center = T[:3, 3].clone()
-    T[:3, 3] = 0.0
-    ops = vgicp_prepare(src_xyz, src_mask, src_cov6, tgt_mean - center[None, :], tgt_cov6,
-                        tgt_mask, tgt_count=tgt_count, gate_axis=gate_axis)
-    kw = dict(max_correspondence_dist=cfg.max_correspondence_dist, cov_eps=cfg.cov_epsilon)
-
-    iters = 0
-    delta = torch.tensor(float("inf"), dtype=dt, device=dev)
-    wsum = d2sum = torch.zeros((), dtype=dt, device=dev)
-    eps = cfg.vgicp_transformation_epsilon
-    inner = cfg.inner_gn_steps
-    while iters < cfg.max_iterations and bool(delta > eps):
-        H, g, _, wsum, d2sum, *best = vgicp_sweep(T, ops, return_best=inner > 0, **kw)
-        T, delta = _gn_update(T, H, g, cfg)
-        iters += 1
-        # sweep-free steps on the frozen correspondences; the cap is checked
-        # only at the top, so `iters` may pass max_iterations by `inner`
-        for _ in range(inner):
-            H, g, _, wsum, d2sum = vgicp_frozen(T, ops, best[0], **kw)
-            T, dlt = _gn_update(T, H, g, cfg)
-            delta = delta + dlt
-            iters += 1
-    # fitness from the LAST evaluation point (a frozen step's, with inner
-    # steps): at convergence it matches a final re-evaluation to first
-    # order, so no extra sweep is paid
-    fitness = d2sum / torch.clamp(wsum, min=1.0)
-    converged = (delta <= eps) | (iters >= cfg.max_iterations)
-    T = T.clone()
-    T[:3, 3] += center                    # back to the world frame
-    return GicpResult(transform=T, converged=converged, fitness=fitness,
-                      iterations=torch.tensor(iters, dtype=torch.int32, device=dev))
+    T = (torch.eye(4, dtype=dt, device=dev) if init_transform is None else init_transform)
+    # one stream of `vgicp_align_streams`: the same GN loop and the same
+    # batched small products as a stream of a batch, so a stream registers
+    # alike whether it is served alone or with others
+    r = vgicp_align_streams(
+        src_xyz[None], tgt_mean[None], tgt_cov6[None], src_mask[None], tgt_mask[None],
+        src_cov6[None], T[None], cfg, tgt_count=tgt_count,
+        gate_axis=None if gate_axis is None else gate_axis[None])
+    return GicpResult(transform=r.transform[0], converged=r.converged[0],
+                      fitness=r.fitness[0], iterations=r.iterations[0])
 
 
 def vgicp_align_streams(

@@ -11,4 +11,4 @@ from icp4dradar_tpu_torch.utils.trajectory import (  # noqa: F401
     write_pcl_info,
     write_tum,
 )
-from icp4dradar_tpu_torch.utils.threefry import reve_batch_uniforms  # noqa: F401
+from icp4dradar_tpu_torch.utils.threefry import reve_batch_uniforms, reve_uniforms  # noqa: F401

@@ -7,7 +7,7 @@ The port draws its REVE RANSAC uniforms from a `torch.Generator`; these
 functions give a run on the card the draws the JAX package makes on the
 same seed, so that a port run and a JAX run of the same sequence can be
 compared stream by stream without the generator's spread
-(`reve_batch_uniforms`). tests/test_torch_reve.py holds them bit for bit
+(`reve_uniforms`, `reve_batch_uniforms`). tests/test_torch_reve.py holds them bit for bit
 against `jax.random`.
 """
 
@@ -58,21 +58,27 @@ def uniform(k: np.ndarray, n: int) -> np.ndarray:
     return bits.view(np.float32) - np.float32(1.0)
 
 
+def reve_uniforms(seed: int, frames: int, block: int, hypotheses: int,
+                  k: np.ndarray = None) -> np.ndarray:
+    """(frames, 3 * hypotheses) float32: the REVE draws the JAX package's
+    single-stream runners make with key(seed) (or the key data `k`): with
+    block > 1 `run_scan_to_map_blocked` splits the key into a warm-up key
+    (the first `block` frames, one split each) and a block key (the rest),
+    `run_scan_to_map` into one key a frame."""
+    k = key(seed) if k is None else k
+    if block > 1 and frames > block:
+        kwarm, kblocks = split(k, 2)
+        keys = np.concatenate([split(kwarm, block), split(kblocks, frames - block)])
+    else:
+        keys = split(k, frames)
+    return np.stack([uniform(kf, 3 * hypotheses) for kf in keys])
+
+
 def reve_batch_uniforms(seed: int, streams: int, frames: int, block: int,
                         hypotheses: int) -> np.ndarray:
     """(streams, frames, 3 * hypotheses) float32: the REVE draws the JAX
     package's `run_scan_to_map_batch(..., key=key(seed), block=block)` makes
-    for each stream. Stream b's key is split(key(seed), streams)[b]; with
-    block > 1 the blocked runner splits it into a warm-up key (the first
-    `block` frames, one split each) and a block key (the rest), the
-    per-frame runner into one key a frame."""
-    out = np.empty((streams, frames, 3 * hypotheses), np.float32)
-    for b, kb in enumerate(split(key(seed), streams)):
-        if block > 1 and frames > block:
-            kwarm, kblocks = split(kb, 2)
-            keys = np.concatenate([split(kwarm, block), split(kblocks, frames - block)])
-        else:
-            keys = split(kb, frames)
-        for f, kf in enumerate(keys):
-            out[b, f] = uniform(kf, 3 * hypotheses)
-    return out
+    for each stream. Stream b's key is split(key(seed), streams)[b], which
+    the stream's runner splits as `reve_uniforms` does."""
+    return np.stack([reve_uniforms(seed, frames, block, hypotheses, kb)
+                     for kb in split(key(seed), streams)])

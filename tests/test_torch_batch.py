@@ -3,31 +3,29 @@ streams, each with its own map) against the JAX package's, with the blocked
 tracker (block 8, 24 frames of 512 points, constant-velocity rotation
 prior) and the per-frame one (6 frames); each stream against the batch
 that orders the streams otherwise and against the port's single-stream
-runners; the
-per-stream sequential re-track of a stream whose block looks lost; the
-arguments a batch refuses.
+runners; the per-stream sequential re-track of a stream whose block looks
+lost; the arguments a batch refuses.
 
-The streams are windows of one sequence, frames [24 b, 24 b + 24), as the
-bench's batch cell cuts its streams, with each stream's ground truth
-re-anchored at its first frame. JAX's own REVE draws are injected per
-stream: stream b's key is split(key(seed), B)[b], split further as JAX's
-runners split theirs.
+Two scenes. "windows": the streams are windows of one sequence, frames
+[24 b, 24 b + 24), as the bench's batch cell cuts its streams. "sequences":
+stream b is a sequence of its own, made with seed b; stream 1's track is
+hard (ATE ~0.34 m over 24 frames) and chaotic: there JAX's own batch and
+its single-stream runner on the same stream and key part by ~1.3e-2 m.
+Each stream's ground truth is re-anchored at its first frame. JAX's own
+REVE draws are injected per stream (`utils.reve_batch_uniforms`: stream b's
+key is split(key(seed), B)[b], split further as JAX's runners split
+theirs).
 
 Tolerances. Against JAX, each stream as tests/test_torch_scan_to_map.py
 holds a single stream (`_assert_tracks`: positions 1e-2 m, rotation entries
 1e-3, ATE 1e-3 m, equal inlier counts, submap sizes within 1% plus two
-voxels, sweeps within two). A stream of the batch equals the same stream
-in a batch that orders the streams otherwise, bit for bit: poses,
-iterations and every table. Against the single-stream runners it is not
-bit for bit: the batch's small matrix products (the 6x6 solve, se3_exp,
-pose chains, REVE's matrix-vector products) are batched products, which
-the CPU rounds differently from unbatched ones (one rounding per product
-and sum, against fused multiply-adds; a batch of one takes the unbatched
-kernels for its matrix-vector products), and a GN loop's stopping test
-turns an ulp into a sweep more or less. Per frame (6 frames): positions within
-1e-4 m, equal sweeps, equal keys and occupancy, stored points within 2e-4
-m (a pose 1e-4 off moves a point 40 m away by a little more). Blocked (24 frames): positions within 1e-2 m and rotation entries within
-1e-3, sweeps within two, equal inlier counts, map sizes within 1%."""
+voxels, sweeps within two): against JAX's batch on the "windows" scene, and
+on the "sequences" scene against JAX's batch or JAX's single-stream runner
+of the same stream, two runs of the same semantics that lie farther apart
+there than the tolerance. A stream of the batch equals, bit for bit, the
+same stream in a batch that orders the streams otherwise and the port's
+single-stream runner on it (a single stream runs as a batch of one):
+every output, the final pose and every table."""
 
 import jax
 import jax.numpy as jnp
@@ -38,18 +36,19 @@ import torch
 from icp4dradar_tpu.config import PipelineConfig as JaxConfig
 from icp4dradar_tpu.io import SyntheticSequence as JaxSequence
 from icp4dradar_tpu.io.scan import stack_scans as jax_stack
+from icp4dradar_tpu.models.scan_to_map import run_scan_to_map as j_run
 from icp4dradar_tpu.models.scan_to_map import run_scan_to_map_batch as j_batch
+from icp4dradar_tpu.models.scan_to_map import run_scan_to_map_blocked as j_blocked
 from icp4dradar_tpu_torch.interop import (
     SCAN_FIELDS,
     VOXEL_MAP_FIELDS,
     config_from_dict,
     scans_from_numpy,
     voxel_map_from_numpy,
-    voxel_map_to_numpy,
 )
 from icp4dradar_tpu_torch.models import scan_to_map as pm
 from icp4dradar_tpu_torch.preprocess.reve import draw_reve_uniforms, reve_hypotheses
-from icp4dradar_tpu_torch.utils import ate_rmse
+from icp4dradar_tpu_torch.utils import ate_rmse, reve_batch_uniforms
 
 F, N, B = 24, 512, 2
 T_ATOL, R_ATOL, ATE_ATOL = 1e-2, 1e-3, 1e-3
@@ -62,45 +61,33 @@ def _cfg():
         "icp.max_iterations": 15, "gicp.max_iterations": 15})
 
 
-def _streams(n=N, junk=False):
+def _sequence(num_frames, n, seed):
+    return JaxSequence(num_frames=num_frames, max_points=n, num_landmarks=4000,
+                       world_extent=80.0, max_range=60.0, dynamic_fraction=0.05,
+                       pos_noise=0.01, speed=1.0, turn_rate=0.03, seed=seed)
+
+
+def _streams(n=N, junk=False, scene="windows"):
     """B streams of F frames: stream b the frames [F b, F b + F) of one
-    sequence. -> (JAX scans (B, F, ...), port scans, per-stream ground
+    sequence ("windows"), or the first F frames of the sequence of seed b
+    ("sequences"). -> (JAX scans (B, F, ...), port scans, per-stream ground
     truth re-anchored at the stream's first frame). `junk`: frames 12-15
     of stream 1 are structureless (an interference burst)."""
-    seq = JaxSequence(num_frames=B * F, max_points=n, num_landmarks=4000, world_extent=80.0,
-                      max_range=60.0, dynamic_fraction=0.05, pos_noise=0.01, speed=1.0,
-                      turn_rate=0.03, seed=0)
+    if scene == "windows":
+        seq = _sequence(B * F, n, 0)
+        parts = [(seq, b * F) for b in range(B)]
+    else:
+        parts = [(_sequence(F, n, b), 0) for b in range(B)]
     js = jax.tree.map(lambda *x: jnp.stack(x),
-                      *[jax_stack([seq.scan(k) for k in range(b * F, b * F + F)])
-                        for b in range(B)])
+                      *[jax_stack([seq.scan(k) for k in range(k0, k0 + F)])
+                        for seq, k0 in parts])
     if junk:
         xyz = np.asarray(js.xyz).copy()
         xyz[1, 12:16] = np.random.default_rng(7).uniform(-60, 60, xyz[1, 12:16].shape)
         js = js.replace(xyz=jnp.asarray(xyz.astype(np.float32)))
-    gt = np.stack([np.linalg.inv(seq.poses[b * F]) @ seq.poses[b * F:(b + 1) * F]
-                   for b in range(B)])
+    gt = np.stack([np.linalg.inv(seq.poses[k0]) @ seq.poses[k0:k0 + F] for seq, k0 in parts])
     ps = scans_from_numpy({k: np.asarray(getattr(js, k)) for k in SCAN_FIELDS}, device="cpu")
     return js, ps, gt
-
-
-def _draws(keys, H):
-    return np.stack([np.asarray(jax.random.uniform(k, (3 * H,))) for k in keys])
-
-
-def _jax_draws(cfg, frames, block):
-    """Each stream's draws in JAX's run_scan_to_map_batch: stream b's key
-    split(key(seed), B)[b]; the blocked runner splits it into warm-up and
-    block keys, the per-frame runner into one key a frame."""
-    H = reve_hypotheses(cfg.reve)
-    out = []
-    for key in jax.random.split(jax.random.key(cfg.seed), B):
-        if block > 1:
-            kwarm, kblocks = jax.random.split(key)
-            out.append(np.concatenate([_draws(jax.random.split(kwarm, block), H),
-                                       _draws(jax.random.split(kblocks, frames - block), H)]))
-        else:
-            out.append(_draws(jax.random.split(key, frames), H))
-    return torch.tensor(np.stack(out))
 
 
 def _stream(o, b):
@@ -126,26 +113,55 @@ def _assert_tracks(po, jo, gt):
     return ate_p
 
 
-@pytest.mark.parametrize("block,frames", [(8, F), (0, 6)])
-def test_batch_matches_jax(block, frames):
+def _assert_tracks_one_of(po, refs, gt):
+    """`_assert_tracks` against the first of `refs` it holds for."""
+    failures = []
+    for ref in refs:
+        try:
+            return _assert_tracks(po, ref, gt)
+        except AssertionError as e:
+            failures.append(e)
+    raise AssertionError(failures)
+
+
+def _jax_single(js, cfg, b, frames, block):
+    """JAX's single-stream runner on stream b with the key JAX's batch
+    gives that stream."""
+    key = jax.random.split(jax.random.key(cfg.seed), B)[b]
+    one = jax.tree.map(lambda x: x[b, :frames], js)
+    if block > 1:
+        return j_blocked(one, cfg, key=key, block=block, use_const_velocity_rot=True,
+                         sequential_fallback=False)[1]
+    return j_run(one, cfg, key=key, use_const_velocity_rot=True)[1]
+
+
+@pytest.mark.parametrize("block,frames,scene", [
+    (8, F, "windows"), (0, 6, "windows"), (8, F, "sequences"), (0, 6, "sequences")])
+def test_batch_matches_jax(block, frames, scene):
     """The blocked batch (JAX's vmap of run_scan_to_map_blocked, no
     sequential fallback) and the per-frame batch (its vmap of
-    run_scan_to_map), stream by stream; the final maps cross interop as
-    the vmapped map's (B, C, ...) leaves."""
+    run_scan_to_map), stream by stream; on the "sequences" scene each
+    stream against JAX's batch or JAX's single-stream runner (module
+    docstring); the final maps cross interop as the vmapped map's
+    (B, C, ...) leaves."""
     cfg = _cfg()
-    js, ps, gt = _streams()
+    js, ps, gt = _streams(scene=scene)
     jst, jo = j_batch(jax.tree.map(lambda x: x[:, :frames], js), cfg, block=block,
                       use_const_velocity_rot=True)
+    U = reve_batch_uniforms(cfg.seed, B, frames, block, reve_hypotheses(cfg.reve))
     before = pm.SEQUENTIAL_FALLBACK_BLOCKS
     pst, po = pm.run_scan_to_map_batch(ps[:, :frames], config_from_dict(cfg.to_dict()),
-                                       uniforms=_jax_draws(cfg, frames, block), block=block,
+                                       uniforms=torch.from_numpy(U), block=block,
                                        use_const_velocity_rot=True)
     assert pm.SEQUENTIAL_FALLBACK_BLOCKS == before
     assert po.world_T.shape == (B, frames, 4, 4) and po.insert_mask.shape == (B, frames, N)
     assert pst.world_T.shape == (B, 4, 4) and pst.vmap.streams == B
     for b in range(B):
-        ate = _assert_tracks(_stream(po, b), jax.tree.map(lambda x, b=b: x[b], jo), gt[b])
-        assert ate < 0.3
+        refs = [jax.tree.map(lambda x, b=b: x[b], jo)]
+        if scene == "sequences":
+            refs.append(_jax_single(js, cfg, b, frames, block))
+        ate = _assert_tracks_one_of(_stream(po, b), refs, gt[b])
+        assert ate < (0.3 if scene == "windows" else 0.4)     # stream 1 of "sequences": 0.34
     jmap = voxel_map_from_numpy({k: np.asarray(getattr(jst.vmap, k)) for k in VOXEL_MAP_FIELDS},
                                 voxel_size=jst.vmap.voxel_size,
                                 max_probes=jst.vmap.max_probes, device="cpu")
@@ -156,11 +172,11 @@ def test_batch_matches_jax(block, frames):
 
 @pytest.mark.parametrize("block,frames", [(8, F), (0, 6)])
 def test_batch_streams_match_single_stream_runs(block, frames):
-    """Stream b of the batch: bit for bit stream b of the batch that holds
+    """Stream b of the batch, bit for bit: stream b of the batch that holds
     the streams in the reverse order (no stream reads another's data, and
     none depends on its place), and the port's single-stream runner on
-    stream b with the same draws within the tolerances of the module
-    docstring."""
+    stream b with the same draws (a stream tracks alike alone and
+    batched)."""
     cfg = config_from_dict(_cfg().to_dict())
     _, ps, _ = _streams()
     g = torch.Generator().manual_seed(5)
@@ -182,27 +198,19 @@ def test_batch_streams_match_single_stream_runs(block, frames):
         else:
             sst, so = pm.run_scan_to_map(ps[b, :frames], cfg, uniforms=U[b],
                                          use_const_velocity_rot=True)
-        one, pw, sw = _stream(bo, b), bo.world_T[b].numpy(), so.world_T.numpy()
-        np.testing.assert_array_equal(one.num_inliers.numpy(), so.num_inliers.numpy())
-        mine, theirs = voxel_map_to_numpy(bst.vmap.stream(b)), voxel_map_to_numpy(sst.vmap)
-        if block:
-            np.testing.assert_allclose(pw[:, :3, 3], sw[:, :3, 3], atol=1e-2)
-            np.testing.assert_allclose(pw[:, :3, :3], sw[:, :3, :3], atol=1e-3)
-            assert np.abs(one.iterations.numpy() - so.iterations.numpy()).max() <= 2
-            np.testing.assert_allclose(float(bst.vmap.num_voxels[b]), float(sst.vmap.num_voxels),
-                                       rtol=0.01)
-        else:
-            np.testing.assert_allclose(pw[:, :3, 3], sw[:, :3, 3], atol=1e-4)
-            np.testing.assert_array_equal(one.iterations.numpy(), so.iterations.numpy())
-            for k in ("keys", "occupied"):
-                np.testing.assert_array_equal(mine[k], theirs[k], err_msg=k)
-            np.testing.assert_allclose(mine["points"], theirs["points"], atol=2e-4)
+        for name, a, c in zip(_FIELDS, _map_fields(bo, b), _map_fields(so, slice(None))):
+            assert torch.equal(a, c), name
+        for a, c in zip(bst.vmap.stream(b).tables(), sst.vmap.tables()):
+            assert torch.equal(a, c)
+        assert torch.equal(bst.world_T[b], sst.world_T)
+
+
+_FIELDS = ("world_T", "correction", "velocity", "velocity_sigma", "velocity_valid", "fitness",
+           "num_inliers", "submap_points", "iterations", "insert_mask")
 
 
 def _map_fields(o, b):
-    return [getattr(o, f)[b] for f in ("world_T", "correction", "velocity", "velocity_sigma",
-                                       "velocity_valid", "fitness", "num_inliers",
-                                       "submap_points", "iterations", "insert_mask")]
+    return [getattr(o, f)[b] for f in _FIELDS]
 
 
 def test_batch_sequential_fallback_retracks_only_the_lost_stream():

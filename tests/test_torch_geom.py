@@ -156,3 +156,28 @@ def test_matrix_to_quat_matches_jax(kind):
     q64 = pg.matrix_to_quat(R64)
     assert q64.dtype == torch.float64
     np.testing.assert_allclose(pg.quat_to_matrix(q64).numpy(), R, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [2, 4, 37])
+def test_small_products_and_pairwise_sums_round_alike_at_every_batch_size(n):
+    """`small_matmul`, `small_matvec` and `pairwise_sum` give a row the same
+    bits whatever the batch beside it; on the CPU the small products are the
+    batched `@` and einsum themselves, and the pairwise sum of N values lies
+    within float32 round-off of torch's sum, exactly the sum for integers."""
+    from icp4dradar_tpu_torch.geom.linalg import pairwise_sum, small_matmul, small_matvec
+
+    rng = np.random.default_rng(n)
+    A, B = (torch.tensor(rng.normal(size=(n, 4, 4)), dtype=torch.float32) for _ in range(2))
+    M, v = (torch.tensor(rng.normal(size=s), dtype=torch.float32) for s in ((n, 3, 3), (n, 3)))
+    P = torch.tensor(rng.normal(0, 30, (n, 1000, 3)), dtype=torch.float32)
+    assert torch.equal(small_matmul(A, B), A @ B)
+    assert torch.equal(small_matvec(M, v), torch.einsum("...ij,...j->...i", M, v))
+    for got, one in ((small_matmul(A, B), small_matmul(A[:1], B[:1])),
+                     (small_matvec(M, v), small_matvec(M[:1], v[:1])),
+                     (small_matmul(P, M), small_matmul(P[:1], M[:1])),
+                     (pairwise_sum(P, dim=-2), pairwise_sum(P[:1], dim=-2))):
+        assert torch.equal(got[:1], one)
+    np.testing.assert_allclose(pairwise_sum(P, dim=-2).numpy(), P.double().sum(-2).numpy(),
+                               rtol=1e-5, atol=1e-3)
+    counts = torch.tensor(rng.integers(0, 2, (n, 1000)), dtype=torch.float32)
+    assert torch.equal(pairwise_sum(counts), counts.sum(-1))

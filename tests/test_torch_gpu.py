@@ -1,7 +1,8 @@
 """Card tests of the port's CUDA kernels (ICP moments, VGICP sweep with its
 stream axis and its frozen-payload step, the 1-NN search on prepared
-targets and its coordinate form) against their plain PyTorch versions, and
-of the batched voxel map on the card against the CPU.
+targets and its coordinate form) against their plain PyTorch versions, of
+the batched voxel map on the card against the CPU, and of a stream of the
+batched tracker against its single-stream run on the card.
 Marked `gpu`: they skip where torch.cuda.is_available() is False. This
 file imports neither jax nor the JAX package, so on a machine with a card
 and no jax it runs without the suite's conftest:
@@ -367,6 +368,67 @@ def test_batched_map_cuda_matches_cpu(cuda):
         for a, b in zip(stage["cpu"].tables(), stage[cuda].tables()):
             assert torch.equal(a, b.cpu())
     assert bool((forgot["cpu"].num_voxels < maps["cpu"].num_voxels).all())
+
+
+def test_small_products_round_alike_at_every_batch_size(cuda):
+    """On the card, where a cuBLAS product and a library reduction may round
+    a row by the size of its batch, `small_matmul`, `small_matvec` and
+    `pairwise_sum` give row 0 the same bits at every batch size, within
+    float32 round-off of `@` and torch's sum."""
+    from icp4dradar_tpu_torch.geom.linalg import pairwise_sum, small_matmul, small_matvec
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    A, B = (torch.randn(1024, 4, 4, device=cuda, generator=g) for _ in range(2))
+    M, v = torch.randn(1024, 3, 3, device=cuda, generator=g), torch.randn(1024, 3, device=cuda,
+                                                                          generator=g)
+    P = torch.randn(64, 2048, 3, device=cuda, generator=g) * 30
+    for n in (2, 4, 37, 1024):
+        k = min(n, 64)
+        for got, one in ((small_matmul(A[:n], B[:n]), small_matmul(A[:1], B[:1])),
+                         (small_matvec(M[:n], v[:n]), small_matvec(M[:1], v[:1])),
+                         (small_matmul(P[:k], M[:k]), small_matmul(P[:1], M[:1])),
+                         (pairwise_sum(P[:k], dim=-2), pairwise_sum(P[:1], dim=-2))):
+            assert torch.equal(got[:1], one)
+    torch.testing.assert_close(small_matmul(A, B), A @ B, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(pairwise_sum(P, dim=-2), P.sum(-2), rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.parametrize("block", [0, 8])
+def test_batch_stream_equals_its_single_stream_run(cuda, block):
+    """A stream of `run_scan_to_map_batch` on the card equals the
+    single-stream runner on it (a batch of one), bit for bit: every output,
+    the final pose and the tables."""
+    import dataclasses
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io import SyntheticSequence, stack_scans
+    from icp4dradar_tpu_torch.models import scan_to_map as pm
+    from icp4dradar_tpu_torch.preprocess import draw_reve_uniforms
+
+    cfg = PipelineConfig().override(**{"voxel_map.capacity": 1 << 14,
+                                       "voxel_map.submap_max_points": 1 << 12})
+    B, F = 2, (16 if block else 6)
+    seq = SyntheticSequence(num_frames=B * F, max_points=512, num_landmarks=4000,
+                            world_extent=80.0, max_range=60.0, seed=0)
+    frames = stack_scans([seq.scan(k, device=cuda) for k in range(B * F)])
+    scans = type(frames)(**{f.name: getattr(frames, f.name).unflatten(0, (B, F))
+                            for f in dataclasses.fields(frames)})
+    g = torch.Generator(device=cuda).manual_seed(5)
+    U = torch.stack([draw_reve_uniforms((F,), cfg.reve, g, cuda) for _ in range(B)])
+    kw = dict(block=block, use_const_velocity_rot=True)
+    bst, bo = pm.run_scan_to_map_batch(scans, cfg, uniforms=U, **kw)
+    for b in range(B):
+        if block:
+            sst, so = pm.run_scan_to_map_blocked(scans[b], cfg, uniforms=U[b],
+                                                 sequential_fallback=False, **kw)
+        else:
+            sst, so = pm.run_scan_to_map(scans[b], cfg, uniforms=U[b],
+                                         use_const_velocity_rot=True)
+        for f in dataclasses.fields(so):
+            assert torch.equal(getattr(bo, f.name)[b], getattr(so, f.name)), f.name
+        for x, y in zip(bst.vmap.stream(b).tables(), sst.vmap.tables()):
+            assert torch.equal(x, y)
+        assert torch.equal(bst.world_T[b], sst.world_T)
 
 
 # ---- the masked 1-NN search (csrc/nn_search.cu, K2 and K3) against its

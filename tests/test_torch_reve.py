@@ -151,3 +151,22 @@ def test_batch_uniforms_are_the_jax_batch_draws(block, frames):
             keys = list(jax.random.split(key, frames))
         want.append([np.asarray(jax.random.uniform(k, (3 * H,))) for k in keys])
     np.testing.assert_array_equal(reve_batch_uniforms(7, B, frames, block, H), np.asarray(want))
+
+
+@pytest.mark.parametrize("block,frames", [(8, 24), (0, 6)])
+def test_stream_uniforms_are_the_jax_runner_draws(block, frames):
+    """`reve_uniforms` gives the draws of JAX's single-stream runners on
+    key(seed): the blocked runner's warm-up and block keys, or the
+    per-frame runner's one key a frame."""
+    from icp4dradar_tpu_torch.utils import reve_uniforms
+
+    H = pr.reve_hypotheses(JaxReveConfig())
+    key = jax.random.key(11)
+    if block:
+        kwarm, kblocks = jax.random.split(key)
+        keys = list(jax.random.split(kwarm, block)) + list(
+            jax.random.split(kblocks, frames - block))
+    else:
+        keys = list(jax.random.split(key, frames))
+    want = [np.asarray(jax.random.uniform(k, (3 * H,))) for k in keys]
+    np.testing.assert_array_equal(reve_uniforms(11, frames, block, H), np.asarray(want))

@@ -54,9 +54,12 @@ def _sequence(junk=False, n=N):
                       turn_rate=0.03, seed=0)
     js = jax_stack([seq.scan(k) for k in range(F)])
     if junk:
-        # half a block of structureless junk (an interference burst)
+        # half a block of structureless junk (an interference burst): ghost
+        # points 40-60 m above the road, where they match no structure
         xyz = np.asarray(js.xyz).copy()
-        xyz[12:16] = np.random.default_rng(7).uniform(-60, 60, xyz[12:16].shape)
+        rng = np.random.default_rng(7)
+        xyz[12:16] = rng.uniform(-60, 60, xyz[12:16].shape)
+        xyz[12:16, :, 2] = rng.uniform(40, 60, xyz[12:16, :, 2].shape)
         js = js.replace(xyz=jnp.asarray(xyz.astype(np.float32)))
     ps = scans_from_numpy({k: np.asarray(getattr(js, k)) for k in SCAN_FIELDS},
                           device="cpu")
@@ -131,9 +134,12 @@ def test_run_scan_to_map_blocked_matches_jax():
 def test_blocked_sequential_fallback_contains_adverse_block():
     """A block with four frames of junk looks lost after the joint GN; the
     block re-tracks frame by frame, the pose stays finite and proper, and
-    tracking recovers after the outage (tests/test_models.py's case, at
-    1024 points: at 512 both packages walk off by ~4 m). The junk frames
-    themselves register chaotically in both and are not compared."""
+    tracking recovers after the outage (tests/test_models.py's case at 1024
+    points, with its junk lifted 40-60 m above the road). The junk frames
+    match nothing and are not compared. Junk spread through the whole
+    scene, as tests/test_models.py draws it, registers chaotically: there
+    the JAX package's own single-stream run and its vmapped run of the same
+    stream end 2.8 m apart, so no comparison with it is stable."""
     cfg = _cfg()
     seq, js, ps = _sequence(junk=True, n=1024)
     _, jo = j_run_blocked(js, cfg, block=8, use_const_velocity_rot=True)
