@@ -17,7 +17,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              identical to the call without the mask), a ragged case with
              random masks, a pair whose targets are all masked and one
              with no valid source, exact ties (two, and four in one pair
-             across the kernel's chunks), and the full bench batch (1024
+             across the kernel's chunks), the multi-tile shape of the
+             local-map pass (8 pairs x 4096 x 4096: ties across the
+             2048-row tile boundary, over both tiles and first in the
+             second tile, and a pair with 2049 live targets among masked
+             rows, each tie's average exact), and the full bench batch (1024
              pairs; clouds prepared once against the per-call path);
              tolerance rtol 1e-4 / atol 1e-3 on every moment. Times both at
              1024 x 2048 x 2048 (one ICP iteration on prepared clouds; CUDA
@@ -35,6 +39,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              active at each ICP iteration (the kernel sweeps only those).
              Also checks that the CUDA path agrees with the CPU path on a
              16-frame x 256-point input.
+4b. local map — local_map_refinement over phase 4's track: 68 windows of
+             15 frames subsampled to 4096 points, 67 pairs x 4096 x 4096 in
+             one batched ICP (K1's multi-tile path), launches counted (must
+             equal ICP iterations + 1); the corrections of pairs 0, 22, 44
+             and 66 run again on the CPU (the plain version; all 67 take ~4
+             min there) within 1e-4 with equal iterations. Prints one K1
+             iteration at this shape (CUDA events, median of 10) beside its
+             FP32 bound (0.151 ms) and slot floor (0.302 ms), its plain
+             version and the whole pass.
 5. s2m     — the scan-to-map bench cell of `bench.py` (the first 256 frames
              of the same sequence) through run_scan_to_map_blocked(block=8,
              use_const_velocity_rot=True): warm-up, then one timed run with
@@ -45,7 +58,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              non-finite outputs, on a lost frame (fitness 1e6) or on an ATE
              (align=False) outside 0.034 +- 0.01 m. A third run prints the
              host-clock phase split (REVE, sorts, sector query, GN loop,
-             insert). Also checks CUDA against CPU on a 24 x 256 input.
+             insert). Also checks CUDA against CPU on a 24 x 256 input, and
+             runs the map API (radius and box searches, box delete and its
+             acquiring form, box re-add, point delete, a maybe_rehash of
+             the deletes' tombstones) on the final map (capacity 2^18) on
+             the card and on the CPU: tables, points, masks and counts
+             equal.
+5c. session — OdometrySession at full width (the first 256 bench frames,
+             2048 points, capacity 2^18, submap 2^14): frames 0-7 through
+             `process`, then 31 `process_batch(block=8)` calls,
+             checkpointed after frame 128, K4 launches counted per call
+             (a process frame's sweeps; a healthy batch's largest; a batch
+             that falls back to the sequential re-track, its re-track's
+             sweeps plus a joint GN of 1 to 64); ATE within 0.01 m of the
+             JAX CPU run of the
+             same schedule on the same keys
+             (scripts/port_session_reference.py, 0.03346 m). A second
+             session resumes from the file and feeds frames 128-255: its
+             poses, final pose and tables equal, bit for bit. An all-NaN
+             scan is absorbed and a step whose pose goes non-finite
+             (injected) is skipped, the state kept bit for bit. Prints the
+             `process` and `process_batch` scans/s with the card's name and
+             power limit.
 5b. batch  — B-stream serving, `bench.py`'s third cell: 4 streams, stream b
              the frames [256 b, 256 b + 256) of the bench sequence, through
              run_scan_to_map_batch(block=8, use_const_velocity_rot=True),
@@ -188,6 +222,16 @@ KERNEL_REPLACES = "icp4dradar_tpu/ops/icp_fused.py:36"
 VGICP_SOURCE = "icp4dradar_tpu_torch/csrc/vgicp_sweep.cu"
 VGICP_REPLACES = "icp4dradar_tpu/ops/vgicp_fused.py:98"
 VG_RTOL, VG_ATOL = 1e-5, 1e-4
+LOCAL_MAP_WINDOW, LOCAL_MAP_POINTS = 15, 4096
+# the pairs of the local-map pass run again on the CPU (the plain version)
+LOCAL_MAP_CPU_PAIRS = (0, 22, 44, 66)
+# tests/test_torch_icp_moments.py::test_batched_icp_matches_jax_per_pair
+ICP_PARITY_ATOL = 1e-4
+SESSION_FRAMES, SESSION_WARM, SESSION_BLOCK, SESSION_CHECKPOINT = 256, 8, 8, 128
+# the JAX package's CPU run of the same session schedule on the same keys
+# (scripts/port_session_reference.py)
+SESSION_ATE_JAX = 0.03346
+SESSION_ATE_BAND = 0.01
 S2M_FRAMES, S2M_BLOCK = 256, 8
 S2M_ATE_EXPECTED, S2M_ATE_BAND = 0.034, 0.01
 BATCH_STREAMS = 4
@@ -457,6 +501,8 @@ def phase_kernel(torch, scans):
         raise RuntimeError(f"[kernel] ties across chunks: swq {k[0, 4:7].tolist()} swd2 "
                            f"{k[0, 16].item()}, expected [31.75, 2.25, 0.5] and 10")
 
+    max_err = max(max_err, multi_tile_case(torch, dev, rng, both))
+
     # the full bench batch: one ICP iteration of the main path, on clouds
     # prepared once (as the ICP loop prepares them) and per call
     src, sm = scans.xyz, scans.mask
@@ -505,6 +551,61 @@ def phase_kernel(torch, scans):
         f"{slots_ms / ms:.3f} / {slots_all_ms / ms:.3f} of the slot floor (live / all)")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def multi_tile_case(torch, dev, rng, both):
+    """K1 beyond one 2048-row tile (the local-map shape): 8 pairs x 4096
+    sources x 4096 targets, the staging loop running twice and the tie
+    re-scan reading L2. Pair 0, under the identity: an exact tie across the
+    tile boundary (rows 2047 and 2048), a four-way tie over both tiles
+    (rows 5, 1000, 3000, 4095) and a tie whose first row lies in the second
+    tile (rows 3500 and 3600, different chunks); dyadic values, so the
+    averages are exact. Pair 7: 2049 live targets among masked rows (one row
+    in the second tile), a tie between the first and the last live row.
+    Returns the largest moment difference."""
+    B, N, M = 8, 4096, 4096
+    xi = rng.normal(0.0, [0.5, 0.5, 0.1, 0.01, 0.01, 0.05], (B, 6)).astype(np.float32)
+    from icp4dradar_tpu_torch.geom import se3_exp
+
+    T = se3_exp(torch.from_numpy(xi).to(dev)).contiguous()
+    T[0] = torch.eye(4, device=dev)
+    T[7] = torch.eye(4, device=dev)
+    src = torch.from_numpy(rng.normal(0, 20, (B, N, 3)).astype(np.float32)).to(dev)
+    tgt = torch.from_numpy(rng.normal(0, 20, (B, M, 3)).astype(np.float32)).to(dev)
+    sm = torch.from_numpy((rng.uniform(size=(B, N)) > 0.1).astype(np.float32)).to(dev)
+    tm = torch.ones((B, M), device=dev)
+    tm[3] = torch.from_numpy((rng.uniform(size=M) > 0.3).astype(np.float32)).to(dev)
+    # (source, rows, offsets from the source), each offset at d2 = 5
+    ties = (((200., 0., 0.), (2047, 2048), ((1., 2., 0.), (1., -2., 0.))),
+            ((0., 200., 0.), (5, 1000, 3000, 4095),
+             ((2., 1., 0.), (1., 2., 0.), (-2., 1., 0.), (0., -1., 2.))),
+            ((0., -200., 0.), (3500, 3600), ((1., 2., 0.), (2., 1., 0.))))
+    want = []
+    for i, (p, rows, offs) in enumerate(ties):
+        src[0, i] = torch.tensor(p, device=dev)
+        sm[0, i] = 1.0
+        for r, o in zip(rows, offs):
+            tgt[0, r] = torch.tensor(p, device=dev) + torch.tensor(o, device=dev)
+        want.append(np.asarray(p) + np.mean(offs, axis=0))
+    live = np.sort(rng.choice(M, 2049, replace=False))
+    tm[7] = 0.0
+    tm[7, torch.from_numpy(live).to(dev)] = 1.0
+    p7 = torch.tensor([0.0, 0.0, 300.0], device=dev)
+    src[7, 0], sm[7, 0] = p7, 1.0
+    tgt[7, int(live[0])] = p7 + torch.tensor([1.0, 2.0, 0.0], device=dev)
+    tgt[7, int(live[-1])] = p7 + torch.tensor([2.0, 1.0, 0.0], device=dev)
+    err, _ = both(f"multi-tile B={B} {N}x{M}: ties across the tile boundary, over both "
+                  f"tiles, first in the second tile; 2049 live targets", T, src, sm, tgt, tm)
+    one = torch.ones((1,), device=dev)
+    for (p, rows, _), w in zip(ties + (((0.0, 0.0, 300.0), (live[0], live[-1]), None),),
+                               want + [np.asarray([0.0, 0.0, 300.0]) + [1.5, 1.5, 0.0]]):
+        b = 7 if p[2] == 300.0 else 0
+        m = both(f"multi-tile tie at rows {tuple(int(r) for r in rows)} of pair {b}",
+                 T[b], torch.tensor([p], device=dev), one, tgt[b], tm[b])[1]
+        if m[4:7].tolist() != list(w) or m[16].item() != 5.0:
+            raise RuntimeError(f"[kernel] multi-tile tie at rows {rows}: q {m[4:7].tolist()} "
+                               f"d2 {m[16].item()}, expected {list(w)} and 5")
+    return err
 
 
 def phase_slice(torch, seq, scans):
@@ -583,7 +684,92 @@ def phase_slice(torch, seq, scans):
         f"equal {bool((o_gpu.accepted.cpu() == o_cpu.accepted).all())}")
     if d > 1e-3 or not bool((o_gpu.accepted.cpu() == o_cpu.accepted).all()):
         raise RuntimeError("[slice] CUDA and CPU paths disagree on 16x256")
-    return launches, F / dt, ate
+    return launches, F / dt, ate, out.world_T.cpu().numpy()
+
+
+def phase_local_map(torch, scans, poses):
+    """Window ICP over phase 4's s2s track of the bench sequence: 68
+    windows of 15 frames, subsampled to 4096 points, 67 pairs in one batched
+    ICP (K1 at 67 x 4096 x 4096, its multi-tile path)."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.models import build_windows, local_map_refinement
+    from icp4dradar_tpu_torch.ops import icp_fused
+    from icp4dradar_tpu_torch.registration.icp import icp_point_to_point
+
+    cfg = PipelineConfig().icp
+    W, P = LOCAL_MAP_WINDOW, LOCAL_MAP_POINTS
+    xyz, mask = scans.xyz.cpu().numpy(), scans.mask.cpu().numpy()
+    local_map_refinement(xyz[:2 * W], mask[:2 * W], poses[:2 * W], W, P, cfg)   # warm-up
+    torch.cuda.synchronize()
+    icp_fused.ICP_MOMENTS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    T = local_map_refinement(xyz, mask, poses, W, P, cfg)
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    launches = icp_fused.ICP_MOMENTS_LAUNCHES
+    # the same windows again, for the iteration counts, the CPU run and the
+    # timings (deterministic: the corrections must be the pass's)
+    t0 = time.perf_counter()
+    wins, masks = build_windows(xyz, mask, poses, W, P)
+    windows_ms = (time.perf_counter() - t0) * 1e3
+    pairs = len(wins) - 1
+    dev = scans.xyz.device
+    src, tgt, sm, tm = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                        for x in (wins[1:], wins[:-1], masks[1:], masks[:-1]))
+    res = icp_point_to_point(src, tgt, sm, tm, cfg=cfg)
+    iters = int(res.iterations.max().item())
+    its = res.iterations.cpu().numpy()
+    log(f"[local map] {len(wins)} windows of {W} frames, {pairs} pairs x {P} x {P} (live rows "
+        f"a window {int(masks.sum(axis=1).min())}-{int(masks.sum(axis=1).max())}); pass "
+        f"{pass_ms:.2f} ms, of which the windows on the host (numpy) {windows_ms:.2f} ms; "
+        f"icp_moments launches {launches}, ICP iterations {iters} (per pair "
+        f"mean {its.mean():.2f}, {int((its >= cfg.max_iterations).sum())} at the cap); "
+        f"correction |t| max {np.abs(T[:, :3, 3]).max():.4f} m")
+    if launches <= 0 or launches != iters + 1:
+        raise RuntimeError(f"[local map] launch count {launches} != ICP iterations {iters} + 1")
+    if T.shape != (pairs, 4, 4) or not np.isfinite(T).all() or \
+            not np.array_equal(res.transform.cpu().numpy(), T):
+        raise RuntimeError("[local map] corrections non-finite, misshapen or not repeatable")
+    # the plain version on the CPU, on a few of the pairs (each pair's
+    # result is its own: converged pairs freeze); all 67 take ~4 min there
+    sel = [b for b in LOCAL_MAP_CPU_PAIRS if b < pairs]
+    t0 = time.perf_counter()
+    cpu = icp_point_to_point(*(x[sel].cpu() for x in (src, tgt, sm, tm)), cfg=cfg)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(cpu.transform.numpy() - T[sel]).max())
+    same_its = bool((cpu.iterations.numpy() == its[sel]).all())
+    log(f"[local map] CPU (plain version) on pairs {sel}: max |T| difference {err:.3e} "
+        f"(tolerance {ICP_PARITY_ATOL}), iterations equal {same_its}, {cpu_s:.1f} s")
+    if not err <= ICP_PARITY_ATOL or not same_its:
+        raise RuntimeError(f"[local map] card and CPU disagree: {err:.3e}, iterations equal "
+                           f"{same_its}")
+
+    # one K1 iteration at this shape, at the identity (the pass's first)
+    ops = icp_fused.icp_prepare(src, sm, tgt, tm)
+    T0 = torch.eye(4, device=dev).expand(pairs, 4, 4).contiguous()
+
+    def kernel():
+        return icp_fused.icp_moments(T0, ops)
+
+    def plain():
+        return icp_fused.icp_iteration_moments_plain(T0, src, sm, tgt, tm)
+
+    k1, k2 = (time_cuda(torch, kernel) for _ in range(2))
+    plain_ms = time_cuda(torch, plain, reps=3, warmup=1)
+    dev_ms = kernel_device_ms(torch, kernel, ("icp_moments_kernel",), calls=10)
+    ms = (k1 + k2) / 2
+    live = int(((sm > 0).sum(dim=1) * (tm > 0.5).sum(dim=1)).sum().item())
+    nbytes = 4 * (16 * pairs + 8 * pairs * P + 19 * pairs)
+    bound_ms, bound_by = roofline(nbytes, ICP_FLOPS_PER_PAIR * live)
+    slots_ms = ICP_FLOPS_PER_PAIR * live / SLOTS_PER_S * 1e3
+    log(f"[local map] K1 at {pairs} x {P} x {P}: one iteration {k1:.4f} / {k2:.4f} ms on "
+        f"prepared clouds (device time of the kernel alone {fmt_ms(dev_ms)}, profiler), plain "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, {live} live pairs), slot "
+        f"floor {slots_ms:.4f} ms; the kernel at {bound_ms / ms:.3f} of the bound and "
+        f"{slots_ms / ms:.3f} of the slot floor; the pass {pass_ms:.2f} ms")
+    return dict(local_map_launches=launches, local_map_ms=ms, local_map_device_ms=dev_ms,
+                local_map_plain_ms=plain_ms, local_map_bound_ms=bound_ms,
+                local_map_slot_floor_ms=slots_ms, local_map_pass_ms=pass_ms,
+                local_map_max_abs_err=err)
 
 
 def phase_s2m(torch, seq, scans):
@@ -801,6 +987,192 @@ def phase_batch(torch, seq, scans, s2m_rate):
                            f"{'equal' if tables else 'differ'}")
     phase_map_cuda_cpu(torch, state, cfg)
     return dict(launches=launches, rate=rate, state=state, out=out, batch=batch, uniforms=U)
+
+
+def phase_session(torch, seq, scans, card):
+    """The streaming session at full width: the first 256 bench frames
+    (2048 points, map capacity 2^18, submap 2^14). Session A: frames 0-7
+    one `process` call each, then 31 `process_batch(block=8)` calls,
+    checkpointed after frame 128. Session B resumes from that file and
+    feeds frames 128-255: its pose, outputs and tables must equal A's bit
+    for bit."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.models import OdometrySession, scan_to_map, streaming
+    from icp4dradar_tpu_torch.ops import vgicp_fused
+    from icp4dradar_tpu_torch.utils import ate_rmse
+
+    cfg = PipelineConfig()
+    F, W, blk, ck = SESSION_FRAMES, SESSION_WARM, SESSION_BLOCK, SESSION_CHECKPOINT
+    s = scans[:F]
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_session")
+    a = OdometrySession(cfg, checkpoint_dir=ckdir, checkpoint_every=0)
+    scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS = 0
+    vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+    # K4 launches against the sweeps the outputs report: a process frame
+    # launches once a sweep, a healthy batch (one block) as often as its
+    # slowest frame; a batch that falls back to the sequential re-track
+    # reports the re-track's sweeps, after a joint GN of 1 to
+    # gicp.max_iterations sweeps that no output reports
+    outs, t_proc, t_batch = [], 0.0, {"healthy": [], "re-track": []}
+    split = {"process": 0, "healthy": 0, "re-track": 0, "joint": 0}
+    bad, re_tracked = [], []
+    for k in range(W):
+        n0 = vgicp_fused.VGICP_SWEEP_LAUNCHES
+        t0 = time.perf_counter()
+        o = a.process(s[k])
+        torch.cuda.synchronize()
+        t_proc += time.perf_counter() - t0
+        outs.append((o.world_T[None], o.iterations[None]))
+        split["process"] += int(o.iterations.item())
+        if vgicp_fused.VGICP_SWEEP_LAUNCHES - n0 != int(o.iterations.item()):
+            bad.append(k)
+    for f0 in range(W, F, blk):
+        n0, fb0 = vgicp_fused.VGICP_SWEEP_LAUNCHES, scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS
+        t0 = time.perf_counter()
+        o = a.process_batch(s[f0:f0 + blk], block=blk)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        outs.append((o.world_T, o.iterations))
+        n = vgicp_fused.VGICP_SWEEP_LAUNCHES - n0
+        healthy = scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS == fb0
+        t_batch["healthy" if healthy else "re-track"].append(dt)
+        if healthy:
+            split["healthy"] += int(o.iterations.max().item())
+            ok = n == int(o.iterations.max().item())
+        else:
+            re_tracked.append(f0)
+            split["re-track"] += int(o.iterations.sum().item())
+            joint = n - int(o.iterations.sum().item())
+            split["joint"] += joint
+            ok = 1 <= joint <= cfg.gicp.max_iterations
+        if not ok:
+            bad.append(f0)
+        if a.frame == ck:
+            a.checkpoint()
+    launches = vgicp_fused.VGICP_SWEEP_LAUNCHES
+    fallbacks = scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS
+    world_T = torch.cat([x for x, _ in outs])
+    its = torch.cat([x for _, x in outs]).cpu().numpy()
+    poses = world_T.cpu().numpy()
+    ate = ate_rmse(poses[:, :3, 3], seq.poses[:F, :3, 3], align=False)
+    batch_rate = (F - W) / sum(sum(v) for v in t_batch.values())
+    log(f"[session] {W} process calls at {W / t_proc:.1f} scans/s, {(F - W) // blk} "
+        f"process_batch calls (block {blk}) at {batch_rate:.1f} scans/s (" + ", ".join(
+            f"{len(v)} {k} at {blk * len(v) / sum(v):.1f}" for k, v in t_batch.items() if v)
+        + f"; {card}); "
+        f"vgicp_sweep launches {launches} = " + " + ".join(f"{v} {k}" for k, v in split.items())
+        + f" (sweeps of the process frames, the healthy batches' largest, the re-tracked "
+        f"batches' and their joint GN's); fallback blocks {fallbacks} of {(F - W) // blk}, the "
+        f"batches from frames {re_tracked} (the session runs no rotation prior, as JAX's); "
+        f"sweeps reported {int(its.sum())}; skipped "
+        f"{a.skipped_frames}; ATE (align=False) {ate:.4f} m, the JAX CPU run's "
+        f"{SESSION_ATE_JAX} m (scripts/port_session_reference.py, +- {SESSION_ATE_BAND})")
+    if launches <= 0 or launches != sum(split.values()) or bad or a.skipped_frames:
+        raise RuntimeError(f"[session] launches disagree with the sweeps at frames {bad}, or "
+                           f"{a.skipped_frames} skipped frames")
+    if not np.isfinite(poses).all() or not abs(ate - SESSION_ATE_JAX) <= SESSION_ATE_BAND:
+        raise RuntimeError(f"[session] ATE {ate:.4f} m outside {SESSION_ATE_JAX} +- "
+                           f"{SESSION_ATE_BAND} m, or non-finite poses")
+
+    b = OdometrySession(cfg, checkpoint_dir=ckdir, checkpoint_every=0)
+    if b.resume() != ck:
+        raise RuntimeError(f"[session] resumed at frame {b.frame}, expected {ck}")
+    t0 = time.perf_counter()
+    rest = [b.process_batch(s[f0:f0 + blk], block=blk).world_T for f0 in range(ck, F, blk)]
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    same_out = torch.equal(torch.cat(rest), world_T[ck:])
+    same_pose = torch.equal(b.state.world_T, a.state.world_T)
+    same_tables = all(torch.equal(x, y) for x, y in zip(b.state.vmap.tables(),
+                                                         a.state.vmap.tables()))
+    log(f"[session] B resumed from A's checkpoint at frame {ck} and fed frames {ck}-{F - 1} "
+        f"({(F - ck) / t_b:.1f} scans/s): poses {'equal' if same_out else 'differ'}, final pose "
+        f"{'equal' if same_pose else 'differs'}, tables {'equal' if same_tables else 'differ'} "
+        f"to A's, bit for bit; checkpoint file "
+        f"{os.path.getsize(os.path.join(ckdir, 'session.npz')) / 2**20:.1f} MiB")
+    if not (same_out and same_pose and same_tables):
+        raise RuntimeError("[session] resume -> continue differs from the straight run")
+
+    # the guard: an all-NaN scan is absorbed (REVE's gates drop its points,
+    # nothing registers or inserts; as in the JAX session), a step whose pose
+    # goes non-finite (injected) is skipped; the state stays bit for bit
+    snap = [b.state.world_T.clone()] + [t.clone() for t in b.state.vmap.tables()]
+
+    def kept():
+        return all(torch.equal(x, y) for x, y in
+                   zip([b.state.world_T] + list(b.state.vmap.tables()), snap))
+
+    nan = s[0].replace(xyz=torch.full_like(s[0].xyz, float("nan")),
+                       doppler=torch.full_like(s[0].doppler, float("nan")))
+    b.process(nan)
+    absorbed = b.skipped_frames == 0 and kept()
+    real = streaming.scan_to_map_step
+
+    def blown(*args, **kw):
+        st, out = real(*args, **kw)
+        return dataclasses.replace(st, world_T=st.world_T * float("nan")), out
+
+    streaming.scan_to_map_step = blown
+    try:
+        b.process(s[F - 1])
+    finally:
+        streaming.scan_to_map_step = real
+    skipped = b.skipped_frames == 1 and kept()
+    log(f"[session] all-NaN scan: skipped_frames {0 if absorbed else b.skipped_frames}, state "
+        f"{'kept' if absorbed else 'changed'}; a non-finite step: skipped_frames "
+        f"{b.skipped_frames}, state {'kept' if skipped else 'changed'} bit for bit")
+    if not (absorbed and skipped):
+        raise RuntimeError("[session] the non-finite guard did not keep the state")
+    return dict(session_launches=launches, session_process_rate=W / t_proc,
+                session_batch_rate=batch_rate)
+
+
+def phase_map_api(torch, state):
+    """The ikd-Tree-style map API on phase 5's final map (capacity 2^18), on
+    the card and on the CPU: tables, points, masks and counts equal."""
+    from icp4dradar_tpu_torch.mapping import (
+        voxel_map_add_box, voxel_map_box_search, voxel_map_delete_box,
+        voxel_map_delete_box_acquire, voxel_map_delete_points, voxel_map_maybe_rehash,
+        voxel_map_radius_search,
+    )
+
+    c = state.world_T[:3, 3]
+    lo, hi = c - torch.tensor([30.0, 30.0, 5.0], device=c.device), c + 30.0
+    probe = torch.cat([state.vmap.points[state.vmap.occupied > 0.5][:3000],
+                       c + torch.rand((500, 3), device=c.device) * 500.0 + 200.0])
+    pmask = (torch.arange(probe.shape[0], device=c.device) % 3 != 0).float()
+
+    def run(dev):
+        vm = state.vmap.with_tables(t.to(dev) for t in state.vmap.tables())
+        cd, lod, hid = c.to(dev), lo.to(dev), hi.to(dev)
+        deleted = voxel_map_delete_box(vm, lod, hid)
+        acq = voxel_map_delete_box_acquire(vm, lod, hid, 1 << 14)
+        added = voxel_map_add_box(deleted, lod, cd)
+        outs = {
+            "radius_search": voxel_map_radius_search(vm, cd, 40.0, 1 << 14),
+            "box_search": voxel_map_box_search(vm, lod, hid, 1 << 14),
+            "delete_box": deleted.tables(),
+            "delete_box_acquire": acq[0].tables() + acq[1:],
+            "add_box": added.tables(),
+            "delete_points": voxel_map_delete_points(vm, probe.to(dev), pmask.to(dev)).tables(),
+            "maybe_rehash": voxel_map_maybe_rehash(deleted, 0.001).tables(),
+        }
+        torch.cuda.synchronize()
+        return outs
+
+    t0 = time.perf_counter()
+    gpu = run(c.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = run("cpu")
+    bad = [k for k in gpu if not all(torch.equal(a.cpu(), b) for a, b in zip(gpu[k], cpu[k]))]
+    log(f"[s2m] map API on the final map (capacity {state.vmap.capacity}): radius search "
+        f"{int(gpu['radius_search'][2])} points, box search {int(gpu['box_search'][2])}, box "
+        f"delete {int(gpu['delete_box_acquire'][-1])} removed; CUDA equal to CPU for "
+        f"{len(gpu) - len(bad)} of {len(gpu)} ({', '.join(bad) or 'all'}"
+        f"{' differ' if bad else ''}); {ms:.2f} ms on the card")
+    if bad:
+        raise RuntimeError(f"[s2m] map API: CUDA and CPU differ in {bad}")
 
 
 def phase_map_cuda_cpu(torch, state, cfg):
@@ -2095,8 +2467,11 @@ def main(argv) -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     icp = phase_kernel(torch, scans)
-    icp_launches, scans_per_s, ate = phase_slice(torch, seq, scans)
+    icp_launches, scans_per_s, ate, s2s_poses = phase_slice(torch, seq, scans)
+    local_map = phase_local_map(torch, scans, s2s_poses)
     vg_launches, state, out, s2m, s2m_rate = phase_s2m(torch, seq, scans)
+    phase_map_api(torch, state)
+    session = phase_session(torch, seq, scans, card)
     batch = phase_batch(torch, seq, scans, s2m_rate)
     vg, sweep_ops = phase_vgicp(torch, state, out, s2m)
     vg_streams = phase_vgicp_streams(torch, batch)
@@ -2113,10 +2488,11 @@ def main(argv) -> int:
 
     log(json.dumps({"kernels": [
         {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": icp_launches, **icp},
+         "replaces": KERNEL_REPLACES, "launches": icp_launches, **icp, **local_map},
         {"name": "vgicp_sweep", "route": "cuda", "source": VGICP_SOURCE,
          "replaces": VGICP_REPLACES, "launches": vg_launches, **vg,
-         "batch_launches": batch["launches"], **vg_streams},
+         "batch_launches": batch["launches"], **vg_streams,
+         "session_launches": session["session_launches"]},
         {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_REPLACES, "launches": nn_launches, **nn},
         {"name": "nn_pack", "route": "cuda", "source": NN_SOURCE,

@@ -32,14 +32,22 @@ chunk.
 
 Forgetting (`voxel_map_forget_far`: tombstones that keep their keys) and
 the rebuild that reclaims tombstoned slots (`voxel_map_rehash`,
-`voxel_map_maybe_rehash`). The point/box deletes and the radius/box
-searches are not ported yet (`ROADMAP.md` queue 1 item 2).
+`voxel_map_maybe_rehash`).
+
+The ikd-Tree-style edits and queries, on a single table: radius and box
+searches (`Radius_Search`, `Box_Search`, ikd_Tree.cpp:401-414), box and
+point deletes (`Delete_by_range`, `Delete_Points`, ikd_Tree.cpp:522-564,
+656-718; tombstones, as forgetting makes them), the box delete that hands
+back what it removed (`acquire_removed_points`, :567-581) and the box
+re-add that revives tombstones (`Add_by_range`, :500-519). They are masked
+selections and writes, equal to the JAX functions bit for bit.
 
 A batched map (`voxel_map_create(..., streams=S)`) holds one private table
 per stream in (S, C, ...) tensors, the JAX package's vmapped layout: insert,
 the sector queries, forget and rehash take a leading stream axis and run
 every stream in the same launches; stream s of each equals the single-table
-call on table s, bit for bit. The lookups and k-NN take single tables.
+call on table s, bit for bit. The lookups, the k-NN and the ikd-Tree-style
+edits and queries take single tables.
 """
 
 from __future__ import annotations
@@ -417,6 +425,41 @@ def voxel_map_sector_search_with_stats(
     return out[..., :3], mask, count, mu, cov
 
 
+def _single_table(vmap: VoxelHashMap, name: str) -> None:
+    if vmap.streams is not None:
+        raise ValueError(f"{name} takes a single table, not a batched map of "
+                         f"{vmap.streams} streams")
+
+
+def _in_box(vmap: VoxelHashMap, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(C,) bool: the stored point lies in [lo, hi] (3,) on every axis."""
+    return torch.all((vmap.points >= lo) & (vmap.points <= hi), dim=-1)
+
+
+def voxel_map_radius_search(
+    vmap: VoxelHashMap, center: torch.Tensor, radius: float, out_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stored points within `radius` of `center` (3,), compacted to
+    (out_size, 3) + mask + count (ikd-Tree `Radius_Search`,
+    ikd_Tree.cpp:408-414). One masked pass over the table."""
+    _single_table(vmap, "voxel_map_radius_search")
+    d = vmap.points - center
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    sel = (vmap.occupied > 0.5) & (d2 < radius * radius)
+    return mask_compact(vmap.points, sel.to(vmap.points.dtype), out_size)
+
+
+def voxel_map_box_search(
+    vmap: VoxelHashMap, lo: torch.Tensor, hi: torch.Tensor, out_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stored points in the axis-aligned box [lo, hi] (3,) each, compacted
+    to (out_size, 3) + mask + count (ikd-Tree `Box_Search`,
+    ikd_Tree.cpp:401-406)."""
+    _single_table(vmap, "voxel_map_box_search")
+    sel = (vmap.occupied > 0.5) & _in_box(vmap, lo, hi)
+    return mask_compact(vmap.points, sel.to(vmap.points.dtype), out_size)
+
+
 def _tombstone(vmap: VoxelHashMap, kill: torch.Tensor) -> VoxelHashMap:
     """Clear occupancy and the Gaussian accumulators where `kill`; keys stay,
     so probe chains through these slots remain intact, and an insert
@@ -440,6 +483,68 @@ def voxel_map_forget_far(vmap: VoxelHashMap, center: torch.Tensor,
     d = vmap.points - center[..., None, :]
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
     return _tombstone(vmap, (vmap.occupied > 0.5) & (d2 > radius * radius))
+
+
+def voxel_map_delete_box(vmap: VoxelHashMap, lo: torch.Tensor,
+                         hi: torch.Tensor) -> VoxelHashMap:
+    """Tombstone every voxel whose stored point lies in [lo, hi] (ikd-Tree
+    `Delete_by_range`, ikd_Tree.cpp:656-718, immediate rather than lazy):
+    occupancy and the Gaussian accumulators clear, keys stay, so probe
+    chains stay intact and a later insert revives the slot on a key
+    match."""
+    _single_table(vmap, "voxel_map_delete_box")
+    return _tombstone(vmap, (vmap.occupied > 0.5) & _in_box(vmap, lo, hi))
+
+
+def voxel_map_delete_points(vmap: VoxelHashMap, pts: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None) -> VoxelHashMap:
+    """Tombstone the voxels that contain the points (N, 3) whose mask (N,)
+    is set (ikd-Tree `Delete_Points`, ikd_Tree.cpp:522-542). The map keeps
+    one representative a voxel, so a point deletes its voxel; a point whose
+    voxel is not stored within `max_probes` slots of its hash is a no-op.
+    One gather a probe round, then one masked clear."""
+    _single_table(vmap, "voxel_map_delete_points")
+    C, dev = vmap.capacity, pts.device
+    if mask is None:
+        mask = torch.ones(pts.shape[0], dtype=pts.dtype, device=dev)
+    coords = _voxel_coords(pts, vmap.voxel_size)
+    h = _hash(coords, C)
+    valid = mask > 0.5
+    found = torch.full((pts.shape[0],), C, dtype=torch.int32, device=dev)
+    for j in range(vmap.max_probes):
+        slot = (h + j) & (C - 1)
+        sl = slot.long()
+        hit = (torch.all(vmap.keys[sl] == coords, dim=-1) & (vmap.occupied[sl] > 0.5)
+               & valid & (found >= C))
+        found = torch.where(hit, slot, found)
+    kill = torch.zeros(C + 1, dtype=torch.bool, device=dev)   # row C: not found
+    kill.index_fill_(0, found.long(), True)
+    return _tombstone(vmap, kill[:C])
+
+
+def voxel_map_add_box(vmap: VoxelHashMap, lo: torch.Tensor,
+                      hi: torch.Tensor) -> VoxelHashMap:
+    """Undo a box delete: revive the tombstones (keyed, unoccupied slots)
+    whose stored point lies in [lo, hi] (ikd-Tree `Add_by_range`,
+    ikd_Tree.cpp:500-519). A revived voxel keeps its representative point
+    and intensity; its Gaussian was cleared at the delete, so it carries
+    the fallback covariance until it is observed again."""
+    _single_table(vmap, "voxel_map_add_box")
+    revive = (vmap.keys[:, 0] != _EMPTY) & _in_box(vmap, lo, hi) & (vmap.occupied <= 0.5)
+    return vmap.replace(occupied=torch.where(revive, 1.0, vmap.occupied))
+
+
+def voxel_map_delete_box_acquire(
+    vmap: VoxelHashMap, lo: torch.Tensor, hi: torch.Tensor, out_size: int,
+) -> Tuple[VoxelHashMap, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`voxel_map_delete_box` that also returns the representative points
+    it removed, compacted to (out_size, 3) + mask + count: ikd-Tree's
+    removed-points drain (`acquire_removed_points`, ikd_Tree.cpp:567-581)
+    and the `Delete_Point_Boxes` count (:544-564), with no hidden buffer."""
+    _single_table(vmap, "voxel_map_delete_box_acquire")
+    kill = (vmap.occupied > 0.5) & _in_box(vmap, lo, hi)
+    pts, mask, count = mask_compact(vmap.points, kill.to(vmap.points.dtype), out_size)
+    return _tombstone(vmap, kill), pts, mask, count
 
 
 def voxel_map_rehash(vmap: VoxelHashMap) -> VoxelHashMap:

@@ -12,7 +12,9 @@ Outputs, as the JAX CLI writes them: scan_to_scan writes velocity.txt,
 icp.txt and output_result.csv; scan_to_map writes velocity.txt and
 radar_odometry.txt; both write odom_tum.txt (TUM rows of the world poses),
 pcl_info.txt (the raw point count of each frame) and metrics.jsonl (opened
-before the run, ending in a `run_complete` record). The last stdout line
+before the run, ending in a `run_complete` record), and with `--local-map`
+icp_map.txt (the window ICP corrections of `models/local_map.py`, one row
+per pair of consecutive 15-frame windows). The last stdout line
 is one JSON record with the mode, the device, frames, elapsed seconds,
 scans/s and, for synthetic sequences, the ATE.
 
@@ -78,6 +80,9 @@ def main(argv=None) -> int:
     p.add_argument("--sequential-blocks", action="store_true",
                    help="blocked scan_to_map: register the frames of a block "
                         "one after another instead of the joint GN")
+    p.add_argument("--local-map", action="store_true",
+                   help="window ICP refinement pass -> icp_map.txt "
+                        "(ref USE_LOCAL_MAP)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
 
@@ -92,7 +97,9 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
 
     from icp4dradar_tpu_torch.config import PipelineConfig
-    from icp4dradar_tpu_torch.utils import MetricsLogger, ate_rmse, write_pcl_info, write_tum
+    from icp4dradar_tpu_torch.utils import (
+        MetricsLogger, ate_rmse, write_pcl_info, write_rt_txt, write_tum,
+    )
 
     cfg = PipelineConfig()
     if args.config:
@@ -111,6 +118,12 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     with MetricsLogger(os.path.join(args.out, "metrics.jsonl")) as log:
         poses, elapsed = run_mode(args, cfg, scans)
+        if args.local_map:
+            from icp4dradar_tpu_torch.models.local_map import local_map_refinement
+
+            T_map = local_map_refinement(scans.xyz.cpu().numpy(), scans.mask.cpu().numpy(),
+                                         poses, cfg=cfg.icp, device=device)
+            write_rt_txt(os.path.join(args.out, "icp_map.txt"), T_map)
         write_tum(os.path.join(args.out, "odom_tum.txt"), poses)
         write_pcl_info(os.path.join(args.out, "pcl_info.txt"),
                        scans.mask.sum(dim=-1).cpu().numpy())

@@ -37,9 +37,15 @@ correction composed on the left. As in the JAX package, the blocked runner
 honours `use_vgicp` in its warm-up frames only: its blocks always run
 VGICP (`ROADMAP.md` queue 3).
 
-Not ported yet, each raising NotImplementedError that names its place in
-`ROADMAP.md`: `gt_poses` / `insert_before_registration` (queue 1 item 2)
-and kNN GICP inside a batch (queue 1 item 8); `rigid_union`,
+Mapping on ground truth: with `gt_pose(s)` the prediction is the given
+pose (no motion prior, no Doppler step) and registration only reports a
+correction; `insert_before_registration` inserts the scan at the predicted
+(or ground-truth) pose before registering, and not again after. The
+per-frame runner and the per-frame batch take `gt_poses`; the blocked
+runner has no such argument, as in the JAX package.
+
+Not ported yet, raising NotImplementedError that names its place in
+`ROADMAP.md`: kNN GICP inside a batch (queue 1 item 8); `rigid_union`,
 `accumulate_scans > 1` and its `aux_world_xyz` / `insert_override` are left
 out for good ("Not ported").
 """
@@ -252,23 +258,26 @@ def scan_to_map_step(
     """One tracked frame: VGICP, or kNN GICP with `gicp.use_vgicp=False`.
     An empty map (first frame) gives an identity correction and seeds the
     map. uniforms: (3H,) REVE draws. `prior_delta` (4,4): body-frame motion
-    prior composed into the prediction once the map exists.
+    prior composed into the prediction once the map exists. `gt_pose`
+    (4,4): predict this pose instead (the prior and the Doppler step are
+    skipped). `insert_before_registration`: insert the scan at the
+    predicted pose before registering it, and not after.
 
     On a batched state (B poses, a map of B tables) the frame is one scan
-    per stream, (B, N) fields, uniforms (B, 3H) and prior_delta (B,4,4):
-    one REVE pass, one sector query, one `vgicp_align_streams` and one
-    insert for all streams (VGICP only when B > 1). A single-stream state
+    per stream, (B, N) fields, uniforms (B, 3H), prior_delta and gt_pose
+    (B,4,4): one REVE pass, one sector query, one `vgicp_align_streams`
+    and one insert for all streams (VGICP only when B > 1). A single-stream state
     steps as a batch of one, so that a stream tracks alike, bit for bit,
     alone and in a batch."""
     _check_cfg(cfg)
-    if gt_pose is not None or insert_before_registration:
-        raise _not_ported("gt_pose / insert_before_registration", "queue 1 item 2")
     if aux_world_xyz is not None or aux_mask is not None or insert_override is not None:
         raise _not_ported("aux_world_xyz / insert_override (scan accumulation)",
                           "'Not ported'")
     if state.vmap.streams is None:
         new_state, out = scan_to_map_step(
             _lift_state(state), scan[None], uniforms[None], cfg,
+            gt_pose=None if gt_pose is None else gt_pose[None],
+            insert_before_registration=insert_before_registration,
             use_doppler_prior=use_doppler_prior,
             prior_delta=None if prior_delta is None else prior_delta[None],
             phase_times=phase_times)
@@ -281,19 +290,24 @@ def scan_to_map_step(
         est = estimate_ego_velocity(scan, uniforms, cfg.reve)
     inlier_mask = est.inlier_mask
 
-    pose = state.world_T
+    pose = state.world_T if gt_pose is None else gt_pose
     has_map = state.vmap.num_voxels > 0
-    if prior_delta is not None:
+    if prior_delta is not None and gt_pose is None:
         pose = torch.where(has_map[..., None, None], mm(pose, prior_delta), pose)
-    if use_doppler_prior:
+    if use_doppler_prior and gt_pose is None:
         # the first scan seeds the map at the initial pose
         pose = _add_doppler_step(pose, est.velocity, est.valid & has_map)
 
+    vmap = state.vmap
+    if insert_before_registration:
+        with _phase(phase_times, "insert", dev):
+            vmap = voxel_map_insert(vmap, se3_apply(pose, scan.xyz), inlier_mask,
+                                    scan.intensity)
     heading = matrix_to_rpy(pose[..., :3, :3])[..., 2]
     if cfg.gicp.use_vgicp:
         with _phase(phase_times, "sector_query", dev):
             _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
-                state.vmap, pose[..., :3, 3], vmcfg.sector_radius, heading,
+                vmap, pose[..., :3, 3], vmcfg.sector_radius, heading,
                 vmcfg.sector_half_angle_deg, vmcfg.submap_max_points,
                 min_count=vmcfg.stats_min_count, fallback_var=vmcfg.stats_fallback_var)
         with _phase(phase_times, "gn", dev):
@@ -305,7 +319,7 @@ def scan_to_map_step(
         reg_T, fitness, iterations = g.transform, g.fitness, g.iterations
     else:
         # kNN GICP runs one stream (a batch of one): its single table
-        one, p0 = state.vmap.stream(0), pose[0]
+        one, p0 = vmap.stream(0), pose[0]
         with _phase(phase_times, "sector_query", dev):
             submap, submask, sub_n = voxel_map_sector_search(
                 one, p0[:3, 3], vmcfg.sector_radius, heading[0],
@@ -325,9 +339,10 @@ def scan_to_map_step(
         reg_T = mm(g.transform, p0)[None]                 # left-compose (ref :412)
         fitness, iterations, sub_n = g.fitness[None], g.iterations[None], sub_n[None]
     new_T, insert_mask, _ = _apply_tracking_gate(cfg, pose, reg_T, fitness, inlier_mask)
-    with _phase(phase_times, "insert", dev):
-        vmap = voxel_map_insert(state.vmap, se3_apply(new_T, scan.xyz), insert_mask,
-                                scan.intensity)
+    if not insert_before_registration:
+        with _phase(phase_times, "insert", dev):
+            vmap = voxel_map_insert(vmap, se3_apply(new_T, scan.xyz), insert_mask,
+                                    scan.intensity)
     vmap = _forget(vmap, new_T, cfg, phase_times, dev)
     out = ScanToMapOutput(
         world_T=new_T, correction=mm(new_T, se3_inverse(pose)), velocity=est.velocity,
@@ -356,9 +371,10 @@ def _uniforms_for(scans: RadarScan, cfg: PipelineConfig, uniforms, generator):
 
 
 def _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
-                  use_const_velocity_rot, init_state, phase_times):
+                  use_const_velocity_rot, init_state, phase_times, gt_poses=None,
+                  insert_before_registration=False):
     """The per-frame tracker over (B, F, ...) scans: every frame of every
-    stream in one batched step."""
+    stream in one batched step. gt_poses: (B, F, 4, 4) or None."""
     B, F = scans.xyz.shape[:2]
     dt, dev = scans.xyz.dtype, scans.device
     state = init_state if init_state is not None else scan_to_map_init(cfg, dt, dev, streams=B)
@@ -368,8 +384,10 @@ def _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
         pd = prior_deltas[:, f] if prior_deltas is not None else (
             prev_rot if use_const_velocity_rot else None)
         new_state, out = scan_to_map_step(
-            state, scans[:, f], uniforms[:, f], cfg, use_doppler_prior=use_doppler_prior,
-            prior_delta=pd, phase_times=phase_times)
+            state, scans[:, f], uniforms[:, f], cfg,
+            gt_pose=None if gt_poses is None else gt_poses[:, f],
+            insert_before_registration=insert_before_registration,
+            use_doppler_prior=use_doppler_prior, prior_delta=pd, phase_times=phase_times)
         delta = mm(se3_inverse(state.world_T), new_state.world_T)
         prev_rot = _with_rotation(delta[..., :3, :3])
         state = new_state
@@ -404,13 +422,16 @@ def run_scan_to_map(
     state incl. the built map, stacked per-frame outputs). uniforms: (F, 3H)
     REVE draws. `prior_deltas` (F,4,4): per-frame body motion priors.
     `use_const_velocity_rot`: predict each frame's heading change from the
-    previous frame's refined body delta. `init_state`: continue from an
-    existing {pose, map}."""
+    previous frame's refined body delta (a frame with a ground-truth pose
+    ignores it). `gt_poses` (F,4,4): map on ground truth, each frame
+    predicted at its pose. `insert_before_registration`: insert each scan
+    at its predicted pose before registering it. `init_state`: continue
+    from an existing {pose, map}."""
     _check_cfg(cfg)
-    if gt_poses is not None or insert_before_registration:
-        raise _not_ported("gt_poses / insert_before_registration", "queue 1 item 2")
+    gt = None if gt_poses is None else gt_poses[None]
     return _alone(lambda sc, u, pd, st: _track_frames(
-        sc, cfg, u, use_doppler_prior, pd, use_const_velocity_rot, st, phase_times),
+        sc, cfg, u, use_doppler_prior, pd, use_const_velocity_rot, st, phase_times,
+        gt_poses=gt, insert_before_registration=insert_before_registration),
         scans, _uniforms_for(scans, cfg, uniforms, generator), prior_deltas, init_state)
 
 
@@ -720,7 +741,8 @@ def run_scan_to_map_batch(
     arguments of `run_scan_to_map_blocked`; `sequential_fallback` defaults
     to False, as the JAX package sets it under vmap, and with True only the
     unhealthy streams of a block re-track), else the per-frame one (those
-    of `run_scan_to_map`).
+    of `run_scan_to_map`; `gt_poses` then (B, F, 4, 4), or (F, 4, 4) for
+    every stream, which is what the JAX batch takes).
 
     uniforms: (B, F, 3H) REVE draws; without them each stream draws its
     (F, 3H) in turn from `generator`, by default one seeded with cfg.seed.
@@ -743,10 +765,13 @@ def _batch_frames(scans, cfg, uniforms, gt_poses=None, insert_before_registratio
                   use_doppler_prior=True, prior_deltas=None, use_const_velocity_rot=False,
                   init_state=None, phase_times=None):
     _check_cfg(cfg)
-    if gt_poses is not None or insert_before_registration:
-        raise _not_ported("gt_poses / insert_before_registration", "queue 1 item 2")
+    if gt_poses is not None and gt_poses.dim() == 3:
+        # one (F, 4, 4) track for every stream: the JAX batch closes over
+        # its keyword arguments instead of mapping them over the streams
+        gt_poses = gt_poses.expand((scans.xyz.shape[0],) + tuple(gt_poses.shape))
     return _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
-                         use_const_velocity_rot, init_state, phase_times)
+                         use_const_velocity_rot, init_state, phase_times, gt_poses=gt_poses,
+                         insert_before_registration=insert_before_registration)
 
 
 def _batch_blocked(scans, cfg, uniforms, block, use_doppler_prior=True, prior_deltas=None,

@@ -1,5 +1,6 @@
 """Utilities: metrics (ATE/RPE), trajectory file IO, the JSONL metrics
-logger, and the JAX package's Threefry draws in numpy (`threefry`)."""
+logger, checkpointing, and the JAX package's Threefry draws in numpy
+(`threefry`)."""
 
 from icp4dradar_tpu_torch.utils.logging import MetricsLogger  # noqa: F401
 from icp4dradar_tpu_torch.utils.metrics import ate_rmse, rpe, align_umeyama  # noqa: F401
@@ -12,3 +13,4 @@ from icp4dradar_tpu_torch.utils.trajectory import (  # noqa: F401
     write_tum,
 )
 from icp4dradar_tpu_torch.utils.threefry import reve_batch_uniforms, reve_uniforms  # noqa: F401
+from icp4dradar_tpu_torch.utils.checkpoint import save_checkpoint, load_checkpoint  # noqa: F401

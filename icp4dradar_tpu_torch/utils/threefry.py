@@ -7,7 +7,9 @@ The port draws its REVE RANSAC uniforms from a `torch.Generator`; these
 functions give a run on the card the draws the JAX package makes on the
 same seed, so that a port run and a JAX run of the same sequence can be
 compared stream by stream without the generator's spread
-(`reve_uniforms`, `reve_batch_uniforms`). tests/test_torch_reve.py holds them bit for bit
+(`reve_uniforms`, `reve_batch_uniforms`). The streaming session
+(`models/streaming.py`) keeps its key as this module's key data and draws
+with it, as the JAX session does. tests/test_torch_reve.py holds them bit for bit
 against `jax.random`.
 """
 
@@ -59,14 +61,18 @@ def uniform(k: np.ndarray, n: int) -> np.ndarray:
 
 
 def reve_uniforms(seed: int, frames: int, block: int, hypotheses: int,
-                  k: np.ndarray = None) -> np.ndarray:
+                  k: np.ndarray = None, continued: bool = False) -> np.ndarray:
     """(frames, 3 * hypotheses) float32: the REVE draws the JAX package's
     single-stream runners make with key(seed) (or the key data `k`): with
     block > 1 `run_scan_to_map_blocked` splits the key into a warm-up key
     (the first `block` frames, one split each) and a block key (the rest),
-    `run_scan_to_map` into one key a frame."""
+    `run_scan_to_map` into one key a frame. `continued`: the blocked runner
+    continuing from an `init_state`, which has no warm-up, so every frame
+    draws from the block key."""
     k = key(seed) if k is None else k
-    if block > 1 and frames > block:
+    if block > 1 and continued:
+        keys = split(split(k, 2)[1], frames)
+    elif block > 1 and frames > block:
         kwarm, kblocks = split(k, 2)
         keys = np.concatenate([split(kwarm, block), split(kblocks, frames - block)])
     else:

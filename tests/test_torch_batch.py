@@ -242,7 +242,7 @@ def test_batch_sequential_fallback_retracks_only_the_lost_stream():
 @pytest.mark.parametrize("override,kw", [
     ({"gicp.use_vgicp": False}, {}),
     ({}, {"rigid_union": True, "block": 8}),
-    ({}, {"gt_poses": torch.eye(4).expand(2, 4, 4, 4)}),
+    ({"accumulate_scans": 2}, {}),
 ])
 def test_batch_refuses_what_is_not_ported(override, kw):
     cfg = config_from_dict(_cfg().override(**override).to_dict())

@@ -1,8 +1,10 @@
-"""Card tests of the port's CUDA kernels (ICP moments, VGICP sweep with its
-stream axis and its frozen-payload step, the 1-NN search on prepared
-targets and its coordinate form) against their plain PyTorch versions, of
-the batched voxel map on the card against the CPU, and of a stream of the
-batched tracker against its single-stream run on the card.
+"""Card tests of the port's CUDA kernels (ICP moments, also beyond one
+target tile, VGICP sweep with its stream axis and its frozen-payload step,
+the 1-NN search on prepared targets and its coordinate form) against their
+plain PyTorch versions, of the batched voxel map and the map API on the
+card against the CPU, of a stream of the batched tracker against its
+single-stream run on the card, and of a session's checkpoint -> resume
+against its straight run.
 Marked `gpu`: they skip where torch.cuda.is_available() is False. This
 file imports neither jax nor the JAX package, so on a machine with a card
 and no jax it runs without the suite's conftest:
@@ -108,6 +110,40 @@ def test_three_way_ties_and_inactive_pairs(cuda):
     assert torch.equal(ka[:2], k[:2]) and ka[2].abs().max().item() == 0.0
     pa = icp_iteration_moments_plain(T, src, sm, tgt, tm, active=active)
     torch.testing.assert_close(ka, pa, rtol=RTOL, atol=ATOL)
+
+
+def test_multi_tile_ties(cuda):
+    """K1 beyond one 2048-row tile (the local-map shape): 4 pairs x 4096 x
+    4096, the tie re-scan reading L2. Pair 0: a tie across the tile
+    boundary (rows 2047 and 2048), a four-way tie over both tiles, a tie
+    whose first row is in the second tile; pair 3: 2049 live targets among
+    masked rows, a tie between the first and the last. Dyadic offsets, so
+    the averages are exact."""
+    rng = np.random.default_rng(12)
+    B, N, M = 4, 4096, 4096
+    T, src, sm, tgt, tm = _case(rng, B, N, M, cuda)
+    tm[:3] = 1.0
+    T[0] = T[3] = torch.eye(4, device=cuda)
+    ties = [((200., 0., 0.), 0, (2047, 2048), ((1., 2., 0.), (1., -2., 0.))),
+            ((0., 200., 0.), 0, (5, 1000, 3000, 4095),
+             ((2., 1., 0.), (1., 2., 0.), (-2., 1., 0.), (0., -1., 2.))),
+            ((0., -200., 0.), 0, (3500, 3600), ((1., 2., 0.), (2., 1., 0.)))]
+    live = np.sort(rng.choice(M, 2049, replace=False))
+    tm[3] = 0.0
+    tm[3, torch.from_numpy(live).to(cuda)] = 1.0
+    ties.append(((0., 0., 300.), 3, (int(live[0]), int(live[-1])),
+                 ((1., 2., 0.), (2., 1., 0.))))
+    for i, (p, b, rows, offs) in enumerate(ties):
+        src[b, i], sm[b, i] = torch.tensor(p, device=cuda), 1.0
+        for r, o in zip(rows, offs):
+            tgt[b, r] = torch.tensor(p, device=cuda) + torch.tensor(o, device=cuda)
+    k = icp_iteration_moments(T, src, sm, tgt, tm)
+    torch.testing.assert_close(k, icp_iteration_moments_plain(T, src, sm, tgt, tm),
+                               rtol=RTOL, atol=ATOL)
+    for i, (p, b, rows, offs) in enumerate(ties):
+        m = icp_iteration_moments(T[b], src[b, i:i + 1], sm[b, i:i + 1], tgt[b], tm[b])
+        assert m[4:7].tolist() == list(np.asarray(p) + np.mean(offs, axis=0)), rows
+        assert m[16].item() == 5.0, rows
 
 
 def test_prepared_clouds_match_per_call(cuda):
@@ -391,6 +427,73 @@ def test_small_products_round_alike_at_every_batch_size(cuda):
             assert torch.equal(got[:1], one)
     torch.testing.assert_close(small_matmul(A, B), A @ B, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(pairwise_sum(P, dim=-2), P.sum(-2), rtol=1e-5, atol=1e-2)
+
+
+def test_map_api_cuda_matches_cpu(cuda):
+    """The ikd-Tree-style edits and queries on the card give the CPU's
+    tables, points, masks and counts, bit for bit."""
+    from icp4dradar_tpu_torch.mapping import (
+        voxel_map_add_box, voxel_map_box_search, voxel_map_create, voxel_map_delete_box,
+        voxel_map_delete_box_acquire, voxel_map_delete_points, voxel_map_insert,
+        voxel_map_maybe_rehash, voxel_map_radius_search,
+    )
+
+    rng = np.random.default_rng(6)
+    vm = voxel_map_create(1 << 14, device="cpu")
+    for rnd in range(3):
+        pts = rng.uniform(-30, 30, (2048, 3)).astype(np.float32) + [3.0 * rnd, 0.0, 0.0]
+        vm = voxel_map_insert(vm, torch.from_numpy(pts), torch.ones(2048),
+                              torch.from_numpy(rng.uniform(0, 30, 2048).astype(np.float32)))
+    probe = torch.from_numpy(np.concatenate([pts[:500], rng.uniform(60, 90, (100, 3))])
+                             .astype(np.float32))
+    pmask = (torch.arange(600) % 3 != 0).float()
+    c, lo, hi = torch.tensor([2.0, 1.0, 0.0]), torch.tensor([-5.0, -8.0, -30.0]), \
+        torch.tensor([12.0, 9.0, 30.0])
+
+    def run(dev):
+        m = vm.with_tables(t.to(dev) for t in vm.tables())
+        cd, lod, hid = c.to(dev), lo.to(dev), hi.to(dev)
+        deleted = voxel_map_delete_box(m, lod, hid)
+        acq = voxel_map_delete_box_acquire(m, lod, hid, 4096)
+        return [voxel_map_radius_search(m, cd, 10.0, 4096),
+                voxel_map_box_search(m, lod, hid, 1024),
+                deleted.tables(), acq[0].tables() + acq[1:],
+                voxel_map_add_box(deleted, lod, cd).tables(),
+                voxel_map_delete_points(m, probe.to(dev), pmask.to(dev)).tables(),
+                voxel_map_maybe_rehash(deleted, 0.01).tables()]
+
+    for got, want in zip(run(cuda), run("cpu")):
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_session_resume_equals_straight_run(cuda, tmp_path):
+    """A session on the card checkpointed after 4 `process` calls, resumed
+    by a new session and fed the same 8 frames in `process_batch(block=4)`,
+    equals the session that ran straight through, bit for bit."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io import SyntheticSequence, stack_scans
+    from icp4dradar_tpu_torch.models import OdometrySession
+
+    cfg = PipelineConfig().override(**{"voxel_map.capacity": 1 << 14,
+                                       "voxel_map.submap_max_points": 1 << 12})
+    seq = SyntheticSequence(num_frames=12, max_points=512, num_landmarks=4000,
+                            world_extent=80.0, max_range=60.0, seed=0)
+    scans = stack_scans([seq.scan(k, device=cuda) for k in range(12)])
+    a = OdometrySession(cfg, checkpoint_dir=str(tmp_path), checkpoint_every=4, device=cuda)
+    for k in range(4):
+        a.process(scans[k])
+    assert OdometrySession.has_checkpoint(str(tmp_path))
+    a.checkpoint_every = 0
+    out_a = a.process_batch(scans[4:12], block=4)
+    b = OdometrySession(cfg, checkpoint_dir=str(tmp_path), device=cuda)
+    assert b.resume() == 4
+    out_b = b.process_batch(scans[4:12], block=4)
+    for f in ("world_T", "correction", "iterations", "insert_mask", "fitness"):
+        assert torch.equal(getattr(out_a, f), getattr(out_b, f)), f
+    assert torch.equal(a.state.world_T, b.state.world_T)
+    for x, y in zip(a.state.vmap.tables(), b.state.vmap.tables()):
+        assert x.is_cuda and torch.equal(x, y)
 
 
 @pytest.mark.parametrize("block", [0, 8])

@@ -1,7 +1,7 @@
 """The port stands alone: no source of `icp4dradar_tpu_torch` (or
 `chip_smoke.py`) imports jax, flax or the JAX package, and running its
-slices (scan-to-scan, the blocked VGICP tracker, the kNN-GICP tracker)
-leaves them out of sys.modules."""
+slices (scan-to-scan, the blocked VGICP tracker, the kNN-GICP tracker, a
+streaming session) leaves them out of sys.modules."""
 
 import pathlib
 import re
@@ -54,6 +54,12 @@ _, out = run_scan_to_map_blocked(scans, cfg, block=4, use_const_velocity_rot=Tru
 assert torch.isfinite(out.world_T).all() and out.world_T.shape == (8, 4, 4)
 _, out = run_scan_to_map(scans[:4], cfg.override(**{"gicp.use_vgicp": False}))
 assert torch.isfinite(out.world_T).all() and out.world_T.shape == (4, 4, 4)
+from icp4dradar_tpu_torch.models import local_map, streaming, submap
+from icp4dradar_tpu_torch.utils import checkpoint
+sess = streaming.OdometrySession(cfg, device="cpu")
+for k in range(3):
+    sess.process(scans[k])
+assert sess.frame == 3 and bool(torch.isfinite(torch.as_tensor(sess.pose)).all())
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'icp4dradar_tpu'))
 print('LOADED', bad)

@@ -4,9 +4,10 @@ prior) against the JAX package's CPU run on the same SyntheticSequence,
 with JAX's own REVE draws injected; the blocked runner's sequential
 fallback on a block of structureless scans; the kNN-GICP tracker
 (`gicp.use_vgicp=False`, with and without the exact map k-NN), inner GN
-steps, and both knobs in the blocked runner; the CLI's default scene
-against the JAX package; the CLI's scan_to_map mode; the options that are
-not ported raising (B-stream serving and forgetting are in
+steps, and both knobs in the blocked runner; mapping on ground truth
+(`gt_poses`, `insert_before_registration`) in the per-frame runner and the
+per-frame batch; the CLI's default scene against the JAX package; the
+CLI's scan_to_map mode; the options that are not ported raising (B-stream serving and forgetting are in
 tests/test_torch_batch.py and tests/test_torch_forget.py).
 
 Tolerance. REVE, the map and the sector query agree exactly on the same
@@ -30,12 +31,18 @@ from icp4dradar_tpu.config import PipelineConfig as JaxConfig
 from icp4dradar_tpu.io import SyntheticSequence as JaxSequence
 from icp4dradar_tpu.io.scan import stack_scans as jax_stack
 from icp4dradar_tpu.models import run_scan_to_map as j_run
+from icp4dradar_tpu.models import run_scan_to_map_batch as j_batch
 from icp4dradar_tpu.models import run_scan_to_map_blocked as j_run_blocked
-from icp4dradar_tpu_torch.interop import SCAN_FIELDS, config_from_dict, scans_from_numpy
+from icp4dradar_tpu_torch.interop import (
+    SCAN_FIELDS,
+    VOXEL_MAP_FIELDS,
+    config_from_dict,
+    scans_from_numpy,
+)
 from icp4dradar_tpu_torch.models import run_odometry
 from icp4dradar_tpu_torch.models import scan_to_map as pm
 from icp4dradar_tpu_torch.preprocess.reve import reve_hypotheses
-from icp4dradar_tpu_torch.utils import ate_rmse
+from icp4dradar_tpu_torch.utils import ate_rmse, reve_batch_uniforms
 
 T_ATOL, R_ATOL, ATE_ATOL = 1e-2, 1e-3, 1e-3
 F, N = 24, 512
@@ -179,7 +186,6 @@ def test_sequential_blocks_and_no_fallback_run():
 @pytest.mark.parametrize("override,kw", [
     ({"gicp.use_vgicp": False}, {}),                   # kNN GICP inside a batch
     ({}, {"rigid_union": True}),
-    ({}, {"gt_poses": torch.eye(4).expand(4, 4, 4)}),
 ])
 def test_unported_options_raise(override, kw):
     cfg = config_from_dict(_cfg().override(**override).to_dict()) if override else \
@@ -189,9 +195,99 @@ def test_unported_options_raise(override, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
             pm.run_scan_to_map_batch(ps[None, :4], cfg, block=2)
         return
-    runner = pm.run_scan_to_map if "gt_poses" in kw else pm.run_scan_to_map_blocked
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner(ps[:4], cfg, **kw)
+        pm.run_scan_to_map_blocked(ps[:4], cfg, **kw)
+
+
+def _assert_same_tables(pmap, jmap):
+    for k in VOXEL_MAP_FIELDS:
+        np.testing.assert_array_equal(getattr(pmap, k).numpy(), np.asarray(getattr(jmap, k)),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("gt,before", [(True, True), (True, False), (False, True)])
+def test_run_scan_to_map_on_ground_truth_matches_jax(gt, before):
+    """Mapping on ground truth (`gt_poses`: each frame predicted at its
+    pose, no prior, no Doppler step) and inserting before registration,
+    against JAX on its own draws. With both, every insert happens at a
+    ground-truth pose, so the maps are the same tables, bit for bit; the
+    corrections
+    registration reports agree within the trackers' tolerance."""
+    cfg = _cfg()
+    seq, js, ps = _sequence()
+    n = 10
+    js, ps = jax.tree.map(lambda x: x[:n], js), ps[:n]
+    G = seq.poses[:n].astype(np.float32) if gt else None
+    U = _draws(jax.random.split(jax.random.key(cfg.seed), n), reve_hypotheses(cfg.reve))
+    jst, jo = j_run(js, cfg, gt_poses=None if G is None else jnp.asarray(G),
+                    insert_before_registration=before, use_const_velocity_rot=True)
+    pst, po = pm.run_scan_to_map(ps, config_from_dict(cfg.to_dict()), uniforms=torch.tensor(U),
+                                 gt_poses=None if G is None else torch.tensor(G),
+                                 insert_before_registration=before,
+                                 use_const_velocity_rot=True)
+    if before:
+        # a scan registers against a map that already holds it: zero
+        # residuals at the prediction, where the JAX CPU oracle's expanded
+        # distances (|p|^2 - 2 p.q + |q|^2) leave ~1e-5 m^2 of cancellation
+        # noise that keeps its GN sweeping (up to the cap) after the port's
+        # exact distances have converged
+        pw, jw = po.world_T.numpy(), np.asarray(jo.world_T)
+        np.testing.assert_allclose(pw[:, :3, 3], jw[:, :3, 3], atol=T_ATOL)
+        np.testing.assert_allclose(pw[:, :3, :3], jw[:, :3, :3], atol=R_ATOL)
+        np.testing.assert_array_equal(po.num_inliers.numpy(), np.asarray(jo.num_inliers))
+        np.testing.assert_array_equal(po.insert_mask.numpy(), np.asarray(jo.insert_mask))
+        assert (po.iterations.numpy() <= np.asarray(jo.iterations)).all()
+    else:
+        _assert_tracks(po, jo, seq)
+    np.testing.assert_allclose(po.correction.numpy(), np.asarray(jo.correction), atol=T_ATOL)
+    if gt:
+        # the prediction is the ground-truth pose: world_T = correction @ gt
+        np.testing.assert_allclose(po.world_T.numpy(), po.correction.numpy() @ G, atol=1e-5)
+    if gt and before:
+        _assert_same_tables(pst.vmap, jst.vmap)
+    else:
+        assert abs(float(pst.vmap.num_voxels) - float(jst.vmap.num_voxels)) <= 5
+
+
+@pytest.mark.parametrize("per_stream", [False, True])
+def test_batch_on_ground_truth_matches_jax(per_stream):
+    """The per-frame batch with `gt_poses` and insert-before-registration:
+    JAX's batch closes over its keyword arguments, so it takes one (F, 4, 4)
+    track that every stream follows; the port takes that, and a (B, F, 4, 4)
+    track per stream, whose stream equals the single-stream runner bit for
+    bit."""
+    cfg = _cfg()
+    pcfg = config_from_dict(cfg.to_dict())
+    seq, js, ps = _sequence()
+    B, n = 2, 6
+    jb = jax.tree.map(lambda x: x[:B * n].reshape((B, n) + x.shape[1:]), js)
+    pb = scans_from_numpy({k: np.asarray(getattr(jb, k)) for k in SCAN_FIELDS}, device="cpu")
+    G = seq.poses[:B * n].astype(np.float32).reshape(B, n, 4, 4)
+    U = torch.from_numpy(reve_batch_uniforms(cfg.seed, B, n, 0, reve_hypotheses(cfg.reve)))
+    if per_stream:
+        pst, po = pm.run_scan_to_map_batch(pb, pcfg, uniforms=U, gt_poses=torch.tensor(G),
+                                           insert_before_registration=True)
+        for b in range(B):
+            sst, so = pm.run_scan_to_map(pb[b], pcfg, uniforms=U[b],
+                                         gt_poses=torch.tensor(G[b]),
+                                         insert_before_registration=True)
+            for f in ("world_T", "correction", "fitness", "iterations", "insert_mask"):
+                assert torch.equal(getattr(po, f)[b], getattr(so, f)), f
+            for a, c in zip(pst.vmap.stream(b).tables(), sst.vmap.tables()):
+                assert torch.equal(a, c)
+        return
+    jst, jo = j_batch(jb, cfg, gt_poses=jnp.asarray(G[0]), insert_before_registration=True)
+    pst, po = pm.run_scan_to_map_batch(pb, pcfg, uniforms=U, gt_poses=torch.tensor(G[0]),
+                                       insert_before_registration=True)
+    for b in range(B):
+        np.testing.assert_allclose(po.world_T[b].numpy(), np.asarray(jo.world_T[b]),
+                                   atol=T_ATOL)
+        np.testing.assert_allclose(po.correction[b].numpy(), np.asarray(jo.correction[b]),
+                                   atol=T_ATOL)
+        np.testing.assert_array_equal(po.num_inliers[b].numpy(),
+                                      np.asarray(jo.num_inliers[b]))
+        _assert_same_tables(pst.vmap.stream(b),
+                            jax.tree.map(lambda x: x[b], jst.vmap))
 
 
 def _per_frame_pair(override, n=10):
