@@ -48,6 +48,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              iteration at this shape (CUDA events, median of 10) beside its
              FP32 bound (0.151 ms) and slot floor (0.302 ms), its plain
              version and the whole pass.
+4c. pose graph — run_pose_graph_odometry(keyframe_every=4, loop_radius=8,
+             min_loop_gap=20, max_loop_candidates=24) on the figure-eight of
+             scripts/eval_suite.py (128 frames x 2048 points, 6000
+             landmarks, two opposite-turn laps; 32 keyframes) on the JAX
+             package's draws (`utils.threefry`): the s2s front end
+             (warm-up, then one timed run with K1's count set to 0 just
+             before and read just after), its loop-closure ICP (all
+             candidates in one batched call on K1, its own count set to 0
+             just before it: launches must equal its iterations + 1;
+             candidates, pairs swept per launch and the call's ms), a
+             fabricated closure between keyframes 2 and K-4 10 m off (the
+             refined ATE within 0.5 m of the clean run's, the factor
+             dropped), and the s2m front end with structure factors (one
+             run, K4's count read over it; 4c runs after phase 5, whose
+             s2m run warms that path). Each run's closures within 1
+             of the JAX CPU run's (scripts/port_pose_graph_reference.py),
+             its refined ATE (align=False) within 0.05 m of JAX's (or,
+             where the odometry itself differs from JAX's by more than
+             0.03 m, the refinement's gain within 0.05 m of JAX's) and at
+             most its odometry's x 1.05. Then the block solver on the K =
+             512 long chain of tests/test_graph.py (20 GN iterations at
+             most) on the card and on the CPU: poses within 1e-3 m of each
+             other and 0.05 m of the truth; wall ms, GN and PCG iterations,
+             and one GN iteration's kernel launches and host syncs
+             (profiler). Last, dense against block on the card at K = 32
+             with every factor type: positions within 1e-4 m.
 5. s2m     — the scan-to-map bench cell of `bench.py` (the first 256 frames
              of the same sequence) through run_scan_to_map_blocked(block=8,
              use_const_velocity_rot=True): warm-up, then one timed run with
@@ -195,7 +221,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 The kernels' bounds come from the shapes and this run's data (bytes over
 3.35 TB/s, FP32 operations over 67 TFLOP/s, the H100 SXM data sheet). The
-line before the last two is a JSON record of the kernels, the next one the
+line before the last two is a JSON record of the kernels (K1's row with
+phase 4c's `pose_graph_launches` and its loop ICP's `loop_icp_launches`,
+`loop_icp_ms` and `loop_icp_pairs`, K4's with phase 4c's
+`pose_graph_launches`), the next one the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -254,6 +283,21 @@ TRACK_FRAMES = 64
 # room for the port's exact distances (see PERF.md)
 GICP_ATE_MAX = 0.09
 INNER0_ATE_EXPECTED, INNER0_ATE_BAND = 0.0252, 0.01
+# phase 4c: the figure-eight of scripts/eval_suite.py through the pose graph
+PG_FRAMES = 128
+PG_KW = dict(keyframe_every=4, loop_radius=8.0, min_loop_gap=20, max_loop_candidates=24)
+# the JAX package's CPU run of the same cell on the same draws
+# (scripts/port_pose_graph_reference.py): (odometry ATE, refined ATE,
+# accepted closures); the scan-to-map front end loses the figure-eight at
+# the turn reversal there (frame ~72)
+PG_JAX = {"s2s": (0.61518, 0.46101, 7), "s2m_structure": (35.36726, 35.36254, 1)}
+PG_ATE_BAND, PG_ODOM_GAP_MAX, PG_CLOSURE_BAND = 0.05, 0.03, 1
+PG_WRONG_OFFSET_M, PG_WRONG_WEIGHT, PG_WRONG_BAND = 10.0, 10.0, 0.5
+# the block solver at keyframe scale: tests/test_graph.py's long chain
+# (at most 20 GN iterations: 30, the JAX test's cap, took 73.6 s on an H100 80GB
+# HBM3; two runs 15 iterations in part by ~1.4e-3 m, by ~2e-4 m at 20)
+PG_CHAIN_K, PG_CHAIN_ITERS, PG_CHAIN_CPU_TOL, PG_CHAIN_GT_TOL = 512, 20, 1e-3, 0.05
+PG_DENSE_K, PG_DENSE_TOL = 32, 1e-4
 NN_FLOPS_PER_PAIR = 9         # 3 sub, 3 fma counted as 6 (the compare not counted)
 FROZEN_FLOPS_PER_SOURCE = 320  # p = R s + t, the fresh distance, the GN epilogue
 # NVIDIA's H100 SXM data sheet: HBM rate and FP32 peak (at 700 W)
@@ -770,6 +814,300 @@ def phase_local_map(torch, scans, poses):
                 local_map_plain_ms=plain_ms, local_map_bound_ms=bound_ms,
                 local_map_slot_floor_ms=slots_ms, local_map_pass_ms=pass_ms,
                 local_map_max_abs_err=err)
+
+
+def figure_eight(frames):
+    """scripts/eval_suite.py's figure-eight: two opposite-turn laps of 64
+    frames through a shared crossing, 2 m a frame."""
+    from icp4dradar_tpu_torch.io import SyntheticSequence
+
+    w8 = 2 * 3.14159265 / 64.0
+    half = frames // 2
+    schedule = np.concatenate([np.full(half, w8), np.full(frames - half, -w8)])
+    return SyntheticSequence(num_frames=frames, max_points=2048, num_landmarks=6000,
+                             world_extent=140.0, max_range=80.0, seed=0, speed=2.0,
+                             dynamic_fraction=0.1, pos_noise=0.03, turn_schedule=schedule)
+
+
+def pg_loop_graph(torch, K, radius, n_loops, drift_sigma, seed):
+    """tests/test_graph.py's circle with random-walk drift, exact chain
+    measurements (weight 100) and n_loops closures across it (weight 10),
+    as numpy: (gt, drifted poses, rel fields)."""
+    from icp4dradar_tpu_torch.geom import se3_exp
+
+    def exp(xi):
+        return se3_exp(torch.tensor(np.asarray(xi, np.float32))).numpy()
+
+    rng = np.random.default_rng(seed)
+    gt = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    th = 2 * np.pi * np.arange(K) / K
+    gt[:, :3, 3] = np.stack([radius * np.cos(th), radius * np.sin(th), 0.01 * np.arange(K)], -1)
+    poses = gt.copy()
+    drift = np.eye(4, dtype=np.float32)
+    for k in range(1, K):
+        drift = exp(rng.normal(0, drift_sigma, 6)) @ drift
+        poses[k] = drift @ poses[k]
+    li = rng.integers(0, K // 2, n_loops)
+    i = np.concatenate([np.arange(K - 1), li])
+    j = np.concatenate([np.arange(1, K), li + K // 2])
+    T = np.stack([np.linalg.inv(gt[a]) @ gt[b] for a, b in zip(i, j)]).astype(np.float32)
+    w = np.concatenate([np.full(K - 1, 100.0), np.full(n_loops, 10.0)]).astype(np.float32)
+    return gt, poses, dict(i=i, j=j, T_meas=T, weight=w, mask=np.ones(len(i), np.float32))
+
+
+def pg_single_pose_factors(K, gt, seed, P=400):
+    """Factors of every single-pose type on the ground truth: planes z=0
+    (normal + offset and through three points), lines y=1, z=2 along x,
+    point anchors."""
+    rng = np.random.default_rng(seed)
+
+    def body(k, world):
+        T = gt[k]
+        return np.einsum("pji,pj->pi", T[:, :3, :3], world - T[:, :3, 3]).astype(np.float32)
+
+    def tile(v):
+        return np.tile(np.float32(v), (P, 1))
+
+    ones = np.ones(P, np.float32)
+    pw = rng.uniform(-3, 6, (P, 3))
+    pw[:, 2] = 0.0
+    k = rng.integers(0, K, P)
+    lw = np.stack([rng.uniform(-3, 6, P), np.full(P, 1.0), np.full(P, 2.0)], -1)
+    kl = rng.integers(0, K, P)
+    qw = rng.uniform(-3, 6, (P, 3)).astype(np.float32)
+    kq = rng.integers(0, K, P)
+    return dict(
+        planes=dict(k=k, p_body=body(k, pw), normal=tile([0, 0, 1]), offset=0 * ones,
+                    weight=ones, mask=ones),
+        planes3=dict(k=k, p_body=body(k, pw), plane_j=tile([0, 0, 0]), plane_l=tile([1, 0, 0]),
+                     plane_m=tile([0, 1, 0]), weight=ones, mask=ones),
+        lines=dict(k=kl, p_body=body(kl, lw), line_a=tile([0, 1, 2]), line_b=tile([1, 1, 2]),
+                   weight=ones, mask=ones),
+        points=dict(k=kq, p_body=body(kq, qw), q_world=qw, weight=ones, mask=ones))
+
+
+def pg_check(tag, res, gt, jax_ref, card):
+    """Finite poses; accepted closures within PG_CLOSURE_BAND of the JAX CPU
+    run's; the refined ATE (align=False) within PG_ATE_BAND of JAX's, or,
+    where the odometry ATE itself differs from JAX's by more than
+    PG_ODOM_GAP_MAX, the refinement's gain within PG_ATE_BAND of JAX's;
+    the refined ATE at most the odometry's x 1.05. Returns (odometry ATE,
+    refined ATE)."""
+    from icp4dradar_tpu_torch.utils import ate_rmse
+
+    j_odom, j_ref, j_closures = jax_ref
+    if not (np.isfinite(res.poses).all() and np.isfinite(res.odom_poses).all()):
+        raise RuntimeError(f"[pose graph] {tag}: non-finite poses")
+    odom = ate_rmse(res.odom_poses[:, :3, 3], gt, align=False)
+    ref = ate_rmse(res.poses[:, :3, 3], gt, align=False)
+    log(f"[pose graph] {tag}: odometry ATE {odom:.5f} m (JAX CPU {j_odom}), refined "
+        f"{ref:.5f} m (JAX CPU {j_ref}), accepted closures {res.num_loop_closures} (JAX CPU "
+        f"{j_closures}), keyframes {len(res.keyframe_indices)}, cost {res.cost:.6g}; {card}")
+    if abs(res.num_loop_closures - j_closures) > PG_CLOSURE_BAND:
+        raise RuntimeError(f"[pose graph] {tag}: {res.num_loop_closures} closures against the "
+                           f"JAX CPU run's {j_closures}")
+    if abs(odom - j_odom) <= PG_ODOM_GAP_MAX:
+        if abs(ref - j_ref) > PG_ATE_BAND:
+            raise RuntimeError(f"[pose graph] {tag}: refined ATE {ref:.5f} m outside "
+                               f"{j_ref} +- {PG_ATE_BAND} m")
+    else:
+        gain, j_gain = odom - ref, j_odom - j_ref
+        log(f"[pose graph] {tag}: the odometry differs from JAX's by {odom - j_odom:+.5f} m "
+            f"(beyond {PG_ODOM_GAP_MAX} m): gain odometry - refined {gain:+.5f} m against "
+            f"JAX's {j_gain:+.5f} m, refined gap {ref - j_ref:+.5f} m")
+        if abs(gain - j_gain) > PG_ATE_BAND:
+            raise RuntimeError(f"[pose graph] {tag}: refinement gain {gain:+.5f} m outside "
+                               f"JAX's {j_gain:+.5f} +- {PG_ATE_BAND} m")
+    if ref > odom * 1.05:
+        raise RuntimeError(f"[pose graph] {tag}: refined ATE {ref:.5f} m worse than the "
+                           f"odometry's {odom:.5f} m x 1.05")
+    return odom, ref
+
+
+def phase_pose_graph(torch, card):
+    """Phase 4c: run_pose_graph_odometry on the figure-eight (128 x 2048,
+    K = 32 keyframes) with the s2s front end (K1; its loop ICP on K1, K1's
+    count set to 0 just before the loop ICP and read just after), a
+    fabricated closure, the s2m front end with structure factors (K4); then
+    `pg_solvers`."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.models import pose_graph_odometry as pgo
+    from icp4dradar_tpu_torch.ops import icp_fused, vgicp_fused
+    from icp4dradar_tpu_torch.preprocess.reve import reve_hypotheses
+    from icp4dradar_tpu_torch.utils import ate_rmse, doppler_uniforms, reve_uniforms
+
+    cfg = PipelineConfig()
+    F = PG_FRAMES
+    seq = figure_eight(F)
+    scans = stack_scans([seq.scan(k) for k in range(F)]).to("cuda")
+    gt = seq.poses[:, :3, 3]
+    # the JAX package's draws (its run's key(cfg.seed)), as the reference run's
+    u_s2s = torch.from_numpy(doppler_uniforms(cfg.seed, F, cfg.doppler.num_hypotheses)).cuda()
+    u_s2m = torch.from_numpy(reve_uniforms(cfg.seed, F, cfg.pose_graph.front_end_block,
+                                           reve_hypotheses(cfg.reve))).cuda()
+
+    loops = []
+    real_icp = pgo.icp_point_to_point
+
+    def loop_icp(*args, **kw):
+        """The run's loop-closure ICP: K1's count set to 0 just before it,
+        read just after (then added back to the run's count)."""
+        torch.cuda.synchronize()
+        before = icp_fused.ICP_MOMENTS_LAUNCHES
+        icp_fused.ICP_MOMENTS_LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = real_icp(*args, **kw)
+        torch.cuda.synchronize()
+        loops.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          launches=icp_fused.ICP_MOMENTS_LAUNCHES,
+                          its=res.iterations.cpu().numpy(), shape=tuple(args[0].shape)))
+        icp_fused.ICP_MOMENTS_LAUNCHES += before
+        return res
+
+    def run(u, **kw):
+        out = pgo.run_pose_graph_odometry(scans, cfg, uniforms=u, **PG_KW, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    pgo.icp_point_to_point = loop_icp
+    try:
+        t0 = time.perf_counter()
+        run(u_s2s)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        icp_fused.ICP_MOMENTS_LAUNCHES = 0
+        times = {}
+        t0 = time.perf_counter()
+        res = run(u_s2s, phase_times=times)
+        s2s_ms = (time.perf_counter() - t0) * 1e3
+        k1_launches = icp_fused.ICP_MOMENTS_LAUNCHES
+        loop = loops[-1]
+        log(f"[pose graph] s2s figure-eight {F} x {scans.xyz.shape[1]}: warm-up {warm_ms:.1f} ms, "
+            f"timed run {s2s_ms:.2f} ms; icp_moments launches {k1_launches} (front end and loop "
+            f"ICP); its phase split (host clock, a synchronize around each phase): " +
+            ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in times.items()) + f"; {card}")
+        its = loop["its"]
+        swept = [int((its > k).sum()) for k in range(int(its.max()))] + [len(its)]
+        log(f"[pose graph] loop ICP on K1: {loop['shape'][0]} candidates x "
+            f"{loop['shape'][1]} points, one batched call {loop['ms']:.2f} ms, icp_moments "
+            f"launches {loop['launches']} = iterations {int(its.max())} + 1 expected; pairs "
+            f"swept per launch {swept}; {card}")
+        if loop["launches"] <= 0 or loop["launches"] != int(its.max()) + 1:
+            raise RuntimeError(f"[pose graph] loop ICP launches {loop['launches']} != "
+                               f"iterations {int(its.max())} + 1")
+        odom, ref = pg_check("s2s", res, gt, PG_JAX["s2s"], card)
+
+        kf = res.keyframe_indices
+        K = len(kf)
+        T = np.linalg.inv(res.odom_poses[kf[2]]) @ res.odom_poses[kf[K - 4]]
+        T[:3, 3] += np.asarray([PG_WRONG_OFFSET_M, 0.0, 0.0])
+        inj = run(u_s2s, inject_loop_factors=[(2, K - 4, T, PG_WRONG_WEIGHT)])
+        ref_inj = ate_rmse(inj.poses[:, :3, 3], gt, align=False)
+        log(f"[pose graph] wrong closure (keyframes 2 -> {K - 4}, {PG_WRONG_OFFSET_M} m off, "
+            f"weight {PG_WRONG_WEIGHT}): refined ATE {ref_inj:.5f} m against {ref:.5f} m clean, "
+            f"closures {inj.num_loop_closures} against {res.num_loop_closures}")
+        if not (np.isfinite(inj.poses).all() and abs(ref_inj - ref) <= PG_WRONG_BAND
+                and inj.num_loop_closures == res.num_loop_closures):
+            raise RuntimeError("[pose graph] the fabricated closure was not contained")
+
+        # one run (the s2m path is warm from phase 5, the solver from the
+        # s2s runs)
+        vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+        icp_fused.ICP_MOMENTS_LAUNCHES = 0
+        times = {}
+        t0 = time.perf_counter()
+        full = run(u_s2m, front_end="scan_to_map", structure_factors=True, phase_times=times)
+        full_ms = (time.perf_counter() - t0) * 1e3
+        k4_launches = vgicp_fused.VGICP_SWEEP_LAUNCHES
+        k1_full = icp_fused.ICP_MOMENTS_LAUNCHES
+        log(f"[pose graph] s2m + structure factors: run {full_ms:.2f} ms; vgicp_sweep "
+            f"launches {k4_launches}, icp_moments launches {k1_full} (loop ICP); phase split: " +
+            ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in times.items()) + f"; {card}")
+        if k4_launches <= 0:
+            raise RuntimeError("[pose graph] the s2m front end launched no vgicp_sweep")
+        pg_check("s2m + structure factors", full, gt, PG_JAX["s2m_structure"], card)
+        err = np.linalg.norm(full.odom_poses[:, :3, 3] - gt, axis=-1)
+        lost = int(np.argmax(err > 1.0)) if (err > 1.0).any() else None
+        log(f"[pose graph] s2m front end: first frame more than 1 m off {lost}; position error "
+            f"every 16 frames {np.round(err[::16], 3).tolist()}")
+    finally:
+        pgo.icp_point_to_point = real_icp
+    pg_solvers(torch, card)
+    return dict(pose_graph_launches=k1_launches, loop_icp_launches=loop["launches"],
+                loop_icp_ms=loop["ms"], loop_icp_pairs=loop["shape"][0]), \
+        dict(pose_graph_launches=k4_launches)
+
+
+def pg_solvers(torch, card):
+    """Phase 4c's solver checks: the block solver on tests/test_graph.py's
+    K = 512 long chain on the card and the CPU, one GN iteration's launches
+    and host syncs, and dense against block on the card at K = 32."""
+    from icp4dradar_tpu_torch.config import PoseGraphConfig
+    from icp4dradar_tpu_torch.graph import (
+        block_normal_equations, block_solver, optimize_pose_graph, optimize_pose_graph_block,
+        split_chain_loops,
+    )
+    from icp4dradar_tpu_torch.interop import pose_graph_from_numpy
+
+    # ---- the block solver at keyframe scale, on the card and the CPU ----
+    gt_c, poses_c, rel_c = pg_loop_graph(torch, PG_CHAIN_K, 100.0, 8, 0.004, seed=5)
+    err0 = float(np.linalg.norm(poses_c[:, :3, 3] - gt_c[:, :3, 3], axis=-1).max())
+    chain_cfg = PoseGraphConfig(max_iterations=PG_CHAIN_ITERS)
+
+    def chain(dev, c=chain_cfg):
+        g = pose_graph_from_numpy({"poses": poses_c, "rel": rel_c}, device=dev)
+        block_solver.GN_ITERATIONS = block_solver.PCG_ITERATIONS = 0
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cost = optimize_pose_graph_block(g, c)
+        p = out.poses.cpu().numpy()
+        return (p, float(cost), (time.perf_counter() - t0) * 1e3, block_solver.GN_ITERATIONS,
+                block_solver.PCG_ITERATIONS)
+
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        p, cost, ms, gn, pcg = chain(dev)
+        e = float(np.linalg.norm(p[:, :3, 3] - gt_c[:, :3, 3], axis=-1).max())
+        rows[dev] = (p, e)
+        log(f"[pose graph] block solver K={PG_CHAIN_K} on {dev}: {ms:.1f} ms wall, GN "
+            f"iterations {gn}, PCG iterations {pcg} ({pcg / max(gn, 1):.1f} a GN iteration), "
+            f"cost {cost:.6g}, max position error {e:.5f} m (from {err0:.3f} m); {card}")
+        if not (np.isfinite(p).all() and e < PG_CHAIN_GT_TOL):
+            raise RuntimeError(f"[pose graph] block solver on {dev}: max error {e} m")
+    d = float(np.abs(rows["cuda"][0][:, :3, 3] - rows["cpu"][0][:, :3, 3]).max())
+    log(f"[pose graph] block solver K={PG_CHAIN_K}: card against CPU max position difference "
+        f"{d:.3e} m (tolerance {PG_CHAIN_CPU_TOL})")
+    if not (err0 > 5.0 and d <= PG_CHAIN_CPU_TOL):
+        raise RuntimeError(f"[pose graph] block solver: card and CPU {d} m apart (err0 {err0})")
+    # one GN iteration profiled: its kernel launches and host syncs
+    one = PoseGraphConfig(max_iterations=1)
+    g1 = pose_graph_from_numpy({"poses": poses_c, "rel": rel_c}, device="cuda")
+    block_solver.PCG_ITERATIONS = 0
+    kern = call_kernels(torch, lambda: optimize_pose_graph_block(g1, one), calls=1)
+    pcg1 = block_solver.PCG_ITERATIONS / 2             # the warm-up call and the profiled one
+    launches = None if kern is None else sum(n for n, _ in kern.values())
+    syncs, copies = count_syncs(torch, lambda: optimize_pose_graph_block(g1, one), calls=1)
+    log(f"[pose graph] block solver K={PG_CHAIN_K}, one GN iteration (with its final cost "
+        f"assembly): {launches} kernel launches (profiler; {pcg1:.0f} PCG iterations), "
+        f"device time {fmt_ms(None if kern is None else call_device_ms(kern))}, host syncs "
+        f"{syncs:.0f} and host-to-device copies {copies:.0f} (the GN test, one a PCG "
+        f"iteration and its first test, the chain/loop split's host read); {card}")
+
+    # ---- dense against block on the card, every factor type ----
+    gt_d, poses_d, rel_d = pg_loop_graph(torch, PG_DENSE_K, 10.0, 3, 0.01, seed=3)
+    g = pose_graph_from_numpy({"poses": poses_d, "rel": rel_d,
+                               **pg_single_pose_factors(PG_DENSE_K, gt_d, seed=3)}, device="cuda")
+    dense, _ = optimize_pose_graph(g)
+    block, _ = optimize_pose_graph_block(g)
+    dd = float((dense.poses[:, :3, 3] - block.poses[:, :3, 3]).abs().max())
+    ne = [block_normal_equations(g, *split_chain_loops(g.rel)) for _ in range(2)]
+    same = all(torch.equal(getattr(ne[0], f), getattr(ne[1], f)) for f in ("diag", "off", "U", "g"))
+    log(f"[pose graph] dense against block on the card, K={PG_DENSE_K} with every factor type: "
+        f"max position difference {dd:.3e} m (tolerance {PG_DENSE_TOL}); two block "
+        f"assemblies bit-identical {same}")
+    if not dd <= PG_DENSE_TOL:
+        raise RuntimeError(f"[pose graph] dense and block solutions {dd} m apart")
 
 
 def phase_s2m(torch, seq, scans):
@@ -2470,6 +2808,7 @@ def main(argv) -> int:
     icp_launches, scans_per_s, ate, s2s_poses = phase_slice(torch, seq, scans)
     local_map = phase_local_map(torch, scans, s2s_poses)
     vg_launches, state, out, s2m, s2m_rate = phase_s2m(torch, seq, scans)
+    pg_k1, pg_k4 = phase_pose_graph(torch, card)     # 4c, after 5: the s2m path is warm
     phase_map_api(torch, state)
     session = phase_session(torch, seq, scans, card)
     batch = phase_batch(torch, seq, scans, s2m_rate)
@@ -2488,11 +2827,12 @@ def main(argv) -> int:
 
     log(json.dumps({"kernels": [
         {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": icp_launches, **icp, **local_map},
+         "replaces": KERNEL_REPLACES, "launches": icp_launches, **icp, **local_map,
+         **pg_k1},
         {"name": "vgicp_sweep", "route": "cuda", "source": VGICP_SOURCE,
          "replaces": VGICP_REPLACES, "launches": vg_launches, **vg,
          "batch_launches": batch["launches"], **vg_streams,
-         "session_launches": session["session_launches"]},
+         "session_launches": session["session_launches"], **pg_k4},
         {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_REPLACES, "launches": nn_launches, **nn},
         {"name": "nn_pack", "route": "cuda", "source": NN_SOURCE,

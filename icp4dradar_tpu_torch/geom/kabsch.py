@@ -69,3 +69,24 @@ def _rotation_from_cross_covariance(H: torch.Tensor, iters: int = 50) -> torch.T
         v = v / torch.clamp(scale, min=1e-20)
     qw, qx, qy, qz = v.unbind(-1)
     return quat_to_matrix(torch.stack([qx, qy, qz, qw], dim=-1))
+
+
+def masked_lstsq(
+    A: torch.Tensor,
+    b: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    damping: float = 0.0,
+):
+    """Solve argmin_x ||M(Ax - b)||^2 by the normal equations. A: (..., N,
+    D); b: (..., N); mask: (..., N) in {0,1}. Returns (x (..., D), AtA
+    (..., D, D)): AtA lets callers gate on its conditioning (the
+    reference's max_r_cond check, src/radar_odometry.cpp:598)."""
+    if mask is not None:
+        A = A * mask[..., None]
+        b = b * mask
+    AtA = A.transpose(-1, -2) @ A
+    if damping:
+        AtA = AtA + damping * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    Atb = A.transpose(-1, -2) @ b[..., None]
+    x, _ = torch.linalg.solve_ex(AtA, Atb)
+    return x[..., 0], AtA

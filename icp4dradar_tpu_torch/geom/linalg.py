@@ -19,16 +19,21 @@ import torch
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 fused multiply-add a * b + c, rounded once, on any device.
     a * b is exact in float64; the float64 sum is made round-to-odd from its
-    TwoSum error, so the final rounding to float32 is the correct one."""
+    TwoSum error, so the final rounding to float32 is the correct one. The
+    round-to-odd step is one ulp added to the sum, found on detached values
+    (its parity test and `nextafter` carry no derivative), so forward-mode
+    autodiff passes through the sum."""
     a, b, c = a.double(), b.double(), c.double()
     p = a * b
     s = p + c
-    bp = s - p
-    err = (p - (s - bp)) + (c - bp)
-    even = (s.view(torch.int64) & 1) == 0
-    s = torch.where((err != 0) & even,
-                    torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf)
-                                    .to(s.dtype)), s)
+    sd, pd, cd = s.detach(), p.detach(), c.detach()
+    bp = sd - pd
+    err = (pd - (sd - bp)) + (cd - bp)
+    mag = sd.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, torch.inf)) - mag
+    even = torch.remainder(mag / ulp, 2.0) == 0        # the significand's last bit
+    step = torch.nextafter(sd, torch.where(err > 0, torch.inf, -torch.inf).to(sd.dtype)) - sd
+    s = torch.where((err != 0) & even, s + step, s)
     return s.float()
 
 
@@ -188,6 +193,12 @@ def solve_psd(A: torch.Tensor, b: torch.Tensor, damping: float = 0.0) -> torch.T
     y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
     return x[..., 0]
+
+
+def batched_solve_psd(A: torch.Tensor, b: torch.Tensor, damping: float = 0.0) -> torch.Tensor:
+    """`solve_psd` over the leading batch axis (it batches already; the
+    JAX package's name for its vmapped form)."""
+    return solve_psd(A, b, damping)
 
 
 def condition_number(A: torch.Tensor) -> torch.Tensor:

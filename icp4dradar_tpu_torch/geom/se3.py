@@ -29,6 +29,18 @@ def se3_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def se3_rotation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, :3]
+
+
+def se3_translation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, 3]
+
+
+def se3_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return small_matmul(a, b)
+
+
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = T[..., :3, :3].transpose(-1, -2)
     return se3_from_rt(Rt, -small_matmul(Rt, T[..., :3, 3:4])[..., 0])

@@ -26,6 +26,56 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
                            min=_EPS)
 
 
+def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b, xyzw layout."""
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dim=-1,
+    )
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (...,3) by quaternions q (...,4)."""
+    qv, qw = q[..., :3], q[..., 3:4]
+    qv, v = torch.broadcast_tensors(qv, v)
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + qw * t + torch.linalg.cross(qv, t)
+
+
+def quat_slerp(a: torch.Tensor, b: torch.Tensor, s) -> torch.Tensor:
+    """Spherical interpolation a->b at fraction s (Eigen's slerp, used by the
+    motion-interpolated factors, include/radarFactor.hpp:28). As in the JAX
+    code, the angle's argument is clipped below 1 - 1e-8 and the Taylor
+    weights (1 - s, s) take over where sin(theta) < 1e-5, so that the
+    untaken branch's NaN never reaches a value or a tangent."""
+    s = torch.as_tensor(s, dtype=a.dtype, device=a.device)
+    dot = torch.sum(a * b, dim=-1, keepdim=True)
+    b = torch.where(dot < 0, -b, b)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+    theta = torch.arccos(torch.clamp(dot, 0.0, 1.0 - _EPS))
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-5
+    den = torch.where(small, torch.ones_like(sin_theta), sin_theta)
+    w_a = torch.where(small, 1.0 - s, torch.sin((1.0 - s) * theta) / den)
+    w_b = torch.where(small, s, torch.sin(s * theta) / den)
+    return quat_normalize(w_a * a + w_b * b)
+
+
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """(...,4) xyzw -> (...,3,3)."""
     q = quat_normalize(q)
@@ -93,6 +143,10 @@ def so3_hat(w: torch.Tensor) -> torch.Tensor:
     return m.reshape(w.shape[:-1] + (3, 3))
 
 
+def so3_vee(m: torch.Tensor) -> torch.Tensor:
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+
+
 def _eye3_like(K: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
 
@@ -125,7 +179,10 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     )  # = 2 sin(theta) * axis
     s2 = torch.sum(skew * skew, dim=-1)
     tiny = s2 < 1e-16
-    sin_theta = torch.where(tiny, 0.0, 0.5 * torch.sqrt(torch.where(tiny, 1.0, s2)))
+    # the constants as tensors of s2's dtype: under torch.func a Python
+    # scalar beside a 0-dim operand gives a float64 tangent
+    zero, one = torch.zeros_like(s2), torch.ones_like(s2)
+    sin_theta = torch.where(tiny, zero, 0.5 * torch.sqrt(torch.where(tiny, one, s2)))
     theta = torch.atan2(sin_theta, cos_theta)
 
     small = sin_theta < 1e-6
@@ -133,7 +190,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     scale = torch.where(
         small,
         0.5 + theta * theta / 12.0,
-        theta / torch.where(small, 1.0, 2.0 * sin_theta),
+        theta / torch.where(small, one, 2.0 * sin_theta),
     )
     w_generic = scale[..., None] * skew
     diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
@@ -146,7 +203,6 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     syz = R[..., 1, 2] + R[..., 2, 1]
     dominant = torch.argmax(axis2, dim=-1)
     ax, ay, az = axis.unbind(-1)
-    one = torch.ones_like(ax)
     sgn_xy = torch.sign(sxy + _EPS)
     sgn_xz = torch.sign(sxz + _EPS)
     sgn_yz = torch.sign(syz + _EPS)

@@ -13,7 +13,14 @@ numpy arrays:
                                 max_probes=jax_map.max_probes)
 
 A map or stack of scans with a leading stream axis (B, ...), as the JAX
-package's `run_scan_to_map_batch` makes them, crosses the same way.
+package's `run_scan_to_map_batch` makes them, crosses the same way. A pose
+graph crosses as a dict of its poses and of each factor container's
+fields:
+
+    graph = pose_graph_from_numpy(
+        {"poses": np.asarray(jax_graph.poses),
+         "rel": {f: np.asarray(getattr(jax_graph.rel, f))
+                 for f in POSE_GRAPH_FACTOR_FIELDS["rel"]}, ...})
 
 Tensors land on the card unless the caller names another device.
 """
@@ -26,12 +33,25 @@ import numpy as np
 import torch
 
 from icp4dradar_tpu_torch.config import PipelineConfig
+from icp4dradar_tpu_torch.graph.gauss_newton import (
+    LineFactors,
+    Plane3Factors,
+    PlaneFactors,
+    PointFactors,
+    PoseGraph,
+    RelPoseFactors,
+)
 from icp4dradar_tpu_torch.io.scan import RadarScan
 from icp4dradar_tpu_torch.mapping.voxel_hash import VoxelHashMap
 
 SCAN_FIELDS = ("xyz", "doppler", "intensity", "mask", "time")
 VOXEL_MAP_FIELDS = ("keys", "points", "intensity", "occupied", "stat_n",
                     "stat_sum", "stat_sq")
+_FACTOR_TYPES = {"rel": RelPoseFactors, "points": PointFactors, "lines": LineFactors,
+                 "planes": PlaneFactors, "planes3": Plane3Factors}
+# the fields of each factor container of a PoseGraph, in both packages
+POSE_GRAPH_FACTOR_FIELDS = {name: tuple(cls.__dataclass_fields__)
+                            for name, cls in _FACTOR_TYPES.items()}
 
 
 def config_from_dict(d: Mapping) -> PipelineConfig:
@@ -83,3 +103,25 @@ def voxel_map_to_numpy(vmap: VoxelHashMap) -> dict:
     """{field: numpy array} of a VoxelHashMap (its tables, (B, C, ...) for a
     batched map), host copies."""
     return {k: getattr(vmap, k).detach().cpu().numpy() for k in VOXEL_MAP_FIELDS}
+
+
+def pose_graph_from_numpy(arrays: Mapping, device="cuda") -> PoseGraph:
+    """PoseGraph from {"poses": (K,4,4), and for each factor container
+    present ("rel", "points", "lines", "planes", "planes3") a dict of its
+    fields as numpy arrays}, placed on `device`; a container that is absent
+    or None stays None. Indices become int64, everything else float32."""
+    def container(name):
+        d = arrays.get(name)
+        if d is None:
+            return None
+        cls = _FACTOR_TYPES[name]
+        missing = [f for f in cls.__dataclass_fields__ if f not in d]
+        if missing:
+            raise KeyError(f"{name} arrays lack fields {missing}")
+        return cls(**{f: torch.tensor(np.asarray(d[f], dtype=np.int64 if f in ("i", "j", "k")
+                                                 else np.float32), device=device)
+                      for f in cls.__dataclass_fields__})
+
+    return PoseGraph(poses=torch.tensor(np.asarray(arrays["poses"], np.float32),
+                                        device=device),
+                     **{name: container(name) for name in _FACTOR_TYPES})

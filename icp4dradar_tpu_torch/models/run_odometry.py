@@ -1,16 +1,20 @@
 """CLI entry point: run odometry over a .bin sequence directory (or a
 built-in synthetic sequence) and write reference-compatible outputs
-(PyTorch port of `icp4dradar_tpu/models/run_odometry.py`, scan-to-scan and
-scan-to-map modes).
+(PyTorch port of `icp4dradar_tpu/models/run_odometry.py`: the scan-to-scan,
+scan-to-map and pose-graph modes).
 
     python -m icp4dradar_tpu_torch.models.run_odometry --mode scan_to_scan \
         --synthetic 200 --doppler-prior --device cuda --out /tmp/radar
     python -m icp4dradar_tpu_torch.models.run_odometry --mode scan_to_map \
         --synthetic 256 --map-interval 8 --cv-rot --device cuda --out /tmp/radar
+    python -m icp4dradar_tpu_torch.models.run_odometry --mode pose_graph \
+        --front-end scan_to_map --structure-factors --synthetic 128 --out /tmp/radar
 
 Outputs, as the JAX CLI writes them: scan_to_scan writes velocity.txt,
 icp.txt and output_result.csv; scan_to_map writes velocity.txt and
-radar_odometry.txt; both write odom_tum.txt (TUM rows of the world poses),
+radar_odometry.txt; pose_graph writes radar_odometry.txt (the refined
+poses), odometry_raw.txt (the front end's) and a `pose_graph` metrics
+record (loop_closures, keyframes, cost); every mode writes odom_tum.txt (TUM rows of the world poses),
 pcl_info.txt (the raw point count of each frame) and metrics.jsonl (opened
 before the run, ending in a `run_complete` record), and with `--local-map`
 icp_map.txt (the window ICP corrections of `models/local_map.py`, one row
@@ -31,9 +35,6 @@ import time
 
 import numpy as np
 import torch
-
-PORTED_MODES = ("scan_to_scan", "scan_to_map")
-
 
 def build_scans(args, device):
     from icp4dradar_tpu_torch.io import BinSequenceDataset, SyntheticSequence
@@ -70,6 +71,12 @@ def main(argv=None) -> int:
     p.add_argument("--doppler-prior", action="store_true")
     p.add_argument("--static-only", action="store_true",
                    help="register on static points only (ref USE_STATIC_POINTS)")
+    p.add_argument("--structure-factors", action="store_true",
+                   help="mine keyframe-to-map line/plane factors into the "
+                        "pose-graph back end (--mode pose_graph)")
+    p.add_argument("--front-end", default="scan_to_scan",
+                   choices=["scan_to_scan", "scan_to_map"],
+                   help="odometry front end for --mode pose_graph")
     p.add_argument("--cv-rot", action="store_true",
                    help="scan_to_map: constant-velocity rotation prior (the "
                         "previous frame's refined body rotation seeds the "
@@ -86,9 +93,6 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
 
-    if args.mode not in PORTED_MODES:
-        p.error(f"--mode {args.mode} is not ported to icp4dradar_tpu_torch yet; "
-                f"use icp4dradar_tpu.models.run_odometry")
     if not args.dataset and not args.synthetic:
         p.error("provide --dataset or --synthetic F")
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -117,7 +121,7 @@ def main(argv=None) -> int:
     F = scans.xyz.shape[0]
     os.makedirs(args.out, exist_ok=True)
     with MetricsLogger(os.path.join(args.out, "metrics.jsonl")) as log:
-        poses, elapsed = run_mode(args, cfg, scans)
+        poses, elapsed = run_mode(args, cfg, scans, log)
         if args.local_map:
             from icp4dradar_tpu_torch.models.local_map import local_map_refinement
 
@@ -136,9 +140,10 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_mode(args, cfg, scans):
+def run_mode(args, cfg, scans, log):
     """Runs `args.mode` over the scans and writes the mode's own output
-    files -> (world poses (F, 4, 4) numpy, seconds of the run)."""
+    files (and, for pose_graph, its metrics record) -> (world poses
+    (F, 4, 4) numpy, seconds of the run)."""
     from icp4dradar_tpu_torch.models.scan_to_map import (
         run_scan_to_map, run_scan_to_map_blocked,
     )
@@ -146,6 +151,17 @@ def run_mode(args, cfg, scans):
     from icp4dradar_tpu_torch.utils import write_result_csv, write_rt_txt, write_velocity_txt
 
     t0 = time.perf_counter()
+    if args.mode == "pose_graph":
+        from icp4dradar_tpu_torch.models.pose_graph_odometry import run_pose_graph_odometry
+
+        res = run_pose_graph_odometry(scans, cfg, front_end=args.front_end,
+                                      structure_factors=args.structure_factors)
+        elapsed = time.perf_counter() - t0
+        write_rt_txt(os.path.join(args.out, "radar_odometry.txt"), res.poses)
+        write_rt_txt(os.path.join(args.out, "odometry_raw.txt"), res.odom_poses)
+        log.log("pose_graph", loop_closures=res.num_loop_closures,
+                keyframes=int(len(res.keyframe_indices)), cost=res.cost)
+        return res.poses, elapsed
     if args.mode == "scan_to_scan":
         outs = run_scan_to_scan(scans, cfg, use_doppler_prior=args.doppler_prior,
                                 use_static_points_only=args.static_only)

@@ -12,5 +12,9 @@ from icp4dradar_tpu_torch.utils.trajectory import (  # noqa: F401
     write_pcl_info,
     write_tum,
 )
-from icp4dradar_tpu_torch.utils.threefry import reve_batch_uniforms, reve_uniforms  # noqa: F401
+from icp4dradar_tpu_torch.utils.threefry import (  # noqa: F401
+    doppler_uniforms,
+    reve_batch_uniforms,
+    reve_uniforms,
+)
 from icp4dradar_tpu_torch.utils.checkpoint import save_checkpoint, load_checkpoint  # noqa: F401

@@ -60,6 +60,17 @@ def uniform(k: np.ndarray, n: int) -> np.ndarray:
     return bits.view(np.float32) - np.float32(1.0)
 
 
+def doppler_uniforms(seed: int, frames: int, hypotheses: int) -> np.ndarray:
+    """(frames, 2, hypotheses) float32: the Doppler RANSAC draws the JAX
+    package's `run_scan_to_scan` makes with key(seed): one key a frame
+    (split(key, frames)), split in two for the two hypothesis points."""
+    out = []
+    for kf in split(key(seed), frames):
+        k1, k2 = split(kf, 2)
+        out.append(np.stack([uniform(k1, hypotheses), uniform(k2, hypotheses)]))
+    return np.stack(out)
+
+
 def reve_uniforms(seed: int, frames: int, block: int, hypotheses: int,
                   k: np.ndarray = None, continued: bool = False) -> np.ndarray:
     """(frames, 3 * hypotheses) float32: the REVE draws the JAX package's

@@ -1,7 +1,8 @@
 """The port's CLI output files against the JAX CLI's: the TUM and point-count
 writers byte for byte on the same poses and counts, the JSONL metrics
-logger's records, and one scan_to_scan run of each CLI on the CPU compared
-file for file.
+logger's records, and one scan_to_scan and one pose_graph run of each CLI
+on the CPU compared file for file (and the port's pose_graph mode with the
+scan-to-map front end and structure factors).
 
 The two CLIs' poses agree only to the port's parity tolerance (the JAX CPU
 path searches with expanded distances), so their pose files are held to
@@ -100,3 +101,50 @@ def test_cli_output_directory_matches_jax_cli(tmp_path, capsys):
     assert port_line["device"] == "cpu" and port_line["mode"] == jax_line["mode"]
     assert port_line["ate_rmse_m"] == port_recs[0]["ate_rmse_m"]
     assert abs(port_line["ate_rmse_m"] - jax_line["ate_rmse_m"]) <= 5e-3
+
+
+PG_ARGS = ["--mode", "pose_graph", "--synthetic", "16", "--max-points", "256",
+           "--landmarks", "2000"]
+
+
+def test_cli_pose_graph_matches_jax_cli(tmp_path, capsys):
+    """One small `--mode pose_graph` run of each CLI (the scan-to-scan front
+    end): the same files with the same row counts, and metrics records of
+    the same events and keys."""
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    assert port_cli.main(PG_ARGS + ["--device", "cpu", "--out", os.fspath(port_dir)]) == 0
+    port_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jax_cli.main(PG_ARGS + ["--cpu", "--out", os.fspath(jax_dir)]) == 0
+    jax_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    files = sorted(os.listdir(jax_dir))
+    assert files == ["metrics.jsonl", "odom_tum.txt", "odometry_raw.txt", "pcl_info.txt",
+                     "radar_odometry.txt"]
+    assert sorted(os.listdir(port_dir)) == files
+    for f in files:
+        assert _rows(port_dir / f) == _rows(jax_dir / f), f
+    port_recs, jax_recs = ([json.loads(line) for line in (d / "metrics.jsonl").read_text()
+                            .splitlines()] for d in (port_dir, jax_dir))
+    assert [r["event"] for r in port_recs] == [r["event"] for r in jax_recs] == [
+        "pose_graph", "run_complete"]
+    assert [sorted(r) for r in port_recs] == [sorted(r) for r in jax_recs]
+    assert port_recs[0]["keyframes"] == jax_recs[0]["keyframes"] == 4
+    assert port_recs[0]["loop_closures"] == jax_recs[0]["loop_closures"]
+    raw = np.loadtxt(port_dir / "odometry_raw.txt")
+    assert raw.shape == (16, 12) and np.isfinite(raw).all()
+    np.testing.assert_allclose(np.loadtxt(port_dir / "radar_odometry.txt"),
+                               np.loadtxt(jax_dir / "radar_odometry.txt"), atol=5e-2)
+    assert port_line["mode"] == jax_line["mode"] == "pose_graph"
+
+
+def test_cli_pose_graph_scan_to_map_structure_factors(tmp_path, capsys):
+    out = tmp_path / "o"
+    assert port_cli.main(PG_ARGS + ["--front-end", "scan_to_map", "--structure-factors",
+                                    "--set", "voxel_map.capacity=16384", "--device", "cpu",
+                                    "--out", os.fspath(out)]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["mode"] == "pose_graph" and line["frames"] == 16
+    assert sorted(os.listdir(out)) == ["metrics.jsonl", "odom_tum.txt", "odometry_raw.txt",
+                                       "pcl_info.txt", "radar_odometry.txt"]
+    recs = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    assert recs[0]["event"] == "pose_graph" and np.isfinite(recs[0]["cost"])
+    assert np.isfinite(np.loadtxt(out / "radar_odometry.txt")).all()

@@ -181,3 +181,30 @@ def test_small_products_and_pairwise_sums_round_alike_at_every_batch_size(n):
                                rtol=1e-5, atol=1e-3)
     counts = torch.tensor(rng.integers(0, 2, (n, 1000)), dtype=torch.float32)
     assert torch.equal(pairwise_sum(counts), counts.sum(-1))
+
+
+@pytest.mark.parametrize("name", ["quat_conjugate", "quat_multiply", "quat_rotate", "so3_vee",
+                                  "se3_rotation", "se3_translation", "se3_compose",
+                                  "quat_identity", "masked_lstsq", "batched_solve_psd"])
+def test_pose_graph_helpers_match_jax(name):
+    """The quaternion / SE(3) helpers and solvers the pose-graph back end
+    brought over, on the same inputs (atol 1e-5, and rtol 1e-4 for the
+    normal-equation solves, whose systems have entries of order 20)."""
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(16, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    T = np.asarray(jg.se3_exp(jnp.asarray(rng.normal(0, 1, (16, 6)).astype(np.float32))))
+    A = rng.normal(size=(16, 20, 6)).astype(np.float32)
+    b = rng.normal(size=(16, 20)).astype(np.float32)
+    m = (rng.uniform(size=(16, 20)) > 0.2).astype(np.float32)
+    S = (np.einsum("bni,bnj->bij", A, A) + np.eye(6)).astype(np.float32)
+    args = {"quat_conjugate": (q,), "quat_multiply": (q, q[::-1].copy()),
+            "quat_rotate": (q, rng.normal(size=(16, 3)).astype(np.float32)),
+            "so3_vee": (T[:, :3, :3],), "se3_rotation": (T,), "se3_translation": (T,),
+            "se3_compose": (T, T[::-1].copy()), "quat_identity": (),
+            "masked_lstsq": (A, b, m), "batched_solve_psd": (S, b[:, :6])}[name]
+    want = getattr(jg, name)(*(jnp.asarray(a) for a in args))
+    got = getattr(pg, name)(*(torch.from_numpy(a) for a in args))
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=ATOL)

@@ -1,7 +1,8 @@
 """The port stands alone: no source of `icp4dradar_tpu_torch` (or
 `chip_smoke.py`) imports jax, flax or the JAX package, and running its
 slices (scan-to-scan, the blocked VGICP tracker, the kNN-GICP tracker, a
-streaming session) leaves them out of sys.modules."""
+streaming session, the pose-graph pipeline) leaves them out of
+sys.modules."""
 
 import pathlib
 import re
@@ -60,6 +61,10 @@ sess = streaming.OdometrySession(cfg, device="cpu")
 for k in range(3):
     sess.process(scans[k])
 assert sess.frame == 3 and bool(torch.isfinite(torch.as_tensor(sess.pose)).all())
+from icp4dradar_tpu_torch import graph
+from icp4dradar_tpu_torch.models import run_pose_graph_odometry
+res = run_pose_graph_odometry(scans, cfg, keyframe_every=2, loop_radius=0.01)
+assert res.poses.shape == (8, 4, 4) and res.num_loop_closures == 0
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'icp4dradar_tpu'))
 print('LOADED', bad)

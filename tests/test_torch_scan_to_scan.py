@@ -160,10 +160,15 @@ def test_cli_never_falls_back_to_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_unported_mode_exits(tmp_path):
-    with pytest.raises(SystemExit) as exc:
-        run_odometry.main(["--mode", "pose_graph", "--synthetic", "4",
-                           "--device", "cpu", "--out", str(tmp_path / "o")])
-    assert exc.value.code != 0
+    """Every --mode of the JAX CLI is ported; its options that are not yet
+    (the recorded-transform replay, bag input) exit non-zero before any
+    output is written."""
+    for extra in (["--replay", str(tmp_path / "rec.csv")], ["--bag", str(tmp_path / "b.bag")]):
+        with pytest.raises(SystemExit) as exc:
+            run_odometry.main(["--mode", "scan_to_scan", "--synthetic", "4", "--device", "cpu",
+                               "--out", str(tmp_path / "o")] + extra)
+        assert exc.value.code != 0
+        assert not (tmp_path / "o").exists()
 
 
 def test_bin_dataset_matches_jax_and_feeds_cli(tmp_path, capsys):
