@@ -213,6 +213,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              synchronise calls and host-to-device copies) per K4, K5, K2
              and K3 call on prepared operands and per K2 packing, which
              must be none, and per K4 call of the per-call wrapper.
+13. host   — the host side on the card: the s2m cell's 256 frames x 2048
+             points written as a ROS1 bag (`write_synthetic_bag`:
+             ColoRadar fields, /gt and /imu, no compression; seconds and
+             MB), read by the native streamer and by the Python walk
+             (identical arrays, `native_used`, the MB/s of each; bz2 and
+             lz4 bags where their libraries load, the walks that ran
+             printed); `RadarBagDataset` (load seconds, one copy a field
+             to the card; the points equal the sequence's), its IMU
+             batches into `imu_prior_deltas`, and
+             run_scan_to_map_blocked(block=8, use_const_velocity_rot=True,
+             prior_deltas=...) on the JAX package's REVE draws, K4's count
+             set to 0 just before: launches > 0, no lost frame, ATE
+             (align=False) within 0.01 m of the JAX CPU run of the same
+             path (scripts/port_bag_reference.py); again without the
+             prior, sweeps a frame and scans/s of both. The CLI's
+             `--bag --imu-prior --mode scan_to_map --map-interval 8
+             --cv-rot --viz --steady-state` run (its seven files, the
+             steady-state keys, ATE within 0.01 m of the library run's).
+             Phase 4's transforms written to output_result.csv and
+             replayed (`run_scan_to_scan_replay`), K1's count set to 0
+             just before: no launch, velocity bit for bit, the in-memory
+             transforms' world_T bit for bit, the file's within 1e-3 m of
+             the CPU's prefix product of the file and 0.05 m of phase 4's
+             (six decimals); its ms. 64 frames as `pcd/` through the
+             CLI's sniff (finite poses, point counts equal) and as .bin
+             through the native loader (equal to numpy and the
+             sequence). The phase's seconds, at most 90.
 12. ab     — only with `--parent DIR` (a `git archive` of the parent commit
              unpacked at DIR): the K2, K3, K5 and K4 calls of both trees at the
              path shapes (K3 also per call), each tree in its own process,
@@ -223,8 +250,9 @@ The kernels' bounds come from the shapes and this run's data (bytes over
 3.35 TB/s, FP32 operations over 67 TFLOP/s, the H100 SXM data sheet). The
 line before the last two is a JSON record of the kernels (K1's row with
 phase 4c's `pose_graph_launches` and its loop ICP's `loop_icp_launches`,
-`loop_icp_ms` and `loop_icp_pairs`, K4's with phase 4c's
-`pose_graph_launches`), the next one the
+`loop_icp_ms` and `loop_icp_pairs`, and phase 13's `replay_launches`; K4's
+with phase 4c's `pose_graph_launches` and phase 13's `bag_launches`), the
+next one the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -310,6 +338,19 @@ VGICP_FLOPS_PER_PAIR = 9
 VGICP_FLOPS_PER_SOURCE = 300  # p = R s + t and the GN epilogue, about
 
 
+# phase 13 (host): the s2m cell's frames as a ROS1 bag, IMU priors into
+# the blocked tracker on JAX's draws; its ATE against the JAX package's CPU
+# run of the same path (scripts/port_bag_reference.py)
+BAG_ATE_JAX = 0.02973
+BAG_ATE_BAND = 0.01
+# the replay through output_result.csv: the card's prefix product against
+# the CPU's of the same file (float32 at ~1 km from the origin), and the
+# file's six decimals against phase 4's exact transforms (over the bench
+# track's 1024 ground-truth deltas they move the chain by 0.016 m)
+REPLAY_CPU_TOL = 1e-3
+REPLAY_CSV_TOL = 0.05
+PCD_FRAMES = 64
+HOST_BUDGET_S = 90.0
 # failures found by a phase that lets the later phases run; main raises on
 # them before it prints a result
 FAILED = []
@@ -728,7 +769,7 @@ def phase_slice(torch, seq, scans):
         f"equal {bool((o_gpu.accepted.cpu() == o_cpu.accepted).all())}")
     if d > 1e-3 or not bool((o_gpu.accepted.cpu() == o_cpu.accepted).all()):
         raise RuntimeError("[slice] CUDA and CPU paths disagree on 16x256")
-    return launches, F / dt, ate, out.world_T.cpu().numpy()
+    return launches, F / dt, ate, out
 
 
 def phase_local_map(torch, scans, poses):
@@ -2644,6 +2685,239 @@ def phase_profile(torch, scans, s2m, track, batch):
         expect=({"vgicp_sweep_kernel", "vgicp_frozen_kernel"}, set()))
 
 
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _same_messages(a, b):
+    """Raises unless two read_messages lists hold the same topics, stamps
+    and arrays."""
+    if [(t, bt) for t, _, bt in a] != [(t, bt) for t, _, bt in b]:
+        raise RuntimeError("[host] the readers give different topics or stamps")
+    for (_, x, _), (_, y, _) in zip(a, b):
+        xs = x.columns if hasattr(x, "columns") else vars(x)
+        ys = y.columns if hasattr(y, "columns") else vars(y)
+        if list(xs) != list(ys) or not all(np.array_equal(xs[k], ys[k]) for k in xs):
+            raise RuntimeError("[host] the native and Python readers give different arrays")
+
+
+def phase_host(torch, scans, s2s_out):
+    """The host side on the card (phase 13): the s2m cell's 256 x 2048
+    frames as a ROS1 bag, read back through the native streamer and the
+    Python walk, IMU priors into the blocked tracker on K4 (JAX's draws),
+    the CLI's bag run, the replay of phase 4's track, PCD and the native
+    .bin loader. Returns the K4 and K1 launches of its library runs."""
+    import contextlib
+    import io as pyio
+    import shutil
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io import (
+        BinSequenceDataset, RadarBagDataset, RosbagReader, SyntheticSequence, lz4f,
+        write_pcd, write_radar_bin, write_synthetic_bag,
+    )
+    from icp4dradar_tpu_torch.models import run_odometry, run_scan_to_scan_replay, scan_to_map
+    from icp4dradar_tpu_torch.ops import icp_fused, vgicp_fused
+    from icp4dradar_tpu_torch.preprocess import imu_prior_deltas, reve_hypotheses
+    from icp4dradar_tpu_torch.utils import (
+        ate_rmse, read_result_csv, reve_uniforms, write_result_csv,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = PipelineConfig()
+    dev = scans.device
+    F, B = S2M_FRAMES, S2M_BLOCK
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_host")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # ---- the bag: written, then read by the native streamer and in Python ----
+    seq = SyntheticSequence(num_frames=F, max_points=BENCH_POINTS, num_landmarks=5000,
+                            world_extent=120.0, max_range=80.0, dynamic_fraction=0.1,
+                            speed=1.0, turn_rate=0.02, seed=0)
+    bag = os.path.join(work, "bench.bag")
+    t0 = time.perf_counter()
+    write_synthetic_bag(bag, seq)
+    mb = os.path.getsize(bag) / 1e6
+    log(f"[host] bag of {F} x {BENCH_POINTS} (ColoRadar fields, /gt, /imu, no compression): "
+        f"{mb:.2f} MB written in {time.perf_counter() - t0:.3f} s")
+    reads = {}
+    for use_native in (True, False):
+        reader = RosbagReader(bag, use_native=use_native)
+        t0 = time.perf_counter()
+        msgs = list(reader.read_messages())
+        reads[use_native] = (msgs, time.perf_counter() - t0, reader.native_used)
+    (n_msgs, n_s, n_used), (p_msgs, p_s, _) = reads[True], reads[False]
+    log(f"[host] read {len(n_msgs)} messages: native {n_s:.3f} s = {mb / n_s:.1f} MB/s, "
+        f"Python {p_s:.3f} s = {mb / p_s:.1f} MB/s (native {p_s / n_s:.2f} x); native_used "
+        f"{n_used}")
+    if not n_used or len(n_msgs) != 3 * F:
+        raise RuntimeError(f"[host] native_used {n_used}, {len(n_msgs)} messages")
+    _same_messages(n_msgs, p_msgs)
+    ran = []
+    small = SyntheticSequence(num_frames=16, max_points=256, num_landmarks=2000, seed=0)
+    for comp in ("bz2", "lz4"):
+        if comp == "lz4" and not lz4f.available():
+            continue
+        path = os.path.join(work, f"small_{comp}.bag")
+        write_synthetic_bag(path, small, compression=comp)
+        native = RosbagReader(path)
+        a = list(native.read_messages())
+        _same_messages(a, list(RosbagReader(path, use_native=False).read_messages()))
+        ran.append(f"{comp} ({'native' if native.native_used else 'Python walk'})")
+    log(f"[host] compressed bags read alike by both walks: {', '.join(ran) or 'none'}; "
+        f"liblz4 {'loads' if lz4f.available() else 'does not load'}")
+
+    # ---- RadarBagDataset -> IMU priors -> the blocked tracker on K4 ----
+    t0 = time.perf_counter()
+    ds = RadarBagDataset(bag, "/radar", "/gt", "/imu", max_points=BENCH_POINTS)
+    bag_scans = ds.stacked_scans(dev)
+    _sync(torch, dev)
+    load_s = time.perf_counter() - t0
+    priors = torch.from_numpy(imu_prior_deltas(ds.frames)).to(dev)
+    log(f"[host] RadarBagDataset {len(ds)} frames loaded and on the card in {load_s:.3f} s "
+        f"(native_used {ds.native_used})")
+    if not ds.native_used or len(ds) != F:
+        raise RuntimeError("[host] the dataset did not read the bag natively")
+    # the bag holds the bench sequence's points; its last frame's Doppler
+    # differs (a sequence's last frame takes the velocity of the frame pair
+    # before it)
+    for f in ("xyz", "doppler", "intensity", "mask"):
+        k = F - 1 if f == "doppler" else F
+        if not torch.equal(getattr(bag_scans, f)[:k], getattr(scans, f)[:k]):
+            raise RuntimeError(f"[host] the bag's {f} differs from the sequence's")
+    # the JAX package's draws (its run's key(cfg.seed)), as the reference run's
+    u = torch.from_numpy(reve_uniforms(cfg.seed, F, B, reve_hypotheses(cfg.reve))).to(dev)
+    runs = {}
+    for name, pd in (("prior", priors), ("no prior", None)):
+        scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS = 0
+        vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        _, out = scan_to_map.run_scan_to_map_blocked(
+            bag_scans, cfg, uniforms=u, block=B, use_const_velocity_rot=True, prior_deltas=pd)
+        _sync(torch, dev)
+        dt = time.perf_counter() - t0
+        its = out.iterations.cpu().numpy()
+        lost = int((out.fitness >= LOST_FITNESS).sum().item())
+        ate = ate_rmse(out.world_T.cpu().numpy()[:, :3, 3], seq.poses[:, :3, 3], align=False)
+        runs[name] = (vgicp_fused.VGICP_SWEEP_LAUNCHES, ate)
+        log(f"[host] bag path, {name}: {F / dt:.1f} scans/s ({dt * 1e3:.2f} ms), GN sweeps "
+            f"per frame {its.mean():.3f}, vgicp_sweep launches {runs[name][0]}, fallback "
+            f"blocks {scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS}, lost {lost}, ATE (align=False) "
+            f"{ate:.5f} m")
+        if runs[name][0] <= 0 or lost or not bool(torch.isfinite(out.world_T).all()):
+            raise RuntimeError(f"[host] bag path, {name}: no K4 launch, a lost frame or a "
+                               f"non-finite pose")
+    if not abs(runs["prior"][1] - BAG_ATE_JAX) <= BAG_ATE_BAND:
+        raise RuntimeError(f"[host] bag path ATE {runs['prior'][1]:.5f} m outside the JAX CPU "
+                           f"run's {BAG_ATE_JAX} +- {BAG_ATE_BAND} m")
+
+    # ---- the same path through the CLI ----
+    out_dir = os.path.join(work, "cli")
+    buf = pyio.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_odometry.main([
+            "--bag", bag, "--topic-radar", "/radar", "--topic-gt", "/gt", "--topic-imu", "/imu",
+            "--imu-prior", "--mode", "scan_to_map", "--map-interval", str(B), "--cv-rot",
+            "--viz", "--steady-state", "--device", dev.type, "--max-points", str(BENCH_POINTS),
+            "--out", out_dir])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    files = sorted(os.listdir(out_dir))
+    log(f"[host] CLI --bag --imu-prior --viz --steady-state: rc {rc}, files {files}, record "
+        f"{json.dumps(rec)}")
+    want = ["map.ply", "metrics.jsonl", "odom_tum.txt", "pcl_info.txt", "radar_odometry.txt",
+            "velocity.txt", "viewer.html"]
+    steady = {"steady_s", "steady_scans_per_sec", "compile_overhead_s"}
+    if rc != 0 or files != want or not steady <= set(rec) or rec["frames"] != F:
+        raise RuntimeError("[host] the CLI's bag run did not write its files or its record")
+    # the CLI draws from a seeded torch.Generator, the library run JAX's
+    # draws; its record's ATE is aligned, so read its poses back
+    cli_poses = np.loadtxt(os.path.join(out_dir, "radar_odometry.txt")).reshape(-1, 3, 4)
+    cli_ate = ate_rmse(cli_poses[:, :, 3], seq.poses[:, :3, 3], align=False)
+    log(f"[host] the CLI's track: ATE (align=False) {cli_ate:.5f} m")
+    if not abs(cli_ate - runs["prior"][1]) <= BAG_ATE_BAND:
+        raise RuntimeError(f"[host] the CLI's ATE {cli_ate:.5f} m is not within "
+                           f"{BAG_ATE_BAND} m of the library run's")
+
+    # ---- the replay of phase 4's track ----
+    csv = os.path.join(work, "output_result.csv")
+    write_result_csv(csv, s2s_out.icp_transform.cpu().numpy(), s2s_out.fitness.cpu().numpy(),
+                     s2s_out.sine_A.cpu().numpy(), s2s_out.sine_b.cpu().numpy())
+    _, T_rec, scores, _, _ = read_result_csv(csv)
+    T_csv = torch.from_numpy(T_rec).float().to(dev)
+    icp_fused.ICP_MOMENTS_LAUNCHES = 0
+    rep = run_scan_to_scan_replay(scans, T_csv, cfg, recorded_fitness=scores)
+    exact = run_scan_to_scan_replay(scans, s2s_out.icp_transform, cfg)
+    replay_k1 = icp_fused.ICP_MOMENTS_LAUNCHES
+    _sync(torch, dev)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run_scan_to_scan_replay(scans, T_csv, cfg, recorded_fitness=scores)
+        _sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    from icp4dradar_tpu_torch.models.scan_to_scan import _prefix_products
+
+    chain_cpu = _prefix_products(T_csv.cpu())
+    d_cpu = (rep.world_T.cpu() - chain_cpu).abs().max().item()
+    d_csv = (rep.world_T - s2s_out.world_T).abs().max().item()
+    same_vel = torch.equal(rep.velocity, s2s_out.velocity)
+    same_exact = torch.equal(exact.world_T, s2s_out.world_T)
+    log(f"[host] replay of phase 4's {scans.xyz.shape[0]} x {scans.xyz.shape[1]} track: "
+        f"{statistics.median(times):.2f} ms median of 5 ({', '.join(f'{t:.2f}' for t in times)}); "
+        f"icp_moments launches {replay_k1}; velocity bit for bit {same_vel}; in-memory "
+        f"transforms: world_T bit for bit {same_exact}; through the CSV: max |world_T| diff "
+        f"{d_cpu:.3e} from the CPU prefix product of the file, {d_csv:.3e} from phase 4's "
+        f"(the file's six decimals)")
+    if (replay_k1 != 0 or not same_vel or not same_exact or d_cpu > REPLAY_CPU_TOL
+            or d_csv > REPLAY_CSV_TOL):
+        raise RuntimeError("[host] the replay does not reproduce phase 4's track")
+
+    # ---- PCD through the CLI's sniff, and the native .bin loader ----
+    pcd_dir, bin_dir = os.path.join(work, "pcd_seq"), os.path.join(work, "bin_seq")
+    for k in range(PCD_FRAMES):
+        rec5 = scans[k].to_numpy_valid()
+        write_pcd(os.path.join(pcd_dir, "pcd", f"{k:05d}.pcd"), {
+            "x": rec5[:, 0], "y": rec5[:, 1], "z": rec5[:, 2], "intensity": rec5[:, 3],
+            "doppler": rec5[:, 4]})
+        write_radar_bin(os.path.join(bin_dir, "data", f"radar_pointcloud_{k}.bin"), rec5)
+    buf = pyio.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_odometry.main(["--mode", "scan_to_scan", "--dataset", pcd_dir, "--doppler-prior",
+                                "--max-points", str(BENCH_POINTS), "--device", dev.type,
+                                "--out", os.path.join(work, "pcd_out")])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    tum = np.loadtxt(os.path.join(work, "pcd_out", "odom_tum.txt"))
+    counts = np.loadtxt(os.path.join(work, "pcd_out", "pcl_info.txt"))
+    ok_pcd = (rc == 0 and rec["frames"] == PCD_FRAMES and np.isfinite(tum).all()
+              and counts.tolist() == scans.mask[:PCD_FRAMES].sum(dim=-1).cpu().tolist())
+    native = BinSequenceDataset(bin_dir, max_points=BENCH_POINTS)
+    plain = BinSequenceDataset(bin_dir, max_points=BENCH_POINTS, use_native=False)
+    t0 = time.perf_counter()
+    nat = [native[k] for k in range(PCD_FRAMES)]
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    npy = [plain[k] for k in range(PCD_FRAMES)]
+    npy_s = time.perf_counter() - t0
+    ok_bin = native.native_used and all(
+        torch.equal(getattr(a, f), getattr(b, f))
+        and torch.equal(getattr(a, f).to(dev), getattr(scans[k], f))
+        for k, (a, b) in enumerate(zip(nat, npy)) for f in ("xyz", "doppler", "intensity", "mask"))
+    log(f"[host] PCD sniff: {PCD_FRAMES} frames through the CLI's PCD reader on the card, rc "
+        f"{rc}, point counts equal, poses finite: {ok_pcd}; native .bin loader equal to the "
+        f"numpy reads and the sequence: {ok_bin} ({PCD_FRAMES} frames in {nat_s:.3f} s against "
+        f"{npy_s:.3f} s)")
+    if not (ok_pcd and ok_bin):
+        raise RuntimeError("[host] the PCD run or the native .bin loader failed")
+    secs = time.perf_counter() - t_phase
+    log(f"[host] phase seconds {secs:.1f} (budget {HOST_BUDGET_S} s)")
+    if secs > HOST_BUDGET_S:
+        FAILED.append(f"[host] the phase took {secs:.1f} s, over its {HOST_BUDGET_S} s")
+    return {"bag_launches": runs["prior"][0]}, {"replay_launches": replay_k1}
+
+
 def ab_child(tree):
     """Times the K2, K3, K5 and K4 calls of the package in `tree` (this tree
     or the parent commit's) at the path shapes, on inputs made from a seed,
@@ -2805,8 +3079,8 @@ def main(argv) -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     icp = phase_kernel(torch, scans)
-    icp_launches, scans_per_s, ate, s2s_poses = phase_slice(torch, seq, scans)
-    local_map = phase_local_map(torch, scans, s2s_poses)
+    icp_launches, scans_per_s, ate, s2s_out = phase_slice(torch, seq, scans)
+    local_map = phase_local_map(torch, scans, s2s_out.world_T.cpu().numpy())
     vg_launches, state, out, s2m, s2m_rate = phase_s2m(torch, seq, scans)
     pg_k1, pg_k4 = phase_pose_graph(torch, card)     # 4c, after 5: the s2m path is warm
     phase_map_api(torch, state)
@@ -2820,6 +3094,7 @@ def main(argv) -> int:
     frozen, frozen_ops = phase_frozen(torch, state, out, track)
     phase_profile(torch, scans, s2m, track, batch)
     phase_syncs(torch, sweep_ops, frozen_ops, search_ops)
+    host_k4, host_k1 = phase_host(torch, scans, s2s_out)
     if parent is not None:
         phase_ab(parent)
     if FAILED:
@@ -2828,11 +3103,11 @@ def main(argv) -> int:
     log(json.dumps({"kernels": [
         {"name": "icp_moments", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": icp_launches, **icp, **local_map,
-         **pg_k1},
+         **pg_k1, **host_k1},
         {"name": "vgicp_sweep", "route": "cuda", "source": VGICP_SOURCE,
          "replaces": VGICP_REPLACES, "launches": vg_launches, **vg,
          "batch_launches": batch["launches"], **vg_streams,
-         "session_launches": session["session_launches"], **pg_k4},
+         "session_launches": session["session_launches"], **pg_k4, **host_k4},
         {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_REPLACES, "launches": nn_launches, **nn},
         {"name": "nn_pack", "route": "cuda", "source": NN_SOURCE,

@@ -10,21 +10,29 @@ CUDA ICP-moments kernel (`csrc/icp_moments.cu`); scan-to-map tracking
 (`models.run_scan_to_map[_blocked]`) with REVE, the voxel-hash map and
 VGICP on the CUDA sweep kernel and its frozen-payload pass
 (`csrc/vgicp_sweep.cu`), or kNN GICP on the CUDA 1-NN search
-(`csrc/nn_search.cu`); the CLI's ``--mode scan_to_scan`` and
-``--mode scan_to_map``. This package never imports jax or
-`icp4dradar_tpu`.
+(`csrc/nn_search.cu`); B-stream serving, the streaming session, the
+map API and the local-map pass; the pose-graph back end (`graph`); the
+host side: ROS1 bags, PCD, the native loaders (`native`), IMU rotation
+priors, the record/replay harness, PLY/HTML exports, profiling and debug
+guards; the CLI's three modes with the JAX CLI's options but
+``--distributed``. This package never imports jax or `icp4dradar_tpu`.
 
 Subpackages (same names as the JAX package)
 -------------------------------------------
 - ``geom``          SO(3)/SE(3), Horn rotation, closed-form 3x3 solves
-- ``io``            RadarScan, .bin IO, synthetic sequences
-- ``preprocess``    Doppler sine-RANSAC, static/dynamic split, ego velocity
+- ``io``            RadarScan, .bin and PCD IO, vendor adapters, ROS1 bags,
+                    synthetic sequences and bags
+- ``preprocess``    Doppler sine-RANSAC, static/dynamic split, ego velocity,
+                    REVE, IMU gyro rotation priors
 - ``mapping``       the voxel-hash map: insert, sector query, map k-NN
 - ``ops``           kernel wrappers and their plain versions, k-NN, build
 - ``registration``  batched point-to-point ICP, kNN GICP, VGICP
 - ``models``        scan-to-scan and scan-to-map odometry, CLI
-- ``utils``         ATE/RPE, trajectory file writers
+- ``utils``         ATE/RPE, trajectory files, logging, checkpoints, viz,
+                    profiling, debug guards
 - ``csrc``          CUDA C++ sources, built with nvcc at first use
+- ``native``        host C++ (.bin prefetching loader, rosbag streamer),
+                    built with g++ at first use
 """
 
 __version__ = "0.1.0"

@@ -105,6 +105,18 @@ class RadarScan:
         """Return a scan whose validity mask is ANDed with `mask`."""
         return self.replace(mask=self.mask * mask.to(self.mask.dtype))
 
+    def to_numpy_valid(self) -> np.ndarray:
+        """Host-side (M, 5) [x y z intensity doppler] of valid points only."""
+        m = self.mask.cpu().numpy() > 0.5
+        return np.concatenate(
+            [
+                self.xyz.cpu().numpy()[m],
+                self.intensity.cpu().numpy()[m][:, None],
+                self.doppler.cpu().numpy()[m][:, None],
+            ],
+            axis=-1,
+        )
+
     def to(self, device) -> "RadarScan":
         return RadarScan(**{f.name: getattr(self, f.name).to(device)
                             for f in dataclasses.fields(self)})

@@ -11,6 +11,7 @@ from icp4dradar_tpu_torch.models.scan_to_scan import (  # noqa: F401
     scan_to_scan_init,
     scan_to_scan_step,
     run_scan_to_scan,
+    run_scan_to_scan_replay,
 )
 from icp4dradar_tpu_torch.models.scan_to_map import (  # noqa: F401
     ScanToMapState,

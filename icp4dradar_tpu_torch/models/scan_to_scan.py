@@ -171,6 +171,18 @@ def scan_to_scan_step(
     return new_state, out
 
 
+def _uniforms_for(scans: RadarScan, cfg: PipelineConfig, uniforms, generator):
+    """The given (F, 2, H) RANSAC draws, or draws from `generator`, by
+    default a generator on the scans' device seeded with `cfg.seed`."""
+    if uniforms is not None:
+        return uniforms
+    dev = scans.device
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(cfg.seed)
+    return draw_uniforms(scans.time.shape, cfg.doppler.num_hypotheses, generator, dev)
+
+
 def run_scan_to_scan(
     scans: RadarScan,
     cfg: PipelineConfig = PipelineConfig(),
@@ -186,16 +198,11 @@ def run_scan_to_scan(
     uniforms: (F, 2, H) RANSAC draws; when None they are drawn from
     `generator`, or from a generator on the scans' device seeded with
     `cfg.seed`."""
-    F = scans.xyz.shape[0]
     dev = scans.device
-    if uniforms is None:
-        if generator is None:
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(cfg.seed)
-        uniforms = draw_uniforms((F,), cfg.doppler.num_hypotheses, generator, dev)
 
     # Phase 1: per-frame preprocessing, in frame chunks.
-    fits, statics, velocities = preprocess_frames(scans, uniforms, cfg.doppler)
+    fits, statics, velocities = preprocess_frames(
+        scans, _uniforms_for(scans, cfg, uniforms, generator), cfg.doppler)
 
     # Phase 2: every frame pair (k, k-1) in one batched ICP.
     def prev(x):
@@ -231,4 +238,43 @@ def run_scan_to_scan(
         fitness=res.fitness, sine_A=fits.A, sine_b=fits.b,
         num_static=torch.sum(statics, dim=-1), converged=res.converged,
         accepted=accepted, iterations=res.iterations,
+    )
+
+
+def run_scan_to_scan_replay(
+    scans: RadarScan,
+    icp_transforms,
+    cfg: PipelineConfig = PipelineConfig(),
+    uniforms: Optional[torch.Tensor] = None,
+    recorded_fitness=None,
+    generator: Optional[torch.Generator] = None,
+) -> ScanToScanOutput:
+    """Re-drive the pipeline from RECORDED frame-to-frame transforms,
+    skipping registration — the reference's USE_ICP_RESULT record/replay
+    harness (src/iterative_closest_point.cpp:192-206, 523-540: per-frame
+    4x4 + score read back from output_result.csv, ICP `align` bypassed,
+    everything downstream re-runs).
+
+    Preprocessing (Doppler fit / static split / LSQ velocity) still runs,
+    on the same draws as `run_scan_to_scan` (`uniforms`, else `generator`,
+    else a generator seeded with cfg.seed), so velocity.txt regenerates
+    bit for bit; the transforms compose through the same prefix product
+    BLINDLY (no tracking gate: replay reproduces the recorded trajectory,
+    gated or not). No ICP runs.
+
+    `icp_transforms`: (F,4,4) relative transforms (read_result_csv order).
+    `recorded_fitness`: optional (F,) recorded scores to carry through."""
+    F = scans.xyz.shape[0]
+    dt, dev = scans.xyz.dtype, scans.device
+    fits, statics, velocities = preprocess_frames(
+        scans, _uniforms_for(scans, cfg, uniforms, generator), cfg.doppler)
+    T_rel = torch.as_tensor(icp_transforms, dtype=dt).to(dev)
+    fitness = (torch.zeros(F, dtype=dt, device=dev) if recorded_fitness is None
+               else torch.as_tensor(recorded_fitness, dtype=dt).to(dev))
+    true_f = torch.ones(F, dtype=torch.bool, device=dev)
+    return ScanToScanOutput(
+        icp_transform=T_rel, world_T=_prefix_products(T_rel), velocity=velocities,
+        fitness=fitness, sine_A=fits.A, sine_b=fits.b,
+        num_static=torch.sum(statics, dim=-1), converged=true_f, accepted=true_f,
+        iterations=torch.zeros(F, dtype=torch.int32, device=dev),
     )

@@ -1,5 +1,5 @@
 """Scan preprocessing: Doppler outlier rejection + ego-velocity estimation,
-REVE ego velocity with inlier extraction."""
+REVE ego velocity with inlier extraction, IMU gyro rotation priors."""
 
 from icp4dradar_tpu_torch.preprocess.doppler import (  # noqa: F401
     SineFit,
@@ -16,4 +16,8 @@ from icp4dradar_tpu_torch.preprocess.reve import (  # noqa: F401
     draw_reve_uniforms,
     estimate_ego_velocity,
     reve_hypotheses,
+)
+from icp4dradar_tpu_torch.preprocess.imu import (  # noqa: F401
+    integrate_gyro,
+    imu_prior_deltas,
 )

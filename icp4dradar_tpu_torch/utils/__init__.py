@@ -1,6 +1,6 @@
 """Utilities: metrics (ATE/RPE), trajectory file IO, the JSONL metrics
-logger, checkpointing, and the JAX package's Threefry draws in numpy
-(`threefry`)."""
+logger, stage timers and profiler traces, checkpointing, PLY/HTML exports,
+debug guards, and the JAX package's Threefry draws in numpy (`threefry`)."""
 
 from icp4dradar_tpu_torch.utils.logging import MetricsLogger  # noqa: F401
 from icp4dradar_tpu_torch.utils.metrics import ate_rmse, rpe, align_umeyama  # noqa: F401
@@ -18,3 +18,6 @@ from icp4dradar_tpu_torch.utils.threefry import (  # noqa: F401
     reve_uniforms,
 )
 from icp4dradar_tpu_torch.utils.checkpoint import save_checkpoint, load_checkpoint  # noqa: F401
+from icp4dradar_tpu_torch.utils.profiling import StageTimer, profile_trace  # noqa: F401
+from icp4dradar_tpu_torch.utils.viz import write_ply, export_map_ply, write_html_viewer, voxel_downsample  # noqa: F401
+from icp4dradar_tpu_torch.utils.debug import checked, assert_finite_tree, validate_scan  # noqa: F401

@@ -54,6 +54,17 @@ F, N, B = 24, 512, 2
 T_ATOL, R_ATOL, ATE_ATOL = 1e-2, 1e-3, 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg():
     """The small config of tests/test_models.py."""
     return JaxConfig().override(**{

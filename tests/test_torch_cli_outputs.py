@@ -15,6 +15,8 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from icp4dradar_tpu.geom import se3_exp
 from icp4dradar_tpu.models import run_odometry as jax_cli
@@ -26,6 +28,17 @@ from icp4dradar_tpu_torch.utils import MetricsLogger, write_pcl_info, write_tum
 
 CLI_ARGS = ["--mode", "scan_to_scan", "--synthetic", "8", "--max-points", "256",
             "--landmarks", "2000", "--doppler-prior"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _poses(seed, n):
@@ -148,3 +161,123 @@ def test_cli_pose_graph_scan_to_map_structure_factors(tmp_path, capsys):
     recs = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
     assert recs[0]["event"] == "pose_graph" and np.isfinite(recs[0]["cost"])
     assert np.isfinite(np.loadtxt(out / "radar_odometry.txt")).all()
+
+
+def _records(d):
+    return [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]
+
+
+def _compare_dirs(port_dir, jax_dir, files):
+    assert sorted(os.listdir(jax_dir)) == files
+    assert sorted(os.listdir(port_dir)) == files
+    for f in files:
+        assert _rows(port_dir / f) == _rows(jax_dir / f), f
+    assert (port_dir / "pcl_info.txt").read_bytes() == (jax_dir / "pcl_info.txt").read_bytes()
+    port_recs, jax_recs = _records(port_dir), _records(jax_dir)
+    assert [r["event"] for r in port_recs] == [r["event"] for r in jax_recs]
+    assert [sorted(r) for r in port_recs] == [sorted(r) for r in jax_recs]
+    return port_recs[-1], jax_recs[-1]
+
+
+BAG_ARGS = ["--topic-radar", "/radar", "--topic-gt", "/gt", "--topic-imu", "/imu",
+            "--imu-prior", "--mode", "scan_to_map", "--map-interval", "8", "--cv-rot",
+            "--max-points", "256", "--viz", "--set", "voxel_map.capacity=16384"]
+
+
+def test_cli_bag_imu_prior_matches_jax_cli(tmp_path, capsys):
+    """`--bag --imu-prior --mode scan_to_map --map-interval 8 --viz` on a
+    16-frame bag (the blocked tracker needs (F - 8) % 8 == 0) in both CLIs:
+    the same files (map.ply and viewer.html included), the same map size,
+    the JAX CLI's record keys, and poses within the parity tolerance."""
+    from icp4dradar_tpu_torch.io import SyntheticSequence, write_synthetic_bag
+
+    bag = os.fspath(tmp_path / "run.bag")
+    write_synthetic_bag(bag, SyntheticSequence(num_frames=16, max_points=256,
+                                               num_landmarks=2000, seed=0))
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    args = ["--bag", bag] + BAG_ARGS
+    assert port_cli.main(args + ["--device", "cpu", "--out", os.fspath(port_dir)]) == 0
+    port_out = capsys.readouterr().out.strip().splitlines()
+    assert jax_cli.main(args + ["--cpu", "--out", os.fspath(jax_dir)]) == 0
+    jax_out = capsys.readouterr().out.strip().splitlines()
+    port_rec, jax_rec = _compare_dirs(port_dir, jax_dir, [
+        "map.ply", "metrics.jsonl", "odom_tum.txt", "pcl_info.txt", "radar_odometry.txt",
+        "velocity.txt", "viewer.html"])
+    assert port_out[0] == jax_out[0] and port_out[0].startswith("map.ply: ")
+    assert (port_dir / "map.ply").read_text().split("end_header")[0] == \
+        (jax_dir / "map.ply").read_text().split("end_header")[0]
+    assert port_rec["frames"] == 16 and abs(port_rec["ate_rmse_m"] - jax_rec["ate_rmse_m"]) <= 5e-3
+    np.testing.assert_allclose(np.loadtxt(port_dir / "radar_odometry.txt"),
+                               np.loadtxt(jax_dir / "radar_odometry.txt"), atol=5e-3)
+    assert "const gt=[[" in (port_dir / "viewer.html").read_text()
+
+
+def test_cli_replay_with_steady_state_matches_jax_cli(tmp_path, capsys):
+    """`--replay` of the port's own scan_to_scan run, with `--steady-state`,
+    in both CLIs: the same files, the run's poses back within the CSV's six
+    decimals, and the steady-state keys in the record; a CSV of another
+    length is refused."""
+    run_dir, port_dir, jax_dir = tmp_path / "run", tmp_path / "port", tmp_path / "jax"
+    assert port_cli.main(CLI_ARGS + ["--device", "cpu", "--out", os.fspath(run_dir)]) == 0
+    csv = os.fspath(run_dir / "output_result.csv")
+    args = CLI_ARGS + ["--replay", csv, "--steady-state"]
+    assert port_cli.main(args + ["--device", "cpu", "--out", os.fspath(port_dir)]) == 0
+    assert jax_cli.main(args + ["--cpu", "--out", os.fspath(jax_dir)]) == 0
+    capsys.readouterr()
+    port_rec, _ = _compare_dirs(port_dir, jax_dir, [
+        "icp.txt", "metrics.jsonl", "odom_tum.txt", "output_result.csv", "pcl_info.txt",
+        "velocity.txt"])
+    assert {"steady_s", "steady_scans_per_sec", "compile_overhead_s"} <= set(port_rec)
+    np.testing.assert_allclose(np.loadtxt(port_dir / "odom_tum.txt")[:, 1:4],
+                               np.loadtxt(run_dir / "odom_tum.txt")[:, 1:4], atol=1e-4)
+    assert (port_dir / "velocity.txt").read_bytes() == (run_dir / "velocity.txt").read_bytes()
+    np.testing.assert_allclose(np.loadtxt(port_dir / "velocity.txt"),
+                               np.loadtxt(jax_dir / "velocity.txt"), atol=1e-3)
+    short = tmp_path / "short.csv"
+    short.write_text("\n".join((run_dir / "output_result.csv").read_text().splitlines()[:5]))
+    with pytest.raises(SystemExit):
+        port_cli.main(CLI_ARGS + ["--replay", os.fspath(short), "--device", "cpu",
+                                  "--out", os.fspath(tmp_path / "x")])
+    assert "--replay has 4 rows but the sequence has 8 frames" in capsys.readouterr().err
+
+
+def test_cli_dataset_format_sniffs_pcd(tmp_path, capsys):
+    """A folder with `pcd/` runs through the PCD reader (`--dataset-format
+    auto`), as in the JAX CLI; `--dataset-format bin` on it finds no frames."""
+    from icp4dradar_tpu_torch.io import SyntheticSequence, write_pcd
+
+    seq = SyntheticSequence(num_frames=6, max_points=256, num_landmarks=2000, seed=4)
+    for k in range(6):
+        rec = seq.scan(k).to_numpy_valid()
+        write_pcd(os.fspath(tmp_path / "seq" / "pcd" / f"{k:05d}.pcd"), {
+            "x": rec[:, 0], "y": rec[:, 1], "z": rec[:, 2], "intensity": rec[:, 3],
+            "doppler": rec[:, 4]})
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    args = ["--mode", "scan_to_scan", "--dataset", os.fspath(tmp_path / "seq"),
+            "--max-points", "256", "--doppler-prior"]
+    assert port_cli.main(args + ["--device", "cpu", "--out", os.fspath(port_dir)]) == 0
+    assert jax_cli.main(args + ["--cpu", "--out", os.fspath(jax_dir)]) == 0
+    capsys.readouterr()
+    port_rec, _ = _compare_dirs(port_dir, jax_dir, [
+        "icp.txt", "metrics.jsonl", "odom_tum.txt", "output_result.csv", "pcl_info.txt",
+        "velocity.txt"])
+    assert port_rec["frames"] == 6 and "ate_rmse_m" not in port_rec
+    counts = np.loadtxt(port_dir / "pcl_info.txt")
+    assert counts.tolist() == [float(len(seq.scan(k).to_numpy_valid())) for k in range(6)]
+    assert np.isfinite(np.loadtxt(port_dir / "odom_tum.txt")).all()
+    with pytest.raises(SystemExit, match="no bin frames"):
+        port_cli.main(args + ["--dataset-format", "bin", "--device", "cpu",
+                              "--out", os.fspath(tmp_path / "b")])
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--synthetic", "4", "--mode", "scan_to_map", "--distributed", "4"],
+     "ROADMAP queue 1 item 6"),
+    (["--synthetic", "4", "--mode", "scan_to_map", "--replay", "x.csv"],
+     "--replay runs in --mode scan_to_scan"),
+    ([], "provide --dataset, --bag, or --synthetic F"),
+])
+def test_cli_refuses(argv, msg, capsys):
+    with pytest.raises(SystemExit) as e:
+        port_cli.main(argv + ["--device", "cpu"])
+    assert e.value.code == 2 and msg in capsys.readouterr().err

@@ -47,6 +47,17 @@ from icp4dradar_tpu_torch.utils import ate_rmse, reve_batch_uniforms, reve_unifo
 F, N, B = 24, 512, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg():
     return JaxConfig().override(**{
         "voxel_map.capacity": 1 << 14, "voxel_map.submap_max_points": 1 << 12,

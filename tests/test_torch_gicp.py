@@ -29,6 +29,17 @@ from icp4dradar_tpu_torch.geom import linalg as pla
 from icp4dradar_tpu_torch.registration import gicp as pg
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spd(rng, n, spread=(0.01, 5.0)):
     Q, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
     ev = np.sort(rng.uniform(*spread, (n, 3)), axis=-1)

@@ -3,8 +3,9 @@ target tile, VGICP sweep with its stream axis and its frozen-payload step,
 the 1-NN search on prepared targets and its coordinate form) against their
 plain PyTorch versions, of the batched voxel map and the map API on the
 card against the CPU, of a stream of the batched tracker against its
-single-stream run on the card, and of a session's checkpoint -> resume
-against its straight run.
+single-stream run on the card, of a session's checkpoint -> resume
+against its straight run, and of the host side's device steps (a bag's
+stacked scans, the replay) on the card against the CPU.
 Marked `gpu`: they skip where torch.cuda.is_available() is False. This
 file imports neither jax nor the JAX package, so on a machine with a card
 and no jax it runs without the suite's conftest:
@@ -758,3 +759,61 @@ def test_vgicp_frozen_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                 # one frame in two groups
         vgicp_iteration_frozen(T[0][None].expand(1, 4, 4), src[0], sm[0], scov[0], best,
                                _acc_groups=2)
+
+
+def test_bag_stacked_scans_cuda_equal_cpu(cuda, tmp_path):
+    from icp4dradar_tpu_torch.io import RadarBagDataset, SyntheticSequence, write_synthetic_bag
+
+    path = str(tmp_path / "a.bag")
+    write_synthetic_bag(path, SyntheticSequence(num_frames=8, max_points=256,
+                                                num_landmarks=2000, seed=0))
+    ds = RadarBagDataset(path, "/radar", "/gt", "/imu", max_points=256)
+    assert ds.native_used
+    on_card, on_cpu = ds.stacked_scans(cuda), ds.stacked_scans()
+    for f in ("xyz", "doppler", "intensity", "mask", "time"):
+        a, b = getattr(on_card, f), getattr(on_cpu, f)
+        assert a.is_cuda and a.shape[0] == 8 and torch.equal(a.cpu(), b), f
+
+
+def test_replay_cuda_equals_cpu(cuda):
+    from icp4dradar_tpu_torch import PipelineConfig
+    from icp4dradar_tpu_torch.io import SyntheticSequence, stack_scans
+    from icp4dradar_tpu_torch.models import run_scan_to_scan_replay
+    from icp4dradar_tpu_torch.preprocess import draw_uniforms
+
+    seq = SyntheticSequence(num_frames=16, max_points=512, num_landmarks=3000, seed=0)
+    scans = stack_scans([seq.scan(k) for k in range(16)])
+    rel = np.stack([np.eye(4, dtype=np.float32)] + [
+        np.linalg.inv(seq.poses[k - 1]) @ seq.poses[k] for k in range(1, 16)])
+    cfg = PipelineConfig()
+    u = draw_uniforms((16,), cfg.doppler.num_hypotheses, torch.Generator().manual_seed(0))
+    before = icp_fused.ICP_MOMENTS_LAUNCHES
+    a = run_scan_to_scan_replay(scans.to(cuda), torch.from_numpy(rel).to(cuda), cfg,
+                                uniforms=u.to(cuda))
+    b = run_scan_to_scan_replay(scans, rel, cfg, uniforms=u)
+    assert icp_fused.ICP_MOMENTS_LAUNCHES == before         # no ICP in a replay
+    torch.testing.assert_close(a.world_T.cpu(), b.world_T, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(b.world_T[:, :3, 3].numpy(), seq.poses[:, :3, 3], atol=1e-4)
+    torch.testing.assert_close(a.velocity.cpu(), b.velocity, atol=1e-4, rtol=0)
+
+
+def test_timer_profiler_and_float_guard_on_cuda(cuda, tmp_path):
+    import json
+
+    from icp4dradar_tpu_torch.utils import StageTimer, checked, profile_trace
+
+    timer = StageTimer()
+    x = torch.rand(1 << 20, device=cuda)
+    timer.tic("mm")
+    y = {"a": [x * 2.0]}
+    assert timer.toc("mm", sync=y) >= 0.0 and timer.counts["mm"] == 1
+    with profile_trace(str(tmp_path / "prof")):
+        (x @ x).item()
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+
+    def masked(t):
+        return torch.where(t > 5, torch.log(t - 2), torch.zeros_like(t))
+
+    with pytest.raises(FloatingPointError, match="aten.log"):
+        checked(masked)(torch.tensor([1.0, 10.0], device=cuda))

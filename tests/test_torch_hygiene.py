@@ -1,8 +1,11 @@
 """The port stands alone: no source of `icp4dradar_tpu_torch` (or
 `chip_smoke.py`) imports jax, flax or the JAX package, and running its
 slices (scan-to-scan, the blocked VGICP tracker, the kNN-GICP tracker, a
-streaming session, the pose-graph pipeline) leaves them out of
-sys.modules."""
+streaming session, the pose-graph pipeline, the host side: a bag through
+the native streamer with IMU priors, the replay, PCD and the native .bin
+loader) leaves them out of sys.modules. Its native libraries build under
+`build/`, never beside their sources, and it exports the JAX package's
+public names of `io`, `utils`, `preprocess` and `models`."""
 
 import pathlib
 import re
@@ -65,6 +68,25 @@ from icp4dradar_tpu_torch import graph
 from icp4dradar_tpu_torch.models import run_pose_graph_odometry
 res = run_pose_graph_odometry(scans, cfg, keyframe_every=2, loop_radius=0.01)
 assert res.poses.shape == (8, 4, 4) and res.num_loop_closures == 0
+import os, tempfile
+from icp4dradar_tpu_torch.io import (BinSequenceDataset, PcdSequenceDataset, RadarBagDataset,
+                                     write_pcd, write_radar_bin, write_synthetic_bag)
+from icp4dradar_tpu_torch.models import run_scan_to_scan_replay
+from icp4dradar_tpu_torch.preprocess import imu_prior_deltas
+from icp4dradar_tpu_torch.utils import checked, export_map_ply, profile_trace
+d = tempfile.mkdtemp()
+write_synthetic_bag(os.path.join(d, 'a.bag'), seq, compression='bz2')
+ds = RadarBagDataset(os.path.join(d, 'a.bag'), '/radar', '/gt', '/imu', max_points=128)
+assert ds.native_used and len(ds) == 8
+_, out = run_scan_to_map(ds.stacked_scans(), cfg,
+                         prior_deltas=torch.from_numpy(imu_prior_deltas(ds.frames)))
+assert torch.isfinite(out.world_T).all()
+rep = run_scan_to_scan_replay(scans, out.world_T, icp4dradar_tpu_torch.PipelineConfig())
+assert torch.isfinite(rep.world_T).all()
+write_pcd(os.path.join(d, 'pcd', '00000.pcd'), {'x': [1.0], 'y': [2.0], 'z': [3.0]})
+assert len(PcdSequenceDataset(d)) == 1
+write_radar_bin(os.path.join(d, 'data', 'radar_pointcloud_0.bin'), scans[0].to_numpy_valid())
+assert BinSequenceDataset(d, max_points=128).native_used
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'icp4dradar_tpu'))
 print('LOADED', bad)
@@ -73,3 +95,36 @@ print('LOADED', bad)
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_native_libraries_build_under_build_dir():
+    """g++ writes the native libraries into build/icp4dradar_tpu_torch/native/
+    (gitignored), named by a hash of the source and flags, and nothing into
+    the package."""
+    from icp4dradar_tpu_torch.native import bagloader, loader
+
+    libs = [loader.build_native(), bagloader.build_native()]
+    build = REPO / "build" / "icp4dradar_tpu_torch" / "native"
+    assert loader.BUILD_DIR == build
+    for lib, name in zip(libs, ("radario", "bagio")):
+        path = pathlib.Path(lib)
+        assert path.parent == build and path.is_file()
+        assert re.fullmatch(rf"lib{name}-[0-9a-f]{{16}}\.so", path.name), path.name
+    assert loader.build_native() == libs[0]          # cached: no rebuild
+    assert not list((REPO / "icp4dradar_tpu_torch").rglob("*.so"))
+
+
+def test_port_exports_the_jax_public_names():
+    """Every public name of the JAX package's `io`, `utils`, `preprocess` and
+    `models` is exported by the port's; the names are read from the
+    sources, so no jax is imported."""
+    import ast
+    import importlib
+
+    for sub in ("io", "utils", "preprocess", "models"):
+        tree = ast.parse((REPO / "icp4dradar_tpu" / sub / "__init__.py").read_text())
+        names = {a.asname or a.name for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) for a in node.names}
+        port = importlib.import_module(f"icp4dradar_tpu_torch.{sub}")
+        missing = sorted(n for n in names if not hasattr(port, n))
+        assert missing == [], (sub, missing)

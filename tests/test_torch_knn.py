@@ -23,6 +23,17 @@ jknn = importlib.import_module("icp4dradar_tpu.ops.knn")
 pknn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cloud(rng, n, scale=60.0):
     return rng.uniform(-scale, scale, (n, 3)).astype(np.float32)
 

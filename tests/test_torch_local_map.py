@@ -37,6 +37,17 @@ from icp4dradar_tpu_torch.ops import icp_fused
 F, N, WINDOW = 9, 256, 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scene(seed=0):
     """9 frames of 256 points, the ground-truth poses nudged by a few cm and
     tenths of a degree (something for the window ICP to correct)."""

@@ -31,6 +31,17 @@ F, N = 16, 256
 T_ATOL, R_ATOL, ATOL = 1e-3, 1e-4, 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _uniforms_of(key, H):
     """(2, H): the draws JAX's fit_sine_ransac makes from `key`."""
     k1, k2 = jax.random.split(key)
@@ -160,10 +171,11 @@ def test_cli_never_falls_back_to_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_unported_mode_exits(tmp_path):
-    """Every --mode of the JAX CLI is ported; its options that are not yet
-    (the recorded-transform replay, bag input) exit non-zero before any
-    output is written."""
-    for extra in (["--replay", str(tmp_path / "rec.csv")], ["--bag", str(tmp_path / "b.bag")]):
+    """Every --mode of the JAX CLI is ported; its one option that is not
+    (`--distributed`), and a replay CSV or a bag that does not exist, exit
+    non-zero before any output is written."""
+    for extra in (["--replay", str(tmp_path / "rec.csv")], ["--bag", str(tmp_path / "b.bag")],
+                  ["--distributed", "2"]):
         with pytest.raises(SystemExit) as exc:
             run_odometry.main(["--mode", "scan_to_scan", "--synthetic", "4", "--device", "cpu",
                                "--out", str(tmp_path / "o")] + extra)

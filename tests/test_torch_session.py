@@ -54,6 +54,17 @@ F, N, WARM, BLOCK = 12, 256, 4, 4
 T_ATOL, R_ATOL = 1e-2, 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg():
     return JaxConfig().override(**{"voxel_map.capacity": 1 << 12,
                                    "voxel_map.submap_max_points": 1 << 10})

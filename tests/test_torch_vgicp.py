@@ -32,6 +32,17 @@ RTOL, ATOL = 1e-4, 1e-3
 NAMES = ("H", "g", "cost", "wsum", "d2sum")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pose(xi):
     return np.asarray(j_se3_exp(jnp.asarray(xi, dtype=jnp.float32)))
 

@@ -35,6 +35,17 @@ B = 512                      # points per inserted batch
 _jinsert = jax.jit(jvh.voxel_map_insert, static_argnames="leader_budget")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run long loops of small torch ops, which gain nothing
+    from intra-op threads; under the suite's parallel workers the threads
+    of every worker contend for the cores, so this module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _to_port(jmap):
     return voxel_map_from_numpy({k: np.asarray(getattr(jmap, k)) for k in VOXEL_MAP_FIELDS},
                                 voxel_size=jmap.voxel_size, max_probes=jmap.max_probes,
