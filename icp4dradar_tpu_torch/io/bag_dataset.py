@@ -34,8 +34,9 @@ class BagFrame:
 class RadarBagDataset:
     """Loads a whole bag eagerly into padded CPU RadarScans + aligned GT
     poses. Parameters mirror the reference's launch params (bag_path + three
-    topic names, launch/radar_odometry.launch:5-10). `native_used`: the
-    bag was read through the native streamer."""
+    topic names, launch/radar_odometry.launch:5-10). `use_native`: read
+    the bag through the native streamer (`RosbagReader`); `native_used`:
+    it was."""
 
     def __init__(
         self,
@@ -44,10 +45,11 @@ class RadarBagDataset:
         topic_gt: Optional[str] = None,
         topic_imu: Optional[str] = None,
         max_points: int = 4096,
+        use_native: bool = False,
     ):
         self.max_points = max_points
         topics = [t for t in (topic_radar, topic_gt, topic_imu) if t]
-        reader = RosbagReader(bag_path)
+        reader = RosbagReader(bag_path, use_native=use_native)
 
         radar_msgs: List[Tuple[float, RadarScan]] = []
         gt_msgs: List[OdomSample] = []

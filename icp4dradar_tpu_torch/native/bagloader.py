@@ -2,9 +2,9 @@
 
 Streams (op, header_bytes, data_bytes) records in bag order with chunk
 payloads already decompressed by the C++ worker pool (bz2 and lz4 through
-the dlopen'd system libraries). `io/rosbag.py` reads every bag through it
-by default; only a bag whose compression `check_supported()` declines
-takes the Python path."""
+the dlopen'd system libraries). `io/rosbag.py` reads a bag through it
+with `use_native=True`; only a bag whose compression `check_supported()`
+declines takes the Python path there."""
 
 from __future__ import annotations
 

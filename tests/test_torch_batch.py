@@ -49,20 +49,10 @@ from icp4dradar_tpu_torch.interop import (
 from icp4dradar_tpu_torch.models import scan_to_map as pm
 from icp4dradar_tpu_torch.preprocess.reve import draw_reve_uniforms, reve_hypotheses
 from icp4dradar_tpu_torch.utils import ate_rmse, reve_batch_uniforms
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F, N, B = 24, 512, 2
 T_ATOL, R_ATOL, ATE_ATOL = 1e-2, 1e-3, 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg():

@@ -16,7 +16,6 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icp4dradar_tpu.geom import se3_exp
 from icp4dradar_tpu.models import run_odometry as jax_cli
@@ -25,20 +24,10 @@ from icp4dradar_tpu.utils.trajectory import write_pcl_info as jax_pcl_info
 from icp4dradar_tpu.utils.trajectory import write_tum as jax_tum
 from icp4dradar_tpu_torch.models import run_odometry as port_cli
 from icp4dradar_tpu_torch.utils import MetricsLogger, write_pcl_info, write_tum
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CLI_ARGS = ["--mode", "scan_to_scan", "--synthetic", "8", "--max-points", "256",
             "--landmarks", "2000", "--doppler-prior"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _poses(seed, n):

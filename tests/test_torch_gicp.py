@@ -27,17 +27,7 @@ from icp4dradar_tpu.geom import linalg as jla
 from icp4dradar_tpu.registration import gicp as jg
 from icp4dradar_tpu_torch.geom import linalg as pla
 from icp4dradar_tpu_torch.registration import gicp as pg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _spd(rng, n, spread=(0.01, 5.0)):

@@ -767,7 +767,7 @@ def test_bag_stacked_scans_cuda_equal_cpu(cuda, tmp_path):
     path = str(tmp_path / "a.bag")
     write_synthetic_bag(path, SyntheticSequence(num_frames=8, max_points=256,
                                                 num_landmarks=2000, seed=0))
-    ds = RadarBagDataset(path, "/radar", "/gt", "/imu", max_points=256)
+    ds = RadarBagDataset(path, "/radar", "/gt", "/imu", max_points=256, use_native=True)
     assert ds.native_used
     on_card, on_cpu = ds.stacked_scans(cuda), ds.stacked_scans()
     for f in ("xyz", "doppler", "intensity", "mask", "time"):

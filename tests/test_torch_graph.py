@@ -35,20 +35,9 @@ from icp4dradar_tpu_torch.geom import quat_slerp
 from icp4dradar_tpu_torch.graph import block_solver as pbs
 from icp4dradar_tpu_torch.graph import gauss_newton as pgn
 from icp4dradar_tpu_torch.interop import POSE_GRAPH_FACTOR_FIELDS, pose_graph_from_numpy
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores (the K = 256 chain took 384 s
-    instead of 14 s), so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _exp(xi):

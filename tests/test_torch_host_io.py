@@ -11,7 +11,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from icp4dradar_tpu.io import BinSequenceDataset as JaxBinDataset
 from icp4dradar_tpu.io import PcdSequenceDataset as JaxPcdDataset
@@ -24,19 +23,9 @@ from icp4dradar_tpu_torch.io import (
     write_pcd, write_radar_bin,
 )
 from icp4dradar_tpu_torch.native import NativeBinLoader
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SCAN_FIELDS = ("xyz", "doppler", "intensity", "mask", "time")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small torch ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads contend for the cores, so this
-    module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 SCHEMAS = {

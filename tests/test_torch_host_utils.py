@@ -33,17 +33,7 @@ from icp4dradar_tpu_torch.utils import (
     StageTimer, assert_finite_tree, checked, export_map_ply, profile_trace,
     validate_scan, voxel_downsample, write_html_viewer, write_ply,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small torch ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads contend for the cores, so this
-    module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _same_file(tmp_path, name, port, jax_):

@@ -76,7 +76,8 @@ from icp4dradar_tpu_torch.preprocess import imu_prior_deltas
 from icp4dradar_tpu_torch.utils import checked, export_map_ply, profile_trace
 d = tempfile.mkdtemp()
 write_synthetic_bag(os.path.join(d, 'a.bag'), seq, compression='bz2')
-ds = RadarBagDataset(os.path.join(d, 'a.bag'), '/radar', '/gt', '/imu', max_points=128)
+ds = RadarBagDataset(os.path.join(d, 'a.bag'), '/radar', '/gt', '/imu', max_points=128,
+                     use_native=True)
 assert ds.native_used and len(ds) == 8
 _, out = run_scan_to_map(ds.stacked_scans(), cfg,
                          prior_deltas=torch.from_numpy(imu_prior_deltas(ds.frames)))

@@ -9,7 +9,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from icp4dradar_tpu.io import RadarBagDataset as JaxBagDataset
 from icp4dradar_tpu.io import SyntheticSequence as JaxSequence
@@ -19,17 +18,7 @@ from icp4dradar_tpu.preprocess import imu_prior_deltas as jax_prior_deltas
 from icp4dradar_tpu.preprocess import integrate_gyro as jax_integrate
 from icp4dradar_tpu_torch.io import ImuSample, RadarBagDataset
 from icp4dradar_tpu_torch.preprocess import imu_prior_deltas, integrate_gyro
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small torch ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads contend for the cores, so this
-    module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _samples(rng, n, t0, t1):

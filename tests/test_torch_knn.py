@@ -17,21 +17,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 # both packages' `ops` export a function `knn` that shadows the module
 jknn = importlib.import_module("icp4dradar_tpu.ops.knn")
 pknn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cloud(rng, n, scale=60.0):

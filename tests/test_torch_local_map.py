@@ -33,19 +33,9 @@ from icp4dradar_tpu_torch.models import (
     run_odometry,
 )
 from icp4dradar_tpu_torch.ops import icp_fused
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F, N, WINDOW = 9, 256, 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _scene(seed=0):

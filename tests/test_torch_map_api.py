@@ -23,21 +23,11 @@ from icp4dradar_tpu_torch.interop import (
     voxel_map_to_numpy,
 )
 from icp4dradar_tpu_torch.mapping import voxel_hash as pvh
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 B = 512
 RTOL = 1e-5
 _jinsert = jax.jit(jvh.voxel_map_insert)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(rng, n, extent, center=(0.0, 0.0, 0.0)):

@@ -43,21 +43,10 @@ from icp4dradar_tpu_torch.interop import (
 from icp4dradar_tpu_torch.models import PoseGraphOdometryResult, run_pose_graph_odometry
 from icp4dradar_tpu_torch.models.pose_graph_odometry import _relative_between
 from icp4dradar_tpu_torch.utils import ate_rmse, doppler_uniforms
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F, N = 48, 256
 KW = dict(keyframe_every=4, loop_radius=8.0, min_loop_gap=24)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores (the K = 256 chain took 384 s
-    instead of 14 s), so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

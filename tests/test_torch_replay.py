@@ -27,19 +27,9 @@ from icp4dradar_tpu_torch.interop import SCAN_FIELDS, scans_from_numpy
 from icp4dradar_tpu_torch.models import run_scan_to_scan, run_scan_to_scan_replay
 from icp4dradar_tpu_torch.ops import icp_fused
 from icp4dradar_tpu_torch.utils import doppler_uniforms, read_result_csv, write_result_csv
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F, N = 10, 256
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small torch ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads contend for the cores, so this
-    module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

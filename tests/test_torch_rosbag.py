@@ -28,20 +28,10 @@ from icp4dradar_tpu_torch.io import (
     write_synthetic_bag,
 )
 from icp4dradar_tpu_torch.io.scan import stack_scans
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F, N = 8, 256
 TOPICS = dict(topic_radar="/radar", topic_gt="/gt", topic_imu="/imu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small torch ops in loops gain nothing from intra-op threads, and
-    under the suite's parallel workers those threads contend for the
-    cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _seqs(seed=3, **kw):
@@ -96,7 +86,7 @@ def test_reader_on_jax_bag_matches_jax_reader(tmp_path, compression):
     a, _ = _bags(tmp_path, compression=compression)
     reader = RosbagReader(a)
     port = _messages(reader)
-    assert reader.native_used
+    assert not reader.native_used        # the default walk; the native one is held to it below
     jax_ = _messages(JaxReader(a))
     assert len(port) == 3 * F
     assert [t for t, _, _ in port[:3]] == ["/radar", "/gt", "/imu"]   # write order
@@ -109,17 +99,19 @@ def test_reader_on_jax_bag_matches_jax_reader(tmp_path, compression):
 @pytest.mark.parametrize("compression", ["none", "bz2", "lz4"])
 def test_native_walk_equals_python_walk(tmp_path, compression):
     _, b = _bags(tmp_path, compression=compression)
-    native, python = RosbagReader(b), RosbagReader(b, use_native=False)
+    native, python = RosbagReader(b, use_native=True), RosbagReader(b)
     n, p = _messages(native), _messages(python)
     assert native.native_used and not python.native_used
     _assert_same_messages(n, p)
 
 
-def test_topic_filter(tmp_path):
+@pytest.mark.parametrize("use_native", [False, True])
+def test_topic_filter(tmp_path, use_native):
     _, b = _bags(tmp_path)
-    every = [(t, bt) for t, _, bt in _messages(RosbagReader(b))]
+    every = [(t, bt) for t, _, bt in _messages(RosbagReader(b, use_native=use_native))]
     for topics in (["/radar"], ["/gt", "/imu"], ["/nothing"]):
-        msgs = [(t, bt) for t, _, bt in _messages(RosbagReader(b), topics)]
+        msgs = [(t, bt) for t, _, bt in _messages(RosbagReader(b, use_native=use_native),
+                                                   topics)]
         assert msgs == [m for m in every if m[0] in topics]
         assert len(msgs) == F * len(set(topics) - {"/nothing"})
 
@@ -137,14 +129,14 @@ def test_not_a_bag_and_corrupt_bag_raise(tmp_path):
     bad = tmp_path / "bad.bag"
     bad.write_bytes(b"#ROSBAG V2.0\n" + b"\xff\xff\xff\xf0garbagegarbage")
     with pytest.raises(ValueError, match="corrupt ROS1 bag"):
-        _messages(RosbagReader(os.fspath(bad)))
+        _messages(RosbagReader(os.fspath(bad), use_native=True))
     # a truncated copy of a good bag: its chunk runs past the end
     _, b = _bags(tmp_path)
     data = open(b, "rb").read()
     cut = tmp_path / "cut.bag"
     cut.write_bytes(data[: len(data) // 2])
     with pytest.raises(ValueError, match="corrupt ROS1 bag"):
-        _messages(RosbagReader(os.fspath(cut)))
+        _messages(RosbagReader(os.fspath(cut), use_native=True))
 
 
 def test_unsupported_compression_takes_the_python_walk(tmp_path):
@@ -155,7 +147,7 @@ def test_unsupported_compression_takes_the_python_walk(tmp_path):
     w.close()
     data = open(w.path, "rb").read().replace(b"compression=none", b"compression=zstd")
     (tmp_path / "z.bag").write_bytes(data)
-    reader = RosbagReader(w.path)
+    reader = RosbagReader(w.path, use_native=True)
     with pytest.raises(ValueError, match="unsupported chunk compression: zstd"):
         _messages(reader)
     assert not reader.native_used
@@ -164,7 +156,7 @@ def test_unsupported_compression_takes_the_python_walk(tmp_path):
 @pytest.mark.parametrize("fmt", ["coloradar", "oculii", "rio"])
 def test_bag_dataset_matches_jax(tmp_path, fmt):
     a, _ = _bags(tmp_path, fmt=fmt, compression="bz2")
-    port = RadarBagDataset(a, max_points=N, **TOPICS)
+    port = RadarBagDataset(a, max_points=N, use_native=True, **TOPICS)
     jax_ = JaxBagDataset(a, max_points=N, **TOPICS)
     assert port.native_used and len(port) == len(jax_) == F
     for p, j in zip(port, jax_):

@@ -1,6 +1,6 @@
 """Port scan-to-map parity on the CPU: `run_scan_to_map` (10 frames) and
 `run_scan_to_map_blocked` (24 frames, block 8, constant-velocity rotation
-prior) against the JAX package's CPU run on the same SyntheticSequence,
+prior; and 16 frames read from a bag with IMU rotation priors) against the JAX package's CPU run on the same SyntheticSequence,
 with JAX's own REVE draws injected; the blocked runner's sequential
 fallback on a block of structureless scans; the kNN-GICP tracker
 (`gicp.use_vgicp=False`, with and without the exact map k-NN), inner GN
@@ -21,6 +21,8 @@ or two sweeps more or fewer. Positions agree within 1e-2 m, rotation
 entries within 1e-3, ATE within 1e-3 m; inlier counts are equal, submap
 sizes within 1% plus two voxels."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,11 +30,15 @@ import pytest
 import torch
 
 from icp4dradar_tpu.config import PipelineConfig as JaxConfig
+from icp4dradar_tpu.io import RadarBagDataset as JaxBagDataset
 from icp4dradar_tpu.io import SyntheticSequence as JaxSequence
+from icp4dradar_tpu.io import write_synthetic_bag as jax_write_bag
 from icp4dradar_tpu.io.scan import stack_scans as jax_stack
 from icp4dradar_tpu.models import run_scan_to_map as j_run
 from icp4dradar_tpu.models import run_scan_to_map_batch as j_batch
 from icp4dradar_tpu.models import run_scan_to_map_blocked as j_run_blocked
+from icp4dradar_tpu.preprocess import imu_prior_deltas as jax_prior_deltas
+from icp4dradar_tpu_torch.io import RadarBagDataset, SyntheticSequence, write_synthetic_bag
 from icp4dradar_tpu_torch.interop import (
     SCAN_FIELDS,
     VOXEL_MAP_FIELDS,
@@ -41,22 +47,13 @@ from icp4dradar_tpu_torch.interop import (
 )
 from icp4dradar_tpu_torch.models import run_odometry
 from icp4dradar_tpu_torch.models import scan_to_map as pm
+from icp4dradar_tpu_torch.preprocess import imu_prior_deltas
 from icp4dradar_tpu_torch.preprocess.reve import reve_hypotheses
-from icp4dradar_tpu_torch.utils import ate_rmse, reve_batch_uniforms
+from icp4dradar_tpu_torch.utils import ate_rmse, reve_batch_uniforms, reve_uniforms
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 T_ATOL, R_ATOL, ATE_ATOL = 1e-2, 1e-3, 1e-3
 F, N = 24, 512
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg():
@@ -147,6 +144,43 @@ def test_run_scan_to_map_blocked_matches_jax():
     np.testing.assert_allclose(po.fitness.numpy(), np.asarray(jo.fitness), rtol=5e-3,
                                atol=1e-4)
     assert abs(float(pst.vmap.num_voxels) - float(jst.vmap.num_voxels)) <= 10
+
+
+def test_blocked_imu_priors_from_a_bag_match_jax(tmp_path):
+    """The bag path of the CLI's --imu-prior: each package writes the
+    16-frame sequence as a synthetic bag, reads it back with its
+    RadarBagDataset, turns the IMU batches into `imu_prior_deltas` and
+    tracks with `run_scan_to_map_blocked(block=8, use_const_velocity_rot=True,
+    prior_deltas=...)` on JAX's draws. The port is held to JAX at this
+    file's tolerances; the port's run without the prior is not (its track
+    lies 0.13 m from JAX's prior run), so the priors are what is compared."""
+    cfg, pcfg = _cfg(), config_from_dict(_cfg().to_dict())
+    kw = dict(num_frames=16, max_points=N, num_landmarks=4000, world_extent=80.0,
+              max_range=60.0, dynamic_fraction=0.05, pos_noise=0.01, speed=1.0,
+              turn_rate=0.03, seed=0)
+    topics = dict(topic_radar="/radar", topic_gt="/gt", topic_imu="/imu", max_points=N)
+    jseq, pseq = JaxSequence(**kw), SyntheticSequence(**kw)
+    jax_write_bag(os.fspath(tmp_path / "jax.bag"), jseq)
+    write_synthetic_bag(os.fspath(tmp_path / "port.bag"), pseq)
+    jds = JaxBagDataset(os.fspath(tmp_path / "jax.bag"), **topics)
+    pds = RadarBagDataset(os.fspath(tmp_path / "port.bag"), **topics)
+    assert len(pds) == 16
+    jP, pP = jax_prior_deltas(jds.frames), imu_prior_deltas(pds.frames)
+    np.testing.assert_array_equal(pP, jP)
+    _, jo = j_run_blocked(jds.stacked_scans(), cfg, block=8, use_const_velocity_rot=True,
+                          prior_deltas=jP)
+    ps = pds.stacked_scans("cpu")
+    U = torch.from_numpy(reve_uniforms(cfg.seed, 16, 8, reve_hypotheses(pcfg.reve)))
+    before = pm.SEQUENTIAL_FALLBACK_BLOCKS
+    _, po = pm.run_scan_to_map_blocked(ps, pcfg, uniforms=U, block=8,
+                                       use_const_velocity_rot=True,
+                                       prior_deltas=torch.from_numpy(pP))
+    assert pm.SEQUENTIAL_FALLBACK_BLOCKS == before
+    _assert_tracks(po, jo, jseq)
+    _, pn = pm.run_scan_to_map_blocked(ps, pcfg, uniforms=U, block=8,
+                                       use_const_velocity_rot=True)
+    moved = np.abs(pn.world_T.numpy()[:, :3, 3] - np.asarray(jo.world_T)[:, :3, 3]).max()
+    assert moved > 10 * T_ATOL, moved
 
 
 def test_blocked_sequential_fallback_contains_adverse_block():

@@ -26,20 +26,10 @@ from icp4dradar_tpu_torch.interop import SCAN_FIELDS, config_from_dict, scans_fr
 from icp4dradar_tpu_torch.models import run_odometry
 from icp4dradar_tpu_torch.models import scan_to_scan as ps2s
 from icp4dradar_tpu_torch.utils import read_result_csv
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F, N = 16, 256
 T_ATOL, R_ATOL, ATOL = 1e-3, 1e-4, 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _uniforms_of(key, H):

@@ -49,20 +49,10 @@ from icp4dradar_tpu_torch.models import OdometrySession, streaming
 from icp4dradar_tpu_torch.models.scan_to_map import ScanToMapState
 from icp4dradar_tpu_torch.preprocess.reve import reve_hypotheses
 from icp4dradar_tpu_torch.utils import load_checkpoint, save_checkpoint, threefry
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F, N, WARM, BLOCK = 12, 256, 4, 4
 T_ATOL, R_ATOL = 1e-2, 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg():

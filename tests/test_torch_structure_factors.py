@@ -35,21 +35,10 @@ from icp4dradar_tpu_torch.config import PipelineConfig, PoseGraphConfig, Structu
 from icp4dradar_tpu_torch.graph import PoseGraph, RelPoseFactors, optimize_pose_graph_block
 from icp4dradar_tpu_torch.graph import structure_factors as psf
 from icp4dradar_tpu_torch.interop import VOXEL_MAP_FIELDS, voxel_map_from_numpy
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores (the K = 256 chain took 384 s
-    instead of 14 s), so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, name):

@@ -27,20 +27,10 @@ from icp4dradar_tpu.ops import vgicp_fused as jv
 from icp4dradar_tpu.registration import vgicp as jreg
 from icp4dradar_tpu_torch.ops import vgicp_fused as pv
 from icp4dradar_tpu_torch.registration import vgicp as preg
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-3
 NAMES = ("H", "g", "cost", "wsum", "d2sum")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pose(xi):

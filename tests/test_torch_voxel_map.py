@@ -26,6 +26,7 @@ from icp4dradar_tpu_torch.interop import (
 )
 from icp4dradar_tpu_torch.mapping import voxel_hash as pvh
 from icp4dradar_tpu_torch.ops.compaction import mask_compact
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 EXACT = ("keys", "occupied", "points", "intensity")
 STATS = ("stat_n", "stat_sum", "stat_sq")
@@ -33,17 +34,6 @@ RTOL = 1e-5
 B = 512                      # points per inserted batch
 # one compile per map capacity instead of an eager trace per call
 _jinsert = jax.jit(jvh.voxel_map_insert, static_argnames="leader_budget")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run long loops of small torch ops, which gain nothing
-    from intra-op threads; under the suite's parallel workers the threads
-    of every worker contend for the cores, so this module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _to_port(jmap):
