@@ -162,7 +162,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              A profiled run (phase 11's `profile_run`) prints the device
              time and launches of the covariances (k-NN included; a
              record_function range around each call), the run's launches
-             a frame and its sort kernels; it fails on a 2-D sort row as
+             a frame and its sort kernels; it fails on a sort row (2-D, or with a
+             stream axis) as
              wide as the submap, or on nn_merge_kernel or nn_split_kernel
              among its kernels. Also checks CUDA against CPU on a 12 x 256 scene
              whose frames converge below the iteration cap: the tracks'
@@ -243,18 +244,47 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              CLI's sniff (finite poses, point counts equal) and as .bin
              through the native loader (equal to numpy and the
              sequence). The phase's seconds, at most 90.
+14. knn batch — kNN GICP inside a batch at full width: 4 streams x 16
+             frames x 2048 points (stream b the frames [256 b, 256 b + 16)
+             of the bench sequence) through the per-frame
+             run_scan_to_map_batch with gicp.use_vgicp=False on the JAX
+             package's draws, K2's and the packing's counts set to 0 just
+             before: the launches (per frame the largest GN iteration count
+             across streams, plus one fitness search; one packing a frame)
+             against the 4 single-stream runs' sum, each stream against its
+             single-stream run bit for bit, scans/s of both; K2 and its
+             packing with the stream axis on the batch's own targets (the
+             last frame's sector submaps) against their plain versions
+             (indices and d2 equal) and 4 single-target calls, timed.
+15. parallel — the data-parallel layer under NCCL at world size 1 (a
+             FileStore in a temp dir): make_mesh; sharded_scan_to_map_batch
+             on phase 9's 4 x 256 VGICP streams against
+             run_scan_to_map_batch (bit for bit), batched_preprocess and
+             batched_icp_pairs against their single-device functions on
+             the same draws made the same way (bit for bit),
+             distributed_optimize_pose_graph_block at K = 32 with
+             every factor type and run_pose_graph_odometry(mesh=...) on
+             phase 4c's figure-eight against the single-device solves
+             (1e-4), each pair timed in turns; the all-reduce and all-gather
+             alone at the path's payloads; dryrun_multichip(1) in a spawned
+             rank.
 12. ab     — only with `--parent DIR` (a `git archive` of the parent commit
              unpacked at DIR): the K2, K3, K5 and K4 calls of both trees at the
              path shapes (K3 also per call), each tree in its own process,
              in turns (parent, this tree, this tree, parent), with each
-             call's kernels and device time (profiler).
+             call's kernels and device time (profiler); then phase 7's
+             gicp-64 run end to end in the same processes (scans/s).
 
 The kernels' bounds come from the shapes and this run's data (bytes over
 3.35 TB/s, FP32 operations over 67 TFLOP/s, the H100 SXM data sheet). The
 line before the last two is a JSON record of the kernels (K1's row with
 phase 4c's `pose_graph_launches` and its loop ICP's `loop_icp_launches`,
 `loop_icp_ms` and `loop_icp_pairs`, and phase 13's `replay_launches`; K4's
-with phase 4c's `pose_graph_launches` and phase 13's `bag_launches`), the
+with phase 4c's `pose_graph_launches` and phase 13's `bag_launches`; K2's
+and the packing's with phase 14's `batch_launches`,
+`single_stream_launches`, `batch_ms`, `batch_plain_ms` and
+`batch_bound_ms`, K2's also `batch_device_ms`, `batch_separate_ms` and
+`batch_max_abs_err`), the
 next one the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2079,7 +2109,7 @@ def phase_gicp(torch, seq, scans):
                  torch.autograd.DeviceType.CUDA and "Sort" in e.key]
         log(f"[gicp] covariances (k-NN included) device time {cov_ms:.2f} ms a run in "
             f"{cov_launches} launches ({cov_launches / F:.1f} a frame); the run's launches "
-            f"{run_launches / F:.1f} a frame; widest 2-D sort row in the covariances "
+            f"{run_launches / F:.1f} a frame; widest sort row in the covariances "
             f"{widest} columns; sort kernels of the run: " + ", ".join(
                 f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
                 for e in sorts))
@@ -2089,8 +2119,8 @@ def phase_gicp(torch, seq, scans):
 
     # small input: the CUDA path against the CPU path on the same draws, on
     # the scene of phase 5's check, whose frames converge in 3-6 iterations.
-    # World-frame kNN GICP passes a last-bit difference (cuBLAS against the
-    # CPU's BLAS, inv_ex, the Cholesky) on through the map: a stored point
+    # World-frame kNN GICP passes a last-bit difference (the card's and the
+    # CPU's reductions and elementwise kernels) on through the map: a stored point
     # that moves by an ulp may change voxel, and the next frames register
     # against a different map. So the tracks are held to the same accuracy
     # (ATE within 0.01 m, no lost frame), and the registration alone, on
@@ -2262,7 +2292,8 @@ def phase_knn(torch, state, out, track):
             torch.empty(N, dtype=torch.int32, device=dev),
             torch.empty((N, 3), dtype=torch.float32, device=dev))
     common = (src.data_ptr(), ops.rows.data_ptr(), ops.orig.data_ptr(), ops.count.data_ptr(),
-              ops.tgt.data_ptr(), ops.mask.data_ptr(), N, M, ops.cluster, bufs[0].data_ptr())
+              ops.tgt.data_ptr(), ops.mask.data_ptr(), 1, N, M, ops.cluster,
+              bufs[0].data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
 
     def launcher(*outs):
@@ -2640,7 +2671,7 @@ def profile_run(torch, name, n_walls, fn, expect=None, ranges=()):
 def range_device(torch, prof, name):
     """(device ms, kernel launches) of the kernels launched inside the
     record_function ranges called `name`, and the widest row (columns) of
-    the 2-D aten::sort calls inside them."""
+    the aten::sort calls inside them (2-D, or with a stream axis)."""
     def kernels(e):
         return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
 
@@ -2655,7 +2686,7 @@ def range_device(torch, prof, name):
     cpu = torch.autograd.DeviceType.CPU
     ranges = [e for e in events if e.name == name and e.device_type == cpu]
     widest = max((e.input_shapes[0][-1] for e in events
-                  if e.name == "aten::sort" and e.input_shapes and len(e.input_shapes[0]) == 2
+                  if e.name == "aten::sort" and e.input_shapes and len(e.input_shapes[0]) >= 2
                   and inside(e)), default=0)
     return (sum(e.device_time_total for e in ranges) / 1e3,
             sum(kernels(e) for e in ranges), widest)
@@ -2937,6 +2968,349 @@ def phase_host(torch, scans, s2s_out):
     return {"bag_launches": runs["prior"][0]}, {"replay_launches": replay_k1}
 
 
+KNN_BATCH_FRAMES = 16
+# the NCCL world-1 phase: the pose graph's and the batch's results against
+# their single-device runs (the distributed sums add the loop closures'
+# and the single-pose factors' blocks in another order)
+PAR_POSE_TOL = 1e-4
+PAR_COLLECTIVE_REPS = 20
+
+
+def phase_knn_batch(torch, seq, scans):
+    """Phase 14: kNN GICP inside a batch at full width: 4 streams x 16
+    frames x 2048 points (stream b the frames [256 b, 256 b + 16) of the
+    bench sequence) through the per-frame run_scan_to_map_batch with
+    gicp.use_vgicp=False on the JAX package's draws, K2's and the
+    packing's counts set to 0 just before; each stream against its
+    single-stream run (bit for bit), the launches against the sum of the
+    4 single-stream runs'; K2 and its packing with the stream axis against
+    their plain versions and against 4 single-target calls on the batch's
+    own packed targets (the last frame's sector submaps)."""
+    import importlib
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.geom import matrix_to_rpy, se3_apply
+    from icp4dradar_tpu_torch.mapping import voxel_map_sector_search
+    from icp4dradar_tpu_torch.models import scan_to_map
+    from icp4dradar_tpu_torch.preprocess import reve_hypotheses
+    from icp4dradar_tpu_torch.utils import reve_batch_uniforms
+
+    nn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
+    cfg = PipelineConfig().override(**{"gicp.use_vgicp": False})
+    Bs, F = BATCH_STREAMS, KNN_BATCH_FRAMES
+    idx = torch.cat([torch.arange(b * S2M_FRAMES, b * S2M_FRAMES + F) for b in range(Bs)])
+    batch = scans[idx.to(scans.xyz.device)]
+    batch = type(batch)(**{k: getattr(batch, k).reshape((Bs, F) + getattr(batch, k).shape[1:])
+                           for k in ("xyz", "doppler", "intensity", "mask", "time")})
+    U = torch.from_numpy(reve_batch_uniforms(cfg.seed, Bs, F, 0, reve_hypotheses(cfg.reve))
+                         ).to(scans.xyz.device)
+
+    def reset():
+        torch.cuda.synchronize()
+        nn.NN_SEARCH_LAUNCHES = 0
+        nn.NN_PACK_LAUNCHES = 0
+
+    def run_batch():
+        res = scan_to_map.run_scan_to_map_batch(batch, cfg, uniforms=U,
+                                                use_const_velocity_rot=True)
+        torch.cuda.synchronize()
+        return res
+
+    def run_one(b):
+        res = scan_to_map.run_scan_to_map(batch[b], cfg, uniforms=U[b],
+                                          use_const_velocity_rot=True)
+        torch.cuda.synchronize()
+        return res
+
+    run_batch()                                        # warm-up
+    reset()
+    t0 = time.perf_counter()
+    state, out = run_batch()
+    dt_batch = time.perf_counter() - t0
+    launches, packs = nn.NN_SEARCH_LAUNCHES, nn.NN_PACK_LAUNCHES
+    its = out.iterations.cpu().numpy()                 # (Bs, F)
+    singles, dt_one, one_launches, one_packs = [], 0.0, 0, 0
+    for b in range(Bs):
+        reset()
+        t0 = time.perf_counter()
+        singles.append(run_one(b))
+        dt_one += time.perf_counter() - t0
+        one_launches += nn.NN_SEARCH_LAUNCHES
+        one_packs += nn.NN_PACK_LAUNCHES
+    expected = int(its.max(axis=0).sum()) + F
+    log(f"[knn batch] {Bs} streams x {F} frames x {scans.xyz.shape[1]} points, kNN GICP "
+        f"(per-frame batch): {dt_batch * 1e3:.2f} ms = {Bs * F / dt_batch:.1f} aggregate "
+        f"scans/s; the {Bs} single-stream runs {dt_one * 1e3:.2f} ms = "
+        f"{Bs * F / dt_one:.1f} scans/s; ratio {dt_one / dt_batch:.2f}")
+    log(f"[knn batch] nn_search launches {launches} (expected {expected}: per frame the "
+        f"largest GN iteration count across streams, plus one fitness search), nn_pack "
+        f"launches {packs} (expected {F}); the single-stream runs' {one_launches} and "
+        f"{one_packs}; GN iterations per stream {its.sum(axis=1).tolist()}")
+    if launches != expected or packs != F or one_packs != Bs * F:
+        raise RuntimeError(f"[knn batch] launch counts {launches} / {packs} against "
+                           f"{expected} / {F}")
+    if one_launches != int(its.sum()) + Bs * F:
+        raise RuntimeError(f"[knn batch] single-stream launches {one_launches} != "
+                           f"{int(its.sum()) + Bs * F}")
+    lost = int((out.fitness >= LOST_FITNESS).sum().item())
+    if lost or not bool(torch.isfinite(out.world_T).all()):
+        raise RuntimeError(f"[knn batch] {lost} lost frames or non-finite poses")
+    differ = []
+    for b, (one_state, one) in enumerate(singles):
+        for f in dataclasses.fields(out):
+            if not torch.equal(getattr(out, f.name)[b], getattr(one, f.name)):
+                differ.append(f"stream {b} {f.name}")
+        if not all(torch.equal(a, c) for a, c in zip(state.vmap.stream(b).tables(),
+                                                     one_state.vmap.tables())):
+            differ.append(f"stream {b} tables")
+    log(f"[knn batch] each stream against its single-stream run on the card: "
+        + ("every output and table equal bit for bit" if not differ else ", ".join(differ)))
+    if differ:
+        FAILED.append("[knn batch] streams differ from their single-stream runs: "
+                      + ", ".join(differ))
+
+    # K2 and the packing with the stream axis on the batch's own targets:
+    # the last frame's sector submaps, the last scans in the world frame
+    vm = cfg.voxel_map
+    pose = out.world_T[:, -1]
+    heading = matrix_to_rpy(pose[:, :3, :3])[:, 2]
+    submap, submask, sub_n = voxel_map_sector_search(
+        state.vmap, pose[:, :3, 3], vm.sector_radius, heading, vm.sector_half_angle_deg,
+        vm.submap_max_points)
+    submap, submask = submap.contiguous(), submask.contiguous()
+    src = se3_apply(pose, batch.xyz[:, -1]).contiguous()
+    ops = nn.nn_prepare(submap, submask)
+    ki, kd = nn.nn_search(src, ops)
+    torch.cuda.synchronize()
+    packed = nn.nn_pack_plain(submap, submask)
+    pi, pd = nn.nn_search_plain(src, ops)
+    sep = [nn.nn_search(src[b].contiguous(), nn.nn_prepare(submap[b], submask[b]))
+           for b in range(Bs)]
+    pack_eq = all(torch.equal(a, c) for a, c in zip((ops.rows, ops.orig, ops.count), packed))
+    plain_eq = torch.equal(ki, pi) and torch.equal(kd, pd)
+    sep_eq = all(torch.equal(ki[b], i) and torch.equal(kd[b], d) for b, (i, d) in enumerate(sep))
+    err = float((kd - pd).abs().max())
+    N, M = src.shape[1], submap.shape[1]
+    live = sub_n.long().tolist()
+    log(f"[knn batch] K2 with the stream axis, {Bs} x {N} sources against {Bs} x {M} rows "
+        f"({live} live): packing equal to the plain version {pack_eq}, indices and d2 equal "
+        f"to the plain version {plain_eq} (max |d2| diff {err:.3e}), to {Bs} single-target "
+        f"calls {sep_eq}")
+    if not (pack_eq and plain_eq and sep_eq):
+        raise RuntimeError("[knn batch] the stream-axis K2 or its packing disagrees")
+    calls = 20
+
+    def many(fn):
+        def go():
+            for _ in range(calls):
+                fn()
+        return go
+
+    sep_ops = [nn.nn_prepare(submap[b], submask[b]) for b in range(Bs)]
+    srcs = [src[b].contiguous() for b in range(Bs)]
+
+    def separate():
+        for b in range(Bs):
+            nn.nn_search(srcs[b], sep_ops[b])
+
+    order = (lambda: nn.nn_search_plain(src, ops), lambda: nn.nn_search(src, ops), separate,
+             lambda: nn.nn_prepare(submap, submask), lambda: nn.nn_pack_plain(submap, submask))
+    t = [time_cuda(torch, many(f)) / calls for f in order + order[::-1]]
+    plain_ms, k_ms, sep_ms, pk_ms, ppk_ms = [(a + c) / 2 for a, c in zip(t[:5], t[::-1][:5])]
+    dev_ms = kernel_device_ms(torch, lambda: nn.nn_search(src, ops), ("nn_search_kernel",))
+    nbytes = 4 * Bs * (3 * N + 4 * M + 2 * N)
+    bound_ms, bound_by = roofline(nbytes, NN_FLOPS_PER_PAIR * N * sum(live))
+    pbound_ms, _ = roofline(4 * Bs * (4 * M + 5 * M + 1), 0)
+    log(f"[knn batch] K2 call on prepared targets {k_ms:.4f} ms for {Bs} streams (one "
+        f"launch; device {fmt_ms(dev_ms)}), {Bs} single-target calls {sep_ms:.4f} ms, plain "
+        f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, {Bs} x {N} x live "
+        f"rows); packing {pk_ms:.4f} ms (one launch), plain {ppk_ms:.4f} ms, bound "
+        f"{pbound_ms:.6f} ms (bytes)")
+    return (dict(batch_launches=launches, single_stream_launches=one_launches,
+                 batch_ms=k_ms, batch_device_ms=dev_ms, batch_separate_ms=sep_ms,
+                 batch_plain_ms=plain_ms, batch_bound_ms=bound_ms, batch_max_abs_err=err),
+            dict(batch_launches=packs, single_stream_launches=one_packs, batch_ms=pk_ms,
+                 batch_plain_ms=ppk_ms, batch_bound_ms=pbound_ms))
+
+
+def phase_parallel(torch, seq, scans, batch, card):
+    """Phase 15: the data-parallel layer under NCCL at world size 1 (one
+    rank on this card, a FileStore in a temp dir): make_mesh; the batch
+    cell's 4 x 256 VGICP streams through sharded_scan_to_map_batch against
+    phase 9's run_scan_to_map_batch (bit for bit), both timed;
+    batched_preprocess and batched_icp_pairs against their single-device
+    functions; distributed_optimize_pose_graph_block at the pose-graph
+    phase's K = 32 (every factor type) and run_pose_graph_odometry(mesh=...)
+    on the figure-eight against the single-device solves; the all-reduce
+    and all-gather times; then dryrun_multichip(1) in a spawned rank."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.graph import optimize_pose_graph_block
+    from icp4dradar_tpu_torch.interop import pose_graph_from_numpy
+    from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.models import run_pose_graph_odometry, scan_to_map
+    from icp4dradar_tpu_torch.parallel import (
+        batched_icp_pairs,
+        batched_preprocess,
+        device_count,
+        distributed_optimize_pose_graph_block,
+        make_mesh,
+        shard_scan_batch,
+        sharded_scan_to_map_batch,
+    )
+    from icp4dradar_tpu_torch.parallel import batch as pbatch
+    from icp4dradar_tpu_torch.parallel import distributed_gn as pdgn
+    from icp4dradar_tpu_torch.parallel.dryrun import dryrun_multichip
+    from icp4dradar_tpu_torch.preprocess import estimate_ego_velocity, reve_hypotheses
+    from icp4dradar_tpu_torch.registration import icp_point_to_point
+    from icp4dradar_tpu_torch.utils import doppler_uniforms, threefry
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    mesh = make_mesh()
+    init_s = time.perf_counter() - t0
+    log(f"[parallel] NCCL process group of {device_count()} rank, mesh {mesh.mesh_dim_names} "
+        f"{tuple(mesh.shape)} in {init_s:.2f} s; {card}")
+    try:
+        cfg = PipelineConfig()
+        dev = scans.xyz.device
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, (time.perf_counter() - t1) * 1e3
+
+        def in_turns(dist_fn, ref_fn):
+            """Both runs in turns (single-device, distributed, distributed,
+            single-device): (distributed result, single-device result,
+            distributed ms (two), single-device ms (two))."""
+            r1, a = timed(ref_fn)
+            d1, b = timed(dist_fn)
+            _, c = timed(dist_fn)
+            _, e = timed(ref_fn)
+            return d1, r1, (b, c), (a, e)
+
+        def ms2(x):
+            return f"{x[0]:.2f} / {x[1]:.2f} ms"
+
+        # ---- the batch cell's streams, sharded over the mesh ----
+        kw = dict(block=S2M_BLOCK, use_const_velocity_rot=True, sequential_fallback=False)
+        (_, first_ms) = timed(lambda: sharded_scan_to_map_batch(batch["batch"], mesh, cfg, **kw))
+        (st, so), (rst, ro), sh_ms, ref_ms = in_turns(
+            lambda: sharded_scan_to_map_batch(batch["batch"], mesh, cfg, **kw),
+            lambda: scan_to_map.run_scan_to_map_batch(batch["batch"], cfg,
+                                                      uniforms=batch["uniforms"], **kw))
+        same = (all(torch.equal(getattr(so, f.name), getattr(ro, f.name))
+                    for f in dataclasses.fields(so))
+                and torch.equal(st.world_T, rst.world_T)
+                and all(torch.equal(a, c) for a, c in zip(st.vmap.tables(), rst.vmap.tables())))
+        Bs, F = so.world_T.shape[:2]
+        log(f"[parallel] sharded_scan_to_map_batch, {Bs} streams x {F} frames (VGICP, block "
+            f"{S2M_BLOCK}): first call {first_ms:.2f} ms (the group's first collectives), then "
+            f"{ms2(sh_ms)} ({Bs * F / max(sh_ms) * 1e3:.1f}-{Bs * F / min(sh_ms) * 1e3:.1f} "
+            f"scans/s) against run_scan_to_map_batch {ms2(ref_ms)} "
+            f"({Bs * F / max(ref_ms) * 1e3:.1f}-{Bs * F / min(ref_ms) * 1e3:.1f} scans/s), in "
+            f"turns; every output, pose and table equal bit for bit: {same}")
+        if not same:
+            raise RuntimeError("[parallel] the sharded batch differs from run_scan_to_map_batch")
+
+        # ---- dp REVE and pairwise ICP over the bench frames ----
+        Fp = S2M_FRAMES
+        H = reve_hypotheses(cfg.reve)
+        key = threefry.key(0)
+
+        def draws():
+            return torch.from_numpy(threefry.uniform(threefry.split(key, Fp), 3 * H)).to(dev)
+
+        # the single-device call makes the same draws the same way, so the
+        # two differ by the layer alone (sharding, the all-gather)
+        _, draw_ms = timed(draws)
+        est, ref, pre_ms, pre_ref_ms = in_turns(
+            lambda: batched_preprocess(shard_scan_batch(scans[:Fp], mesh), key, mesh, cfg),
+            lambda: estimate_ego_velocity(scans[:Fp], draws(), cfg.reve))
+        same_pre = all(torch.equal(getattr(est, f.name), getattr(ref, f.name))
+                       for f in dataclasses.fields(est))
+        src, tgt = scans[1:Fp + 1], scans[:Fp]
+        T, Tr, icp_ms, icp_ref_ms = in_turns(
+            lambda: batched_icp_pairs(shard_scan_batch(src, mesh), shard_scan_batch(tgt, mesh),
+                                      mesh, cfg),
+            lambda: icp_point_to_point(src.xyz, tgt.xyz, src.mask, tgt.mask,
+                                       cfg=cfg.icp).transform)
+        same_icp = torch.equal(T, Tr)
+        log(f"[parallel] batched_preprocess, {Fp} frames (its draws made on the host, "
+            f"{draw_ms:.2f} ms alone): {ms2(pre_ms)} against estimate_ego_velocity on the "
+            f"same draws made the same way {ms2(pre_ref_ms)}, equal {same_pre}; "
+            f"batched_icp_pairs, {Fp} pairs: {ms2(icp_ms)} against icp_point_to_point "
+            f"{ms2(icp_ref_ms)}, equal {same_icp} (in turns)")
+        if not (same_pre and same_icp):
+            raise RuntimeError("[parallel] dp REVE or dp ICP differs from single-device")
+
+        # ---- the distributed block GN at the pose-graph phase's K ----
+        gt_d, poses_d, rel_d = pg_loop_graph(torch, PG_DENSE_K, 10.0, 3, 0.01, seed=3)
+        g = pose_graph_from_numpy({"poses": poses_d, "rel": rel_d,
+                                   **pg_single_pose_factors(PG_DENSE_K, gt_d, seed=3)},
+                                  device="cuda")
+        (gd, cd), (gs, cs), d_ms, s_ms = in_turns(
+            lambda: distributed_optimize_pose_graph_block(g, mesh),
+            lambda: optimize_pose_graph_block(g))
+        dd = float((gd.poses - gs.poses).abs().max())
+        log(f"[parallel] distributed_optimize_pose_graph_block, K={PG_DENSE_K} with every "
+            f"factor type: {ms2(d_ms)} against optimize_pose_graph_block {ms2(s_ms)} (in "
+            f"turns); max "
+            f"pose entry difference {dd:.3e} (tolerance {PAR_POSE_TOL}), cost {float(cd):.6f} "
+            f"against {float(cs):.6f}")
+        if not dd <= PAR_POSE_TOL:
+            raise RuntimeError(f"[parallel] the distributed block GN is {dd} off")
+
+        # ---- run_pose_graph_odometry(mesh=...) on the figure-eight ----
+        fseq = figure_eight(PG_FRAMES)
+        fscans = stack_scans([fseq.scan(k) for k in range(PG_FRAMES)]).to("cuda")
+        u_s2s = torch.from_numpy(doppler_uniforms(cfg.seed, PG_FRAMES,
+                                                  cfg.doppler.num_hypotheses)).cuda()
+        rm, rs, m_ms, r_ms = in_turns(
+            lambda: run_pose_graph_odometry(fscans, cfg, uniforms=u_s2s, mesh=mesh, **PG_KW),
+            lambda: run_pose_graph_odometry(fscans, cfg, uniforms=u_s2s, **PG_KW))
+        dp = float(np.abs(rm.poses - rs.poses).max())
+        log(f"[parallel] run_pose_graph_odometry(mesh=...) on the figure-eight ({PG_FRAMES} "
+            f"frames, K = {len(rm.keyframe_indices)}): {ms2(m_ms)} against {ms2(r_ms)} "
+            f"without a mesh (in turns); closures {rm.num_loop_closures} against "
+            f"{rs.num_loop_closures}; "
+            f"max pose entry difference {dp:.3e} (tolerance {PAR_POSE_TOL})")
+        if rm.num_loop_closures != rs.num_loop_closures or not dp <= PAR_POSE_TOL:
+            raise RuntimeError(f"[parallel] the pipeline with a mesh is {dp} off")
+
+        # ---- the collectives alone, at this phase's payloads ----
+        ne = [torch.zeros(n, device="cuda") for n in
+              (PG_DENSE_K * 36, (PG_DENSE_K - 1) * 36, PG_DENSE_K * 6, 1)]
+        tables = [st.world_T] + list(st.vmap.tables())
+        reps = PAR_COLLECTIVE_REPS
+        ar_ms = time_cuda(torch, lambda: [pdgn._all_reduce_sum(ne, mesh, "dp")
+                                          for _ in range(reps)]) / reps
+        ag_ms = time_cuda(torch, lambda: [pbatch._all_gather_rows(tables, mesh, "dp")
+                                          for _ in range(reps)]) / reps
+        nbytes = sum(t.numel() * t.element_size() for t in tables)
+        log(f"[parallel] collectives at world size 1 (NCCL, CUDA events, {reps} calls): the "
+            f"block normal equations' all-reduce ({sum(t.numel() for t in ne) * 4} bytes) "
+            f"{ar_ms:.4f} ms a call (one a GN iteration); the batch state's all-gather "
+            f"({nbytes / 2**20:.1f} MiB, packed as bytes) {ag_ms:.4f} ms a call; {card}")
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    res = dryrun_multichip(1)
+    log(f"[parallel] dryrun_multichip(1): a spawned NCCL rank, {time.perf_counter() - t0:.2f} s "
+        f"with its start-up; cost {float(res['cost']):.4f}, block poses finite "
+        f"{bool(np.isfinite(res['block_poses']).all())}")
+    log(f"[parallel] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
 def ab_child(tree):
     """Times the K2, K3, K5 and K4 calls of the package in `tree` (this tree
     or the parent commit's) at the path shapes, on inputs made from a seed,
@@ -2945,7 +3319,9 @@ def ab_child(tree):
     2048-point frame on a sweep's payload; K4: the s2m block (8 frames of
     2048 sources, one 16,384-row submap, 801 rows live). A tree without
     `nn_search_coords` times K3 through its per-call
-    `nearest_neighbor_with_coords` alone."""
+    `nearest_neighbor_with_coords` alone. Then the gicp-64 cell end to end
+    (phase 7's run: the per-frame kNN-GICP tracker over the bench
+    sequence's first TRACK_FRAMES frames), one warm-up and two timed runs."""
     import importlib
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -3033,14 +3409,44 @@ def ab_child(tree):
                k3_per_call_ms=ms[3], k5_call_ms=ms[4], k4_call_ms=ms[5],
                k2_kernels=call_kernels(torch, k2), k3_kernels=call_kernels(torch, k3),
                k5_kernels=call_kernels(torch, k5), k4_kernels=call_kernels(torch, k4))
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io import SyntheticSequence
+    from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.models import scan_to_map
+
+    seq = SyntheticSequence(
+        num_frames=BENCH_FRAMES, max_points=BENCH_POINTS, num_landmarks=5000,
+        world_extent=120.0, max_range=80.0, dynamic_fraction=0.1,
+        speed=1.0, turn_rate=0.02, seed=0,
+    )
+    track = stack_scans([seq.scan(k) for k in range(TRACK_FRAMES)]).to(dev)
+    gcfg = PipelineConfig().override(**{"gicp.use_vgicp": False})
+
+    def gicp64():
+        out = scan_to_map.run_scan_to_map(track, gcfg, use_const_velocity_rot=True)[1]
+        torch.cuda.synchronize()
+        return out
+
+    gicp64()
+    secs = []
+    for _ in range(2):
+        nn.NN_SEARCH_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = gicp64()
+        secs.append(time.perf_counter() - t0)
+    res.update(gicp64_s=secs, gicp64_iterations=int(out.iterations.sum()),
+               gicp64_k2_launches=nn.NN_SEARCH_LAUNCHES,
+               gicp64_world_T=out.world_T[-1].cpu().numpy().tolist())
     print(json.dumps(res), flush=True)
     return 0
 
 
 def phase_ab(parent):
-    """A/B of the K2, K3, K5 and K4 calls against the parent commit's tree (a
-    `git archive` unpacked at `parent`), each tree in its own process, in
-    turns: parent, this tree, this tree, parent."""
+    """A/B of the K2, K3, K5 and K4 calls and of the gicp-64 cell end to end
+    against the parent commit's tree (a `git archive` unpacked at
+    `parent`), each tree in its own process, in turns: parent, this tree,
+    this tree, parent."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for tree in (parent, here, here, parent):
@@ -3061,7 +3467,13 @@ def phase_ab(parent):
             f"{res['k5_call_ms']:.4f} ms, device {dev['k5_kernels']:.4f} ms "
             f"({fmt_kernels(res['k5_kernels'])}); K4 call (the s2m block, one target "
             f"set) {res['k4_call_ms']:.4f} ms, device {dev['k4_kernels']:.4f} ms "
-            f"({fmt_kernels(res['k4_kernels'])})")
+            f"({fmt_kernels(res['k4_kernels'])}); gicp-64 end to end "
+            + " / ".join(f"{TRACK_FRAMES / t:.2f}" for t in res["gicp64_s"])
+            + f" scans/s ({res['gicp64_iterations']} GN iterations, "
+            f"{res['gicp64_k2_launches']} K2 launches a run)")
+    this = [r for r, tree in zip(runs, (parent, here, here, parent)) if tree == here]
+    if any(r["gicp64_world_T"] != this[0]["gicp64_world_T"] for r in this):
+        raise RuntimeError("[ab] this tree's gicp-64 runs end at different poses")
     return runs
 
 
@@ -3070,7 +3482,8 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a tree of the parent commit: time its K2, K3, K5 "
-                                     "and K4 calls beside this tree's (A/B, phase 12)")
+                                     "and K4 calls and the gicp-64 cell beside this "
+                                     "tree's (A/B, phase 12)")
     ap.add_argument("--ab-tree", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ab_tree:
@@ -3114,6 +3527,8 @@ def main(argv) -> int:
     phase_profile(torch, scans, s2m, track, batch)
     phase_syncs(torch, sweep_ops, frozen_ops, search_ops)
     host_k4, host_k1 = phase_host(torch, scans, s2s_out)
+    knn_batch, pack_batch = phase_knn_batch(torch, seq, scans)
+    phase_parallel(torch, seq, scans, batch, card)
     if parent is not None:
         phase_ab(parent)
     if FAILED:
@@ -3128,9 +3543,9 @@ def main(argv) -> int:
          "batch_launches": batch["launches"], **vg_streams,
          "session_launches": session["session_launches"], **pg_k4, **host_k4},
         {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
-         "replaces": NN_REPLACES, "launches": nn_launches, **nn},
+         "replaces": NN_REPLACES, "launches": nn_launches, **nn, **knn_batch},
         {"name": "nn_pack", "route": "cuda", "source": NN_SOURCE,
-         "replaces": NN_REPLACES, "launches": pack_launches, **pack},
+         "replaces": NN_REPLACES, "launches": pack_launches, **pack, **pack_batch},
         {"name": "nn_coords", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_COORDS_REPLACES, "launches": coords_launches, **coords},
         {"name": "vgicp_frozen", "route": "cuda", "source": VGICP_SOURCE,

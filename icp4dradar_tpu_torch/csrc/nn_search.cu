@@ -59,9 +59,19 @@
 // before rank 0 reads the other ranks' shared memory, one before any block
 // exits (a block's shared memory must outlive its readers).
 //
+// Stream axis (S independent target sets, serving: a batch of kNN-GICP
+// registrations, as the JAX package vmaps nearest_neighbor_pallas): every
+// array leads with S, and the grid's x axis holds ceil(N / 128) source
+// blocks a stream, so a block finds its stream from blockIdx.x and every
+// block's sources, rows, count and outputs belong to that one stream. A
+// stream's result is the single-target search's, bit for bit: the same
+// rows in the same order through the same code. One launch serves all S
+// streams with no host sync (the cluster size C comes from the per-stream
+// row capacity M).
+//
 // The packing (nn_pack_launch, behind nn_prepare on the card) is one launch
-// of one block: a stable partition of the rows, live first, equal to the
-// plain version's stable sort. It moves ~0.6 MB at M = 16,384 (~0.2 us of
+// of one block a stream: a stable partition of the rows, live first, equal
+// to the plain version's stable sort. It moves ~0.6 MB at M = 16,384 (~0.2 us of
 // bytes); latency bounds it, and one launch replaces the dozen torch
 // launches (~0.3 ms of host time) of a sort-based packing. Rows go one a
 // thread in tiles of 1024, so loads and stores coalesce (a contiguous run
@@ -98,16 +108,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 __global__ void __launch_bounds__(kSearchThreads)
-nn_search_kernel(const float* __restrict__ src,    // (N, 3)
-                 const float4* __restrict__ rows,  // (M,) [x, y, z, 0], live rows first
-                 const int* __restrict__ orig,     // (M,) original index of each row
-                 const int* __restrict__ count,    // (1,) live rows
-                 const float* __restrict__ tgt,    // (M, 3) as given (fallback, K3)
-                 const float* __restrict__ mask,   // (M,) as given (fallback)
-                 int N, int M,
-                 float* __restrict__ d2_out,       // (N,)
-                 int* __restrict__ idx_out,        // (N,) or null
-                 float* __restrict__ q_out) {      // (N, 3) or null
+nn_search_kernel(const float* __restrict__ src,    // (S, N, 3)
+                 const float4* __restrict__ rows,  // (S, M) [x, y, z, 0], live rows first
+                 const int* __restrict__ orig,     // (S, M) original index of each row
+                 const int* __restrict__ count,    // (S,) live rows
+                 const float* __restrict__ tgt,    // (S, M, 3) as given (fallback, K3)
+                 const float* __restrict__ mask,   // (S, M) as given (fallback)
+                 int N, int M, int blocks_per_stream,
+                 float* __restrict__ d2_out,       // (S, N)
+                 int* __restrict__ idx_out,        // (S, N) or null
+                 float* __restrict__ q_out) {      // (S, N, 3) or null
   __shared__ __align__(16) float4 s_rows[kSearchTile];
   __shared__ float s_wd[kSearchWarps][kSearchSources];
   __shared__ int s_wi[kSearchWarps][kSearchSources];
@@ -119,7 +129,18 @@ nn_search_kernel(const float* __restrict__ src,    // (N, 3)
   const int rank = (int)cluster.block_rank();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int i0 = blockIdx.x * kSearchSources;
+  // this block's stream: every pointer below is that stream's slice
+  const int s = blockIdx.x / blocks_per_stream;
+  const int i0 = (blockIdx.x - s * blocks_per_stream) * kSearchSources;
+  src += 3 * (size_t)s * N;
+  rows += (size_t)s * M;
+  orig += (size_t)s * M;
+  count += s;
+  tgt += 3 * (size_t)s * M;
+  mask += (size_t)s * M;
+  d2_out += (size_t)s * N;
+  if (idx_out != nullptr) idx_out += (size_t)s * N;
+  if (q_out != nullptr) q_out += 3 * (size_t)s * N;
 
   // the lane's sources i0 + h * 32 + lane
   float sx[kPerLane], sy[kPerLane], sz[kPerLane];
@@ -244,19 +265,26 @@ constexpr int kPackThreads = 1024;
 
 // rows (M,) [x, y, z, 0] with the live rows (mask > 0.5) first and the
 // masked rows after them, both in original order; orig (M,) each packed
-// row's original index; count (1,) the live rows. One block: a first pass
+// row's original index; count (1,) the live rows; block s packs stream s,
+// every array offset by its stream. One block a stream: a first pass
 // counts the live rows; a second walks the rows in tiles of 1024, one row
 // a thread (coalesced), and places each row by a block-wide scan of the
 // tile's live flags (warp ballots, then the warps' counts in order): a
 // stable partition, as the plain version's stable sort.
 __global__ void __launch_bounds__(kPackThreads)
-nn_pack_kernel(const float* __restrict__ tgt,   // (M, 3)
-               const float* __restrict__ mask,  // (M,)
+nn_pack_kernel(const float* __restrict__ tgt,   // (S, M, 3)
+               const float* __restrict__ mask,  // (S, M)
                int M,
-               float4* __restrict__ rows,       // (M,)
-               int* __restrict__ orig,          // (M,)
-               int* __restrict__ count) {       // (1,)
+               float4* __restrict__ rows,       // (S, M)
+               int* __restrict__ orig,          // (S, M)
+               int* __restrict__ count) {       // (S,)
   constexpr int kPackWarps = kPackThreads / 32;
+  const size_t s = blockIdx.x;
+  tgt += 3 * s * M;
+  mask += s * M;
+  rows += s * M;
+  orig += s * M;
+  count += s;
   __shared__ int s_warp[kPackWarps];
   __shared__ int s_total;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -299,22 +327,25 @@ nn_pack_kernel(const float* __restrict__ tgt,   // (M, 3)
 
 }  // namespace
 
-// K2 and K3 on prepared targets: one launch on `stream` of grid (ceil(N /
-// 128), cluster), the `cluster` blocks along y one thread block cluster (1
-// to 8). rows (M, 4) / orig (M,) / count (1,) as ops/knn.py::nn_prepare
-// packs them, tgt (M, 3) and mask (M,) as given. Writes d2 (N,), and idx
-// (N,) and q (N, 3) where they are not null (at least one of them). Returns
-// the launch's error (0 on success).
+// K2 and K3 on prepared targets for S streams: one launch on `stream` of
+// grid (S * ceil(N / 128), cluster), the `cluster` blocks along y one
+// thread block cluster (1 to 8). src (S, N, 3); rows (S, M, 4) / orig (S,
+// M) / count (S,) as ops/knn.py::nn_prepare packs them, tgt (S, M, 3) and
+// mask (S, M) as given. Writes d2 (S, N), and idx (S, N) and q (S, N, 3)
+// where they are not null (at least one of them). Returns the launch's
+// error (0 on success).
 extern "C" int nn_search_launch(const float* src, const float* rows, const int* orig,
                                 const int* count, const float* tgt, const float* mask,
-                                int N, int M, int cluster, float* d2, int* idx, float* q,
-                                void* stream) {
-  if (N <= 0 || M <= 0 || cluster < 1 || cluster > kMaxCluster || d2 == nullptr ||
+                                int S, int N, int M, int cluster, float* d2, int* idx,
+                                float* q, void* stream) {
+  if (S <= 0 || N <= 0 || M <= 0 || cluster < 1 || cluster > kMaxCluster || d2 == nullptr ||
       (idx == nullptr && q == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int blocks_per_stream = (N + kSearchSources - 1) / kSearchSources;
+  if ((long long)S * blocks_per_stream > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kSearchSources - 1) / kSearchSources, cluster, 1);
+  cfg.gridDim = dim3(S * blocks_per_stream, cluster, 1);
   cfg.blockDim = dim3(kSearchThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;
@@ -327,18 +358,19 @@ extern "C" int nn_search_launch(const float* src, const float* rows, const int* 
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, nn_search_kernel, src,
                                              reinterpret_cast<const float4*>(rows), orig,
-                                             count, tgt, mask, N, M, d2, idx, q);
+                                             count, tgt, mask, N, M, blocks_per_stream, d2,
+                                             idx, q);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// K2's packing on `stream`: tgt (M, 3) and mask (M,) -> rows (M, 4), orig
-// (M,), count (1,) as nn_search_launch reads them. Returns the launch's
-// error (0 on success).
-extern "C" int nn_pack_launch(const float* tgt, const float* mask, int M, float* rows,
-                              int* orig, int* count, void* stream) {
-  if (M <= 0) return (int)cudaErrorInvalidValue;
-  nn_pack_kernel<<<1, kPackThreads, 0, (cudaStream_t)stream>>>(
+// K2's packing on `stream`, one block a stream: tgt (S, M, 3) and mask (S,
+// M) -> rows (S, M, 4), orig (S, M), count (S,) as nn_search_launch reads
+// them. Returns the launch's error (0 on success).
+extern "C" int nn_pack_launch(const float* tgt, const float* mask, int S, int M,
+                              float* rows, int* orig, int* count, void* stream) {
+  if (S <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
+  nn_pack_kernel<<<S, kPackThreads, 0, (cudaStream_t)stream>>>(
       tgt, mask, M, reinterpret_cast<float4*>(rows), orig, count);
   return (int)cudaGetLastError();
 }

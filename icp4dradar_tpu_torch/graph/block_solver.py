@@ -276,11 +276,15 @@ def solve_block_step(
     def dot(a, b):
         return torch.sum(a * b)
 
-    # the exact H matvec in float64: on a long chain its block products
-    # nearly cancel along the bending modes, and their float32 rounding left
-    # the K = 512 chain of tests/test_graph.py converging from 1 of 6
-    # perturbed starts (6 of 6 in float64; the JAX package's float32 XLA
-    # matvec, 6 of 6). Everything else of the step stays float32.
+    # the exact H matvec in float64 (everything else of the step stays
+    # float32). On the long chain of tests/test_graph.py (K >= 256) the PCG
+    # runs to its cap in both packages and the step lands 20-80% of its
+    # length off the exact GN step, so which perturbed starts converge is
+    # decided by round-off, not by this matvec: at K = 512, seeds 5-10, JAX
+    # converged from 3 of 6, the port from 2 of 6 in float32 and 1 of 6 in
+    # float64 (PERF.md section 7). Kept: it converges from the seed of the
+    # JAX test (5), where the float32 matvec does not
+    # (tests/test_torch_graph.py::test_long_chain_pcg_stops_at_its_cap_in_both_packages).
     ne64 = BlockNormalEq(**{f: getattr(ne, f).double() for f in ("diag", "off", "U", "g",
                                                                  "cost")})
     b = -ne.g

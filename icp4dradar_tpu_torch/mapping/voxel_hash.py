@@ -621,35 +621,49 @@ def voxel_map_lookup_slots(
     """Resolve integer voxel coordinates (..., 3) to their table slots ->
     (slot (...) int32, found (...) bool); slot is 0 where not found, so
     gate every gather through `found`. One gather per probe round over the
-    whole coordinate block."""
+    whole coordinate block. A batched map takes coords (S, ..., 3), each
+    stream's resolved in its own table."""
+    flat, found = _lookup_flat(vmap, coords)
+    return torch.where(found, flat % vmap.capacity, 0).to(torch.int32), found
+
+
+def _lookup_flat(vmap: VoxelHashMap, coords: torch.Tensor):
+    """(row into the tables flattened over their streams (...) int64, found
+    (...) bool) of `voxel_map_lookup_slots`; the row is the stream's first
+    (its slot 0) where not found."""
     C = vmap.capacity
     h = _hash(coords, C)
-    slots = torch.zeros(coords.shape[:-1], dtype=torch.int32, device=coords.device)
+    if vmap.streams is None:
+        keys, occupied, base = vmap.keys, vmap.occupied, 0
+    else:
+        keys, occupied = vmap.keys.reshape(-1, 3), vmap.occupied.reshape(-1)
+        base = (torch.arange(vmap.streams, device=coords.device) * C).reshape(
+            (-1,) + (1,) * (coords.dim() - 2))
+    rows = torch.zeros(coords.shape[:-1], dtype=torch.int64, device=coords.device) + base
     found = torch.zeros(coords.shape[:-1], dtype=torch.bool, device=coords.device)
     for j in range(vmap.max_probes):
-        slot = (h + j) & (C - 1)
-        sl = slot.long()
-        hit = (torch.all(vmap.keys[sl] == coords, dim=-1) & (vmap.occupied[sl] > 0.5)
-               & ~found)
-        slots = torch.where(hit, slot, slots)
+        row = ((h + j) & (C - 1)).to(torch.int64) + base
+        hit = (torch.all(keys[row] == coords, dim=-1) & (occupied[row] > 0.5) & ~found)
+        rows = torch.where(hit, row, rows)
         found = found | hit
-    return slots, found
+    return rows, found
 
 
 def _lookup_voxels(
     vmap: VoxelHashMap, coords: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stored point of each integer voxel coordinate (..., 3) ->
-    (points (..., 3), found (...)); points are 0 where not found."""
-    slots, found = voxel_map_lookup_slots(vmap, coords)
-    pts = torch.where(found[..., None], vmap.points[slots.long()], 0.0)
+    (points (..., 3), found (...)); points are 0 where not found. A
+    batched map takes coords (S, ..., 3)."""
+    rows, found = _lookup_flat(vmap, coords)
+    pts = torch.where(found[..., None], vmap.points.reshape(-1, 3)[rows], 0.0)
     return pts, found
 
 
 def _sq_dist(pts: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """(N, K, 3) candidates against (N, 3) queries -> (N, K) squared
-    distances, summed over x, y, z in order."""
-    d = pts - queries[:, None, :]
+    """(..., N, K, 3) candidates against (..., N, 3) queries -> (..., N, K)
+    squared distances, summed over x, y, z in order."""
+    d = pts - queries[..., None, :]
     return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
 
 
@@ -657,7 +671,7 @@ def _k_nearest(d2: torch.Tensor, pts: torch.Tensor, k: int):
     """The k smallest distances of each row and their points, nearest first;
     among equal distances the lower column first (`lax.top_k`'s rule)."""
     order, d2 = k_smallest(d2, k)
-    return d2, torch.gather(pts, 1, order[..., None].expand(order.shape + (3,)))
+    return d2, torch.gather(pts, -2, order[..., None].expand(order.shape + (3,)))
 
 
 def voxel_map_stencil_neighbors(
@@ -709,7 +723,11 @@ def voxel_map_knn_exact(
     (one batched lookup each); the loop stops once every query's k-th best
     beats the next chunk's lower bound, the kd-tree's box-distance pruning,
     so the result does not depend on where it stops. queries (N, 3) ->
-    (dists2 (N, k), points (N, k, 3)); missing neighbours carry +inf."""
+    (dists2 (N, k), points (N, k, 3)); missing neighbours carry +inf. A
+    batched map takes queries (S, N, 3), each stream's searched in its own
+    table, and returns (S, N, ...): the loop runs until every query of
+    every stream has met the bound, and a stream's result is the one it
+    gets alone (the chunks past its own stop change nothing)."""
     if not math.isfinite(max_dist) or max_dist <= 0:
         raise ValueError("voxel_map_knn_exact needs a finite max_dist > 0")
     L = vmap.voxel_size
@@ -736,17 +754,17 @@ def voxel_map_knn_exact(
     # before the chunk is visited
     lb2 = (dmin[::chunk] ** 2).astype(np.float32)
 
-    N = queries.shape[0]
+    lead = tuple(queries.shape[:-1])                 # ([S,] N)
     base = _voxel_coords(queries, L)
-    best_d2 = torch.full((N, k), math.inf, dtype=dt, device=dev)
-    best_pts = torch.zeros((N, k, 3), dtype=dt, device=dev)
+    best_d2 = torch.full(lead + (k,), math.inf, dtype=dt, device=dev)
+    best_pts = torch.zeros(lead + (k, 3), dtype=dt, device=dev)
     md2 = float(np.float32(max_dist * max_dist))
     c = 0
-    while c < n_chunks and bool(torch.any(best_d2[:, k - 1] > float(lb2[c]))):
-        pts, found = _lookup_voxels(vmap, base[:, None, :] + chunk_off[c][None, :, :])
+    while c < n_chunks and bool(torch.any(best_d2[..., k - 1] > float(lb2[c]))):
+        pts, found = _lookup_voxels(vmap, base[..., None, :] + chunk_off[c])
         d2 = _sq_dist(pts, queries)
         d2 = torch.where(found & chunk_valid[c] & (d2 < md2), d2, math.inf)
         best_d2, best_pts = _k_nearest(torch.cat([best_d2, d2], dim=-1),
-                                        torch.cat([best_pts, pts], dim=1), k)
+                                        torch.cat([best_pts, pts], dim=-2), k)
         c += 1
     return best_d2, best_pts

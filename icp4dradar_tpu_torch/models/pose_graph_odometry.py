@@ -32,6 +32,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from icp4dradar_tpu_torch.config import PipelineConfig
 from icp4dradar_tpu_torch.graph import PoseGraph, RelPoseFactors, optimize_pose_graph_block
@@ -159,7 +160,13 @@ def run_pose_graph_odometry(
     phase_times: Optional[Dict[str, float]] = None,
 ) -> PoseGraphOdometryResult:
     """The full pipeline on the scans' device (the JAX package's
-    arguments; `mesh`, its multi-device back end, is not ported).
+    arguments). With `mesh` (`parallel.make_mesh`, a process group of one
+    rank a device) every solve runs the distributed block GN
+    (`parallel.distributed_optimize_pose_graph_block`): each rank assembles
+    its shard of the chain and structure factors, the block normal
+    equations are summed over the ranks, loop closures stay replicated,
+    and the solve is replicated; every rank runs the whole pipeline on the
+    same inputs and returns the same result.
 
     Wrong-closure containment: a gating pass optimises with every loop
     factor's weight capped at odom_weight / 100, then drops each loop factor
@@ -185,11 +192,9 @@ def run_pose_graph_odometry(
     package's); `phase_times`, when a dict, gets host-clock seconds per
     phase (front_end, loop_icp, gate, structure, optimize), with a device
     synchronize around each."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_pose_graph_odometry(mesh=...): the multi-device back end "
-            "(parallel.distributed_optimize_pose_graph_block) is not ported yet "
-            "(ROADMAP.md queue 1 item 6)")
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"run_pose_graph_odometry: mesh is a {type(mesh).__name__}, not a "
+                        "DeviceMesh (parallel.make_mesh)")
     dev = scans.xyz.device
     F = scans.xyz.shape[0]
     with _phase(phase_times, "front_end", dev):
@@ -259,7 +264,12 @@ def run_pose_graph_odometry(
                                     device=dev)
 
     def solve(graph):
-        return optimize_pose_graph_block(graph, cfg.pose_graph)
+        if mesh is None:
+            return optimize_pose_graph_block(graph, cfg.pose_graph)
+        # O(K) distributed back end: factor-sharded block assembly summed
+        # over the ranks, loop closures replicated as low-rank columns
+        from icp4dradar_tpu_torch.parallel import distributed_optimize_pose_graph_block
+        return distributed_optimize_pose_graph_block(graph, mesh, cfg.pose_graph)
 
     def loop_residuals(kf_poses: np.ndarray):
         """(t_err (L,), r_err_deg (L,)) of the loop factors (entries past

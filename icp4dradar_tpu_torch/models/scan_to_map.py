@@ -44,10 +44,9 @@ correction; `insert_before_registration` inserts the scan at the predicted
 per-frame runner and the per-frame batch take `gt_poses`; the blocked
 runner has no such argument, as in the JAX package.
 
-Not ported yet, raising NotImplementedError that names its place in
-`ROADMAP.md`: kNN GICP inside a batch (queue 1 item 8); `rigid_union`,
-`accumulate_scans > 1` and its `aux_world_xyz` / `insert_override` are left
-out for good ("Not ported").
+Left out for good, raising NotImplementedError that names its place in
+`ROADMAP.md` ("Not ported"): `rigid_union`, `accumulate_scans > 1` and its
+`aux_world_xyz` / `insert_override`.
 """
 
 from __future__ import annotations
@@ -82,7 +81,10 @@ from icp4dradar_tpu_torch.preprocess.reve import (
     draw_reve_uniforms,
     estimate_ego_velocity,
 )
-from icp4dradar_tpu_torch.registration.gicp import covariances_from_neighbors, gicp_align
+from icp4dradar_tpu_torch.registration.gicp import (
+    covariances_from_neighbors,
+    gicp_align_streams,
+)
 from icp4dradar_tpu_torch.registration.vgicp import vgicp_align_block, vgicp_align_streams
 
 # Blocks of `run_scan_to_map_blocked` in this process that fell back to the
@@ -265,10 +267,10 @@ def scan_to_map_step(
 
     On a batched state (B poses, a map of B tables) the frame is one scan
     per stream, (B, N) fields, uniforms (B, 3H), prior_delta and gt_pose
-    (B,4,4): one REVE pass, one sector query, one `vgicp_align_streams`
-    and one insert for all streams (VGICP only when B > 1). A single-stream state
-    steps as a batch of one, so that a stream tracks alike, bit for bit,
-    alone and in a batch."""
+    (B,4,4): one REVE pass, one sector query, one `vgicp_align_streams` (or
+    `gicp_align_streams`) and one insert for all streams. A single-stream
+    state steps as a batch of one, so that a stream tracks alike, bit for
+    bit, alone and in a batch."""
     _check_cfg(cfg)
     if aux_world_xyz is not None or aux_mask is not None or insert_override is not None:
         raise _not_ported("aux_world_xyz / insert_override (scan accumulation)",
@@ -282,8 +284,6 @@ def scan_to_map_step(
             prior_delta=None if prior_delta is None else prior_delta[None],
             phase_times=phase_times)
         return _stream_state(new_state, 0), _stream_outputs(out, 0)
-    if state.vmap.streams > 1 and not cfg.gicp.use_vgicp:
-        raise _not_ported("kNN GICP (gicp.use_vgicp=False) inside a batch", "queue 1 item 8")
     vmcfg = cfg.voxel_map
     dev = scan.device
     with _phase(phase_times, "reve", dev):
@@ -318,26 +318,26 @@ def scan_to_map_step(
                                     src_cov6, pose, cfg.gicp, tgt_count=sub_n)
         reg_T, fitness, iterations = g.transform, g.fitness, g.iterations
     else:
-        # kNN GICP runs one stream (a batch of one): its single table
-        one, p0 = vmap.stream(0), pose[0]
+        # kNN GICP in the world frame, every stream against its own sector
+        # submap in the same launches
         with _phase(phase_times, "sector_query", dev):
             submap, submask, sub_n = voxel_map_sector_search(
-                one, p0[:3, 3], vmcfg.sector_radius, heading[0],
+                vmap, pose[..., :3, 3], vmcfg.sector_radius, heading,
                 vmcfg.sector_half_angle_deg, vmcfg.submap_max_points)
         tgt_cov = None
         if cfg.gicp.use_exact_map_knn:
             # the submap's covariance neighbourhoods from the exact
             # whole-map k-NN, gated at max_correspondence_dist
             with _phase(phase_times, "map_knn", dev):
-                d2n, pn = voxel_map_knn_exact(one, submap, cfg.gicp.k_correspondences,
+                d2n, pn = voxel_map_knn_exact(vmap, submap, cfg.gicp.k_correspondences,
                                               max_dist=cfg.gicp.max_correspondence_dist)
                 tgt_cov = covariances_from_neighbors(submap, pn, torch.isfinite(d2n),
                                                      cfg.gicp.cov_epsilon)
         with _phase(phase_times, "gn", dev):
-            g = gicp_align(se3_apply(p0, scan.xyz[0]), submap, inlier_mask[0], submask,
-                           cfg=cfg.gicp, tgt_cov=tgt_cov)
-        reg_T = mm(g.transform, p0)[None]                 # left-compose (ref :412)
-        fitness, iterations, sub_n = g.fitness[None], g.iterations[None], sub_n[None]
+            g = gicp_align_streams(se3_apply(pose, scan.xyz), submap, inlier_mask, submask,
+                                   cfg=cfg.gicp, tgt_cov=tgt_cov)
+        reg_T = mm(g.transform, pose)                     # left-compose (ref :412)
+        fitness, iterations = g.fitness, g.iterations
     new_T, insert_mask, _ = _apply_tracking_gate(cfg, pose, reg_T, fitness, inlier_mask)
     if not insert_before_registration:
         with _phase(phase_times, "insert", dev):
@@ -747,13 +747,13 @@ def run_scan_to_map_batch(
     uniforms: (B, F, 3H) REVE draws; without them each stream draws its
     (F, 3H) in turn from `generator`, by default one seeded with cfg.seed.
     Returns the batched state (world_T (B,4,4), a map of B tables) and
-    (B, F, ...) outputs. kNN GICP (`gicp.use_vgicp=False`) is not ported to
-    a batch."""
+    (B, F, ...) outputs. With `gicp.use_vgicp=False` the per-frame batch
+    registers by kNN GICP (`gicp_align_streams`: one K2 launch a GN
+    iteration for all streams); the blocked batch runs VGICP in its blocks
+    and kNN GICP in its warm-up frames, as the single-stream runner does."""
     if scans.xyz.dim() != 4:
         raise ValueError(f"run_scan_to_map_batch takes (B, F, N, 3) scans, got "
                          f"{tuple(scans.xyz.shape)}")
-    if not cfg.gicp.use_vgicp:
-        raise _not_ported("kNN GICP (gicp.use_vgicp=False) inside a batch", "queue 1 item 8")
     uniforms = _uniforms_for(scans, cfg, uniforms, generator)
     if block > 1:
         kwargs.setdefault("sequential_fallback", False)

@@ -26,8 +26,9 @@ def _rotl(x: np.ndarray, d: int) -> np.ndarray:
 
 def threefry2x32(k1, k2, x1: np.ndarray, x2: np.ndarray):
     """Threefry-2x32, 20 rounds, of the counters (x1, x2) under the key
-    (k1, k2): two uint32 arrays."""
-    k1, k2 = np.uint32(k1), np.uint32(k2)
+    (k1, k2): uint32 arrays, broadcast against each other (many keys at
+    once)."""
+    k1, k2 = np.asarray(k1, np.uint32), np.asarray(k2, np.uint32)
     ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
     x = [np.asarray(x1, np.uint32) + ks[0], np.asarray(x2, np.uint32) + ks[1]]
     with np.errstate(over="ignore"):
@@ -40,6 +41,14 @@ def threefry2x32(k1, k2, x1: np.ndarray, x2: np.ndarray):
     return x[0], x[1]
 
 
+def _counter_bits(k: np.ndarray, n: int):
+    """Threefry of the counters (0, i), i < n, under every key of k
+    (..., 2): two (..., n) uint32 arrays."""
+    k = np.asarray(k, np.uint32)
+    i = np.arange(n, dtype=np.uint32)
+    return threefry2x32(k[..., 0, None], k[..., 1, None], np.zeros_like(i), i)
+
+
 def key(seed: int) -> np.ndarray:
     """`jax.random.key(seed)`'s data without 64-bit mode: (2,) uint32, zero
     and the seed's low 32 bits."""
@@ -47,15 +56,16 @@ def key(seed: int) -> np.ndarray:
 
 
 def split(k: np.ndarray, n: int) -> np.ndarray:
-    """`jax.random.split(k, n)`'s data: (n, 2) uint32."""
-    b1, b2 = threefry2x32(k[0], k[1], np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
-    return np.stack([b1, b2], axis=-1)
+    """`jax.random.split(k, n)`'s data: (n, 2) uint32; for keys k (..., 2),
+    each key's split, (..., n, 2)."""
+    return np.stack(_counter_bits(k, n), axis=-1)
 
 
 def uniform(k: np.ndarray, n: int) -> np.ndarray:
     """`jax.random.uniform(k, (n,))`: (n,) float32 in [0, 1), the top 23
-    bits of each word as the mantissa of a float in [1, 2), less 1."""
-    b1, b2 = threefry2x32(k[0], k[1], np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    bits of each word as the mantissa of a float in [1, 2), less 1; for
+    keys k (..., 2), each key's draws, (..., n)."""
+    b1, b2 = _counter_bits(k, n)
     bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
     return bits.view(np.float32) - np.float32(1.0)
 
@@ -64,11 +74,7 @@ def doppler_uniforms(seed: int, frames: int, hypotheses: int) -> np.ndarray:
     """(frames, 2, hypotheses) float32: the Doppler RANSAC draws the JAX
     package's `run_scan_to_scan` makes with key(seed): one key a frame
     (split(key, frames)), split in two for the two hypothesis points."""
-    out = []
-    for kf in split(key(seed), frames):
-        k1, k2 = split(kf, 2)
-        out.append(np.stack([uniform(k1, hypotheses), uniform(k2, hypotheses)]))
-    return np.stack(out)
+    return uniform(split(split(key(seed), frames), 2), hypotheses)
 
 
 def reve_uniforms(seed: int, frames: int, block: int, hypotheses: int,
@@ -79,16 +85,18 @@ def reve_uniforms(seed: int, frames: int, block: int, hypotheses: int,
     (the first `block` frames, one split each) and a block key (the rest),
     `run_scan_to_map` into one key a frame. `continued`: the blocked runner
     continuing from an `init_state`, which has no warm-up, so every frame
-    draws from the block key."""
-    k = key(seed) if k is None else k
+    draws from the block key. For keys k (..., 2), each key's draws,
+    (..., frames, 3 * hypotheses), in one call."""
+    k = key(seed) if k is None else np.asarray(k, np.uint32)
     if block > 1 and continued:
-        keys = split(split(k, 2)[1], frames)
+        keys = split(split(k, 2)[..., 1, :], frames)
     elif block > 1 and frames > block:
-        kwarm, kblocks = split(k, 2)
-        keys = np.concatenate([split(kwarm, block), split(kblocks, frames - block)])
+        halves = split(k, 2)
+        keys = np.concatenate([split(halves[..., 0, :], block),
+                               split(halves[..., 1, :], frames - block)], axis=-2)
     else:
         keys = split(k, frames)
-    return np.stack([uniform(kf, 3 * hypotheses) for kf in keys])
+    return uniform(keys, 3 * hypotheses)
 
 
 def reve_batch_uniforms(seed: int, streams: int, frames: int, block: int,
@@ -97,5 +105,4 @@ def reve_batch_uniforms(seed: int, streams: int, frames: int, block: int,
     package's `run_scan_to_map_batch(..., key=key(seed), block=block)` makes
     for each stream. Stream b's key is split(key(seed), streams)[b], which
     the stream's runner splits as `reve_uniforms` does."""
-    return np.stack([reve_uniforms(seed, frames, block, hypotheses, kb)
-                     for kb in split(key(seed), streams)])
+    return reve_uniforms(seed, frames, block, hypotheses, split(key(seed), streams))

@@ -240,8 +240,36 @@ def test_batch_sequential_fallback_retracks_only_the_lost_stream():
     np.testing.assert_allclose(np.linalg.det(P[..., :3, :3]), 1.0, atol=1e-2)
 
 
+def test_knn_gicp_batch_matches_jax():
+    """kNN GICP inside the per-frame batch (`gicp.use_vgicp=False`; the
+    refusal case of `test_batch_refuses_what_is_not_ported` until the
+    stream axis of the 1-NN search): each stream against JAX's vmapped
+    `run_scan_to_map_batch` on JAX's draws, with the tolerances of the
+    single-stream kNN parity test (tests/test_torch_scan_to_map.py:
+    `_assert_tracks`, fitness within 2e-3 relative), and stream 0 against
+    the port's single-stream runner on the same draws, bit for bit."""
+    frames = 6
+    jcfg = _cfg().override(**{"gicp.use_vgicp": False})
+    cfg = config_from_dict(jcfg.to_dict())
+    js, ps, gt = _streams()
+    _, jo = j_batch(jax.tree.map(lambda x: x[:, :frames], js), jcfg, use_const_velocity_rot=True)
+    U = torch.from_numpy(reve_batch_uniforms(cfg.seed, B, frames, 0, reve_hypotheses(cfg.reve)))
+    pst, po = pm.run_scan_to_map_batch(ps[:, :frames], cfg, uniforms=U,
+                                       use_const_velocity_rot=True)
+    for b in range(B):
+        jb = jax.tree.map(lambda x, b=b: x[b], jo)
+        _assert_tracks(_stream(po, b), jb, gt[b])
+        np.testing.assert_allclose(po.fitness[b].numpy(), np.asarray(jb.fitness), rtol=2e-3,
+                                   atol=1e-5)
+    sst, so = pm.run_scan_to_map(ps[0, :frames], cfg, uniforms=U[0],
+                                 use_const_velocity_rot=True)
+    for name, a, c in zip(_FIELDS, _map_fields(po, 0), _map_fields(so, slice(None))):
+        assert torch.equal(a, c), name
+    for a, c in zip(pst.vmap.stream(0).tables(), sst.vmap.tables()):
+        assert torch.equal(a, c)
+
+
 @pytest.mark.parametrize("override,kw", [
-    ({"gicp.use_vgicp": False}, {}),
     ({}, {"rigid_union": True, "block": 8}),
     ({"accumulate_scans": 2}, {}),
 ])

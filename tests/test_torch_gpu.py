@@ -3,9 +3,11 @@ target tile, VGICP sweep with its stream axis and its frozen-payload step,
 the 1-NN search on prepared targets and its coordinate form) against their
 plain PyTorch versions, of the batched voxel map and the map API on the
 card against the CPU, of a stream of the batched tracker against its
-single-stream run on the card, of a session's checkpoint -> resume
-against its straight run, and of the host side's device steps (a bag's
-stacked scans, the replay) on the card against the CPU.
+single-stream run on the card (VGICP and kNN GICP), of the 1-NN search
+with a stream axis against its plain version and single-target calls, of
+a session's checkpoint -> resume against its straight run, of the host
+side's device steps (a bag's stacked scans, the replay) on the card
+against the CPU, and of the multi-device layer under NCCL at world size 1.
 Marked `gpu`: they skip where torch.cuda.is_available() is False. This
 file imports neither jax nor the JAX package, so on a machine with a card
 and no jax it runs without the suite's conftest:
@@ -686,6 +688,126 @@ def test_nn_kernels_reject_what_they_do_not_take(cuda):
         nn.nn_prepare(tgt, mask.cpu())
     with pytest.raises(ValueError):
         nn.nn_prepare(tgt.double(), mask)
+
+
+@pytest.mark.parametrize("S,n,m,lives", [(1, 300, 700, (0.5,)), (3, 1000, 5001, (0.7, 0.0, 1.0)),
+                                         (4, 2048, 16384, (0.04, 0.05, 0.03, 1.0))])
+def test_nn_stream_axis_matches_plain_and_single_target_calls(cuda, S, n, m, lives):
+    """K2 with a stream axis: one packing launch and one search launch for
+    all S streams, with no host sync, equal to the plain version with the
+    stream axis and to S single-target calls, bit for bit (a stream with
+    every row masked among them)."""
+    rng = np.random.default_rng(S + n + m)
+    cases = [_nn_case(rng, n, m, live, cuda) for live in lives]
+    src, tgt, mask = (torch.stack([c[k] for c in cases]) for k in range(3))
+    torch.cuda.synchronize()
+    before = (nn.NN_SEARCH_LAUNCHES, nn.NN_PACK_LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops = nn.nn_prepare(tgt, mask)
+        ki, kd = nn.nn_search(src, ops)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (nn.NN_SEARCH_LAUNCHES, nn.NN_PACK_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert ki.shape == kd.shape == (S, n) and ops.count.shape == (S,)
+    for a, b in zip((ops.rows, ops.orig, ops.count), nn.nn_pack_plain(tgt, mask)):
+        assert torch.equal(a, b)
+    pi, pd = nn.nn_search_plain(src, ops)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    for s in range(S):
+        si, sd = nn.nearest_neighbor(src[s], tgt[s], mask[s])
+        assert torch.equal(ki[s], si) and torch.equal(kd[s], sd)
+
+
+def test_knn_gicp_batch_stream_equals_its_single_stream_run(cuda):
+    """kNN GICP inside the per-frame batch on the card: each stream equals
+    the single-stream runner on it, bit for bit (every output, the final
+    pose and the tables)."""
+    import dataclasses
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io import SyntheticSequence, stack_scans
+    from icp4dradar_tpu_torch.models import scan_to_map as pm
+    from icp4dradar_tpu_torch.preprocess import draw_reve_uniforms
+
+    cfg = PipelineConfig().override(**{"voxel_map.capacity": 1 << 14,
+                                       "voxel_map.submap_max_points": 1 << 12,
+                                       "gicp.use_vgicp": False})
+    B, F = 2, 6
+    seq = SyntheticSequence(num_frames=B * F, max_points=512, num_landmarks=4000,
+                            world_extent=80.0, max_range=60.0, seed=0)
+    frames = stack_scans([seq.scan(k, device=cuda) for k in range(B * F)])
+    scans = type(frames)(**{f.name: getattr(frames, f.name).unflatten(0, (B, F))
+                            for f in dataclasses.fields(frames)})
+    g = torch.Generator(device=cuda).manual_seed(5)
+    U = torch.stack([draw_reve_uniforms((F,), cfg.reve, g, cuda) for _ in range(B)])
+    bst, bo = pm.run_scan_to_map_batch(scans, cfg, uniforms=U, use_const_velocity_rot=True)
+    for b in range(B):
+        sst, so = pm.run_scan_to_map(scans[b], cfg, uniforms=U[b], use_const_velocity_rot=True)
+        for f in dataclasses.fields(so):
+            assert torch.equal(getattr(bo, f.name)[b], getattr(so, f.name)), f.name
+        for x, y in zip(bst.vmap.stream(b).tables(), sst.vmap.tables()):
+            assert torch.equal(x, y)
+
+
+def test_nccl_world_of_one(cuda, tmp_path):
+    """The multi-device layer under NCCL at world size 1 (a FileStore, no
+    network): the sharded batch equals run_scan_to_map_batch bit for bit,
+    dp ICP equals the single-device ICP, and the distributed block GN lies
+    within 1e-4 of the single-device solve."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.graph import PoseGraph, RelPoseFactors, optimize_pose_graph_block
+    from icp4dradar_tpu_torch.io import SyntheticSequence, stack_scans
+    from icp4dradar_tpu_torch.models import scan_to_map as pm
+    from icp4dradar_tpu_torch.parallel import (
+        batched_icp_pairs,
+        distributed_optimize_pose_graph_block,
+        make_mesh,
+        shard_scan_batch,
+        sharded_scan_to_map_batch,
+    )
+    from icp4dradar_tpu_torch.preprocess import reve_hypotheses
+    from icp4dradar_tpu_torch.utils import reve_batch_uniforms
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        cfg = PipelineConfig().override(**{"voxel_map.capacity": 1 << 14,
+                                           "voxel_map.submap_max_points": 1 << 12})
+        B, F = 2, 8
+        seq = SyntheticSequence(num_frames=B * F, max_points=512, num_landmarks=4000,
+                                world_extent=80.0, max_range=60.0, seed=0)
+        frames = stack_scans([seq.scan(k, device=cuda) for k in range(B * F)])
+        scans = type(frames)(**{f.name: getattr(frames, f.name).unflatten(0, (B, F))
+                                for f in dataclasses.fields(frames)})
+        st, so = sharded_scan_to_map_batch(scans, mesh, cfg, block=4,
+                                           use_const_velocity_rot=True)
+        U = torch.from_numpy(reve_batch_uniforms(cfg.seed, B, F, 4, reve_hypotheses(cfg.reve)))
+        rst, ro = pm.run_scan_to_map_batch(scans, cfg, uniforms=U.to(cuda), block=4,
+                                           use_const_velocity_rot=True,
+                                           sequential_fallback=True)
+        for f in dataclasses.fields(so):
+            assert torch.equal(getattr(so, f.name), getattr(ro, f.name)), f.name
+        src, tgt = frames[1:], frames[:-1]
+        T = batched_icp_pairs(shard_scan_batch(src, mesh), shard_scan_batch(tgt, mesh), mesh,
+                              cfg)
+        from icp4dradar_tpu_torch.registration import icp_point_to_point
+        assert torch.equal(T, icp_point_to_point(src.xyz, tgt.xyz, src.mask, tgt.mask,
+                                                 cfg=cfg.icp).transform)
+        K = T.shape[0] + 1
+        rel = RelPoseFactors.build(np.arange(K - 1), np.arange(1, K), T)
+        graph = PoseGraph(poses=torch.eye(4, device=cuda).repeat(K, 1, 1), rel=rel)
+        gd, _ = distributed_optimize_pose_graph_block(graph, mesh)
+        gs, _ = optimize_pose_graph_block(graph)
+        torch.testing.assert_close(gd.poses, gs.poses, rtol=0, atol=1e-4)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---- the frozen-payload GN pass (vgicp_frozen_launch, K5) against its

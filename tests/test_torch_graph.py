@@ -364,3 +364,53 @@ def test_long_chain_block_solver_converges():
     assert np.isfinite(float(cost))
     assert err0 > 5.0, err0
     assert err < 0.05, err
+
+
+def test_long_chain_pcg_stops_at_its_cap_in_both_packages():
+    """Why float32 PCG runs of the long chain converge from some perturbed
+    starts and not others (PERF.md section 7): on tests/test_graph.py's
+    chain at K = 256 (seed 7), both packages' first block GN step runs the
+    PCG to its 64-iteration cap and lands far from the exact GN step (the
+    dense float64 solve of the same normal equations): JAX's float32 step
+    and the port's (float64 matvec) alike, 20-80% of the exact step's
+    length off it, within a factor 2 of each other. The step each GN
+    iteration takes is decided by round-off inside a capped PCG, so which
+    starts converge in 30 iterations is too; no one piece of the port
+    (matvec, preconditioner substitutions, dots) differs from JAX's in a
+    way that decides it (swapped one at a time on the K = 512 chain, seeds
+    5-10: JAX 3 of 6, the port 2 of 6 in float32 and 1 of 6 with the
+    float64 matvec)."""
+    K = 256
+    gt, poses, rel = loop_graph(K, 100.0, 8, 0.004, seed=7)
+    jgraph, pgraph = both_graphs(poses, rel=rel)
+    chain, loops = jbs.split_chain_loops(jgraph.rel)
+    jcfg = JaxPoseGraphConfig()
+    jne = jax.jit(lambda g, c, l: jbs.block_normal_equations(g, c, l, jcfg))(jgraph, chain, loops)
+    arrays = {f: np.asarray(getattr(jne, f)) for f in ("diag", "off", "U", "g", "cost")}
+    # the exact step: the dense float64 solve of the damped, gauge-pinned H
+    d64 = {f: v.astype(np.float64) for f, v in arrays.items()}
+    H = np.zeros((K, 6, K, 6))
+    for k in range(K):
+        H[k, :, k, :] = d64["diag"][k] + jcfg.damping * np.eye(6)
+    for k in range(K - 1):
+        H[k + 1, :, k, :] += d64["off"][k]
+        H[k, :, k + 1, :] += d64["off"][k].T
+    H = H.reshape(6 * K, 6 * K)
+    H[:6, :6] += 1e6 * np.eye(6)
+    U = d64["U"].reshape(6 * K, -1)
+    x = np.linalg.solve(H + U @ U.T, -d64["g"].reshape(-1)).reshape(K, 6)
+    exact = pgn._apply_twists(torch.from_numpy(poses.astype(np.float64)),
+                              torch.from_numpy(x)).numpy()
+
+    def off(new):
+        step, want = new[:, :3, 3] - poses[:, :3, 3], exact[:, :3, 3] - poses[:, :3, 3]
+        return np.linalg.norm(step - want) / np.linalg.norm(want)
+
+    ne = pbs.BlockNormalEq(**{f: torch.from_numpy(v.copy()) for f, v in arrays.items()})
+    before = pbs.PCG_ITERATIONS
+    port, _ = pbs.solve_block_step(ne, pgraph.poses, PoseGraphConfig())
+    assert pbs.PCG_ITERATIONS - before == 64                 # the cap binds
+    jax_new, _ = jax.jit(lambda n, p: jbs.solve_block_step(n, p, jcfg))(jne, jgraph.poses)
+    e_port, e_jax = off(port.numpy()), off(np.asarray(jax_new))
+    assert 0.2 < e_port < 0.8 and 0.2 < e_jax < 0.8, (e_port, e_jax)
+    assert 0.5 < e_port / e_jax < 2.0, (e_port, e_jax)

@@ -362,3 +362,72 @@ def test_coords_search_matches_pallas(case):
         np.testing.assert_array_equal(jd, [5.0, 2.0])
     if case in ("all_masked", "far_live_row"):
         np.testing.assert_array_equal(jq, np.broadcast_to(tgt[0], jq.shape))
+
+
+# ---- the stream axis (a batch of kNN-GICP registrations): S target sets
+# packed in one call and searched in one call, each stream as alone
+
+
+def _streams(rng, S, n, m, lives):
+    src = np.stack([_cloud(rng, n) for _ in range(S)])
+    tgt = np.stack([_cloud(rng, m) for _ in range(S)])
+    mask = np.stack([(rng.uniform(size=m) < live).astype(np.float32) for live in lives])
+    return src, tgt, mask
+
+
+@pytest.mark.parametrize("S,n,m,lives", [
+    (3, 200, 700, (0.7, 0.0, 1.0)),     # a stream with every row masked
+    (2, 130, 2049, (0.05, 0.5)),        # across the cluster's 2048-row ranks
+    (1, 5, 3, (1.0,)),
+])
+def test_stream_axis_equals_single_target_calls(S, n, m, lives):
+    """`nn_prepare` on (S, M, 3) targets and `nn_search` on (S, N, 3)
+    sources (their plain versions on the CPU) equal S single-target calls
+    bit for bit: packed rows, original indices, live counts, indices and
+    d2; the coordinate search with the stream axis gathers each stream's
+    own rows."""
+    rng = np.random.default_rng(S + n + m)
+    src, tgt, mask = (torch.from_numpy(x) for x in _streams(rng, S, n, m, lives))
+    ops = pknn.nn_prepare(tgt, mask)
+    assert ops.streams == S and ops.count.shape == (S,) and ops.rows.shape == (S, m, 4)
+    idx, d2 = pknn.nn_search(src, ops)
+    cd, cq = pknn.nn_search_coords(src, ops)
+    assert idx.shape == d2.shape == (S, n) and cq.shape == (S, n, 3)
+    for s in range(S):
+        one = pknn.nn_prepare(tgt[s], mask[s])
+        for a, b in zip((ops.rows[s], ops.orig[s], ops.count[s:s + 1]),
+                        (one.rows, one.orig, one.count)):
+            assert torch.equal(a, b)
+        i1, d1 = pknn.nn_search(src[s], one)
+        assert torch.equal(idx[s], i1) and torch.equal(d2[s], d1)
+        assert torch.equal(cd[s], d1) and torch.equal(cq[s], tgt[s][i1.long()])
+
+
+@pytest.mark.parametrize("S,n,m", [(3, 96, 700), (2, 40, 2100)])
+def test_stream_axis_matches_vmapped_pallas(S, n, m):
+    """The stream axis against the Pallas kernel vmapped over the streams
+    (`jax.vmap` of `nearest_neighbor_pallas`, interpret mode), as the JAX
+    package's batch vmaps `gicp_align`: equal indices and d2."""
+    import jax
+
+    rng = np.random.default_rng(S * n + m)
+    src, tgt, mask = _streams(rng, S, n, m, [0.6] * S)
+    mask[:, 0] = 1.0
+    ji, jd = jax.vmap(lambda s, t, k: jknn.nearest_neighbor_pallas(s, t, k, interpret=True))(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask))
+    pi, pd = pknn.nn_search(torch.from_numpy(src),
+                            pknn.nn_prepare(torch.from_numpy(tgt), torch.from_numpy(mask)))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
+
+
+def test_stream_axis_rejects_mismatched_sources():
+    rng = np.random.default_rng(9)
+    src, tgt, mask = (torch.from_numpy(x) for x in _streams(rng, 2, 10, 20, (1.0, 1.0)))
+    ops = pknn.nn_prepare(tgt, mask)
+    with pytest.raises(ValueError):
+        pknn.nn_search(src[0], ops)                  # no stream axis
+    with pytest.raises(ValueError):
+        pknn.nn_search(torch.cat([src, src]), ops)   # 4 streams against 2
+    with pytest.raises(ValueError):
+        pknn.nn_prepare(tgt, mask[0])

@@ -16,7 +16,8 @@ both packages: refined keyframes within 1e-4 m.
 
 Port only, as the JAX tests: the no-loop identity, the wrong-closure
 containment, the span-scaled gate, the blocked front end's fallback
-warning, structure factors on the scan-to-map front end; `mesh=` raises.
+warning, structure factors on the scan-to-map front end; a `mesh=` that is not
+a DeviceMesh raises.
 """
 
 import warnings
@@ -169,7 +170,9 @@ def test_residual_gate_scales_with_loop_span(circle):
 
 
 def test_mesh_raises(circle):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    """A `mesh` that is not a DeviceMesh is refused before any work; the
+    multi-device back end itself runs in tests/test_torch_parallel.py."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_pose_graph_odometry(circle["ps"], circle["cfg"], mesh=object(), **KW)
 
 

@@ -229,17 +229,13 @@ def test_sequential_blocks_and_no_fallback_run():
 
 
 @pytest.mark.parametrize("override,kw", [
-    ({"gicp.use_vgicp": False}, {}),                   # kNN GICP inside a batch
     ({}, {"rigid_union": True}),
 ])
 def test_unported_options_raise(override, kw):
-    cfg = config_from_dict(_cfg().override(**override).to_dict()) if override else \
-        config_from_dict(_cfg().to_dict())
+    """kNN GICP inside a batch is ported (tests/test_torch_batch.py holds
+    it to JAX); `rigid_union` stays out ("Not ported")."""
+    cfg = config_from_dict(_cfg().override(**override).to_dict())
     _, _, ps = _sequence()
-    if override:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-            pm.run_scan_to_map_batch(ps[None, :4], cfg, block=2)
-        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pm.run_scan_to_map_blocked(ps[:4], cfg, **kw)
 

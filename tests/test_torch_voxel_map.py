@@ -332,6 +332,20 @@ def test_batched_map_ops_match_single_tables():
             assert torch.equal(a, b)
     batched, single = pvh.voxel_map_rehash(batched), [pvh.voxel_map_rehash(m) for m in single]
     same()
+    # the exact k-NN with a stream axis (kNN GICP's exact map k-NN in a
+    # batch): stream s gets the single-table search of table s, though the
+    # chunk loop runs until every stream's queries meet the bound
+    q = torch.tensor(rng.uniform(-8, 8, (S, 40, 3)).astype(np.float32))
+    q[2] += 30.0                                  # far from stream 2's map: every chunk
+    d2, pts = pvh.voxel_map_knn_exact(batched, q, 5, max_dist=2.0, chunk=64)
+    for s in range(S):
+        d1, p1 = pvh.voxel_map_knn_exact(single[s], q[s], 5, max_dist=2.0, chunk=64)
+        assert torch.equal(d2[s], d1) and torch.equal(pts[s], p1)
+    assert bool(torch.isfinite(d2[0]).any()) and not bool(torch.isfinite(d2[2]).any())
+    slots, found = pvh.voxel_map_lookup_slots(batched, pvh._voxel_coords(q, 0.5))
+    for s in range(S):
+        ws, wf = pvh.voxel_map_lookup_slots(single[s], pvh._voxel_coords(q[s], 0.5))
+        assert torch.equal(slots[s], ws) and torch.equal(found[s], wf)
 
 
 def test_batched_map_matches_vmapped_jax():
