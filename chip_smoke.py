@@ -267,7 +267,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              phase 4c's figure-eight against the single-device solves
              (1e-4), each pair timed in turns; the all-reduce and all-gather
              alone at the path's payloads; dryrun_multichip(1) in a spawned
-             rank.
+             rank (its stages 3, 3b and 3c too: the sharded map, the ring
+             normal equations, the 16-frame blocked distributed run).
+16. distributed — `run_scan_to_map_distributed` over the s2m cell (256 x
+             2048, capacity 2^18, submap 2^14, block 8, cv-rot, JAX's
+             draws) under NCCL at world size 1: scans/s in turns with
+             run_scan_to_map_blocked, K4's and K5's launch counts over one
+             run (each its GN iterations), the ATE against the JAX CPU run
+             of scripts/port_distributed_reference.py (+- 0.01 m); the
+             sharded map against voxel_map_insert of the recorded batches
+             (content), the distributed rehash against voxel_map_rehash
+             (tables), one ring pass against vgicp_iteration (1e-4 of the
+             largest entry), a save/load round trip; a profiled window (24
+             frames); the CLI's --distributed 1 --device cuda on 16
+             frames; at most 60 s.
 12. ab     — only with `--parent DIR` (a `git archive` of the parent commit
              unpacked at DIR): the K2, K3, K5 and K4 calls of both trees at the
              path shapes (K3 also per call), each tree in its own process,
@@ -284,7 +297,7 @@ with phase 4c's `pose_graph_launches` and phase 13's `bag_launches`; K2's
 and the packing's with phase 14's `batch_launches`,
 `single_stream_launches`, `batch_ms`, `batch_plain_ms` and
 `batch_bound_ms`, K2's also `batch_device_ms`, `batch_separate_ms` and
-`batch_max_abs_err`), the
+`batch_max_abs_err`; K4's and K5's with phase 16's `distributed_launches`), the
 next one the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2633,8 +2646,12 @@ def profile_run(torch, name, n_walls, fn, expect=None, ranges=()):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    # the host ops are recorded only where a range must be found among them:
+    # summing their events costs the profiler ~0.1 ms each (a minute for a
+    # run of ~100,000 launches), and the device's activity alone gives the
+    # kernels' time and count
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+    with profile(activities=acts, record_shapes=bool(ranges)) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3307,8 +3324,252 @@ def phase_parallel(torch, seq, scans, batch, card):
     res = dryrun_multichip(1)
     log(f"[parallel] dryrun_multichip(1): a spawned NCCL rank, {time.perf_counter() - t0:.2f} s "
         f"with its start-up; cost {float(res['cost']):.4f}, block poses finite "
-        f"{bool(np.isfinite(res['block_poses']).all())}")
+        f"{bool(np.isfinite(res['block_poses']).all())}; stage 3 sector rows "
+        f"{int(res['sub_n'])}, stage 3b ring wsum {float(res['ring'][3]):.1f}, stage 3c "
+        f"{res['pipeline']['world_T'].shape[0]} frames, poses finite "
+        f"{bool(np.isfinite(res['pipeline']['world_T']).all())}, map voxels "
+        f"{res['pipeline_voxels']}")
     log(f"[parallel] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+# phase 16 (distributed): the s2m cell through the map-sharded pipeline at
+# NCCL world size 1; its ATE against the JAX package's CPU run of the same
+# call on a 1-device mesh (scripts/port_distributed_reference.py), within
+# phase 5's band (0.04153 m, 11.53 GN iterations a frame, 3,865 voxels)
+DIST_ATE_JAX = 0.04153
+DIST_ATE_BAND = 0.01
+DIST_BUDGET_S = 60.0
+DIST_RING_RTOL = 1e-4
+DIST_CLI_FRAMES = 16
+DIST_PROFILE_FRAMES = 24
+
+
+def phase_distributed(torch, seq, scans, card):
+    """Phase 16: `run_scan_to_map_distributed` over the s2m cell (256 x
+    2048, capacity 2^18, submap 2^14, block 8, cv-rot, JAX's draws) under
+    NCCL at world size 1 (a FileStore in a temp dir): a warm-up run of its
+    first 24 frames, then runs in turns with `run_scan_to_map_blocked`
+    (single-device, distributed, single-device), K4's and K5's counts set
+    to 0 just before the distributed run of the turns and read just after
+    (both > 0, each the run's GN iterations: one ring step a GN iteration
+    at world 1), its ATE against DIST_ATE_JAX; the layers
+    against their single-device counterparts (the final sharded map
+    against `voxel_map_insert` of the recorded batches, content equal; the
+    distributed rehash of the map with tombstones against
+    `voxel_map_rehash`, tables equal; one ring normal-equation pass against
+    `vgicp_iteration` on the gathered submap; a save/load round trip); a
+    profiled window of the run (its first 24 frames); then the CLI's
+    `--distributed 1 --device cuda` in a process of its own. Returns K4's
+    and K5's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.geom.so3 import matrix_to_rpy
+    from icp4dradar_tpu_torch.mapping import voxel_map_create, voxel_map_insert
+    from icp4dradar_tpu_torch.mapping.voxel_hash import voxel_map_rehash
+    from icp4dradar_tpu_torch.models import scan_to_map
+    from icp4dradar_tpu_torch.ops import vgicp_fused
+    from icp4dradar_tpu_torch.parallel import (
+        load_distributed_state,
+        make_mesh,
+        ring_vgicp_normal_equations,
+        run_scan_to_map_distributed,
+        save_distributed_state,
+        sharded_map_rehash,
+    )
+    from icp4dradar_tpu_torch.parallel import distributed_pipeline as dpipe
+    from icp4dradar_tpu_torch.parallel.sharded_map import forget_far, shard_local_sector_stats
+    from icp4dradar_tpu_torch.utils import ate_rmse
+
+    t_phase = time.perf_counter()
+    F, B = S2M_FRAMES, S2M_BLOCK
+    s2m = scans[:F]
+    cfg = PipelineConfig()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+
+        def run(frames=F):
+            out = run_scan_to_map_distributed(s2m[:frames], mesh, cfg, block=B,
+                                              use_const_velocity_rot=True)
+            torch.cuda.synchronize()
+            return out
+
+        def single():
+            out = scan_to_map.run_scan_to_map_blocked(s2m, cfg, block=B,
+                                                      use_const_velocity_rot=True)
+            torch.cuda.synchronize()
+            return out
+
+        def timed(fn):
+            t1 = time.perf_counter()
+            res = fn()
+            return res, time.perf_counter() - t1
+
+        # warm-up: the warm-up frames and two blocks (the communicator's
+        # first collective, every kernel and op of the path)
+        _, warm = timed(lambda: run(DIST_PROFILE_FRAMES))
+        _, s_a = timed(single)
+        # the distributed run of the turns is the counted one; it records
+        # every batch it inserts (a list append a batch)
+        batches = []
+        insert = dpipe.shard_local_insert
+        dpipe.shard_local_insert = lambda sm, *a: (batches.append(a), insert(sm, *a))[1]
+        vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+        vgicp_fused.VGICP_FROZEN_LAUNCHES = 0
+        try:
+            (smap, out), d_a = timed(run)
+        finally:
+            dpipe.shard_local_insert = insert
+        k4, k5 = vgicp_fused.VGICP_SWEEP_LAUNCHES, vgicp_fused.VGICP_FROZEN_LAUNCHES
+        _, s_b = timed(single)
+        t_turns = warm + s_a + d_a + s_b
+        its = out["iterations"].cpu().numpy()
+        log(f"[distributed] {F} frames x {s2m.xyz.shape[1]} points, block {B}, cv-rot, NCCL "
+            f"world 1 (the map sharded over 1 rank, the ring one step): warm-up "
+            f"({DIST_PROFILE_FRAMES} frames) {warm:.2f} s; "
+            f"in turns run_scan_to_map_blocked {F / s_a:.1f} scans/s, distributed "
+            f"{F / d_a:.1f} scans/s, run_scan_to_map_blocked {F / s_b:.1f} scans/s; {card}")
+        log(f"[distributed] launches over the distributed run of the turns: vgicp_sweep "
+            f"{k4}, vgicp_frozen {k5}; GN iterations {int(its.sum())} ({its.mean():.2f} a "
+            f"frame, warm-up {its[:B].mean():.2f}, blocks {its[B:].mean():.2f})")
+        if not (k4 > 0 and k5 > 0 and k4 == k5 == int(its.sum())):
+            raise RuntimeError(f"[distributed] K4 {k4} / K5 {k5} launches, "
+                               f"{int(its.sum())} GN iterations")
+        for name, x in out.items():
+            if x.shape[0] != F or not bool(torch.isfinite(x.float()).all()):
+                raise RuntimeError(f"[distributed] {name}: shape {tuple(x.shape)} or non-finite")
+        poses = out["world_T"].cpu().numpy()
+        ate = ate_rmse(poses[:, :3, 3], seq.poses[:F, :3, 3], align=False)
+        lost = int((out["fitness"] >= LOST_FITNESS).sum())
+        sub = out["submap_points"].cpu().numpy()
+        log(f"[distributed] ATE (align=False) {ate:.5f} m against the JAX CPU run's "
+            f"{DIST_ATE_JAX} (band {DIST_ATE_BAND}); lost frames {lost}; submap rows "
+            f"{int(sub[1:].min())}-{int(sub.max())} (mean {sub.mean():.1f}); map voxels "
+            f"{int(smap.num_voxels)}")
+        if lost or not abs(ate - DIST_ATE_JAX) <= DIST_ATE_BAND:
+            raise RuntimeError(f"[distributed] ATE {ate:.5f} m, {lost} lost frames")
+
+        # ---- the layers against their single-device counterparts ----
+        t_layers = time.perf_counter()
+        ref = voxel_map_create(cfg.voxel_map.capacity, device="cuda")
+        for xyz, mask, inten in batches:
+            ref = voxel_map_insert(ref, xyz, mask, inten)
+        table = smap.gather()
+
+        def content(m):
+            occ = m.occupied.cpu().numpy() > 0.5
+            return dict(zip(map(tuple, m.keys.cpu().numpy()[occ]),
+                            zip(map(tuple, np.round(m.points.cpu().numpy()[occ], 5)),
+                                m.stat_n.cpu().numpy()[occ])))
+
+        same_map = content(table) == content(ref)
+        forgotten = forget_far(smap, out["world_T"][-1, :3, 3], 40.0)
+        tombs = int(((forgotten.local.keys[:, 0] != 0x7FFFFFFF)
+                     & (forgotten.local.occupied <= 0.5)).sum())
+        rehashed = sharded_map_rehash(forgotten, mesh).gather()
+        single_rehash = voxel_map_rehash(forgotten.gather())
+        same_rehash = all(torch.equal(a, b) for a, b in zip(rehashed.tables(),
+                                                           single_rehash.tables()))
+        pose = out["world_T"][-1]
+        center = pose[:3, 3]
+        heading = matrix_to_rpy(pose[:3, :3])[2]
+        _, tmask, cnt, tm, tc = shard_local_sector_stats(
+            smap, center, cfg.voxel_map.sector_radius, heading,
+            cfg.voxel_map.sector_half_angle_deg, cfg.voxel_map.submap_max_points)
+        T = pose.clone()
+        T[:3, 3] = 0.0
+        last = s2m[F - 1]
+        scov = vgicp_fused.radar_point_covariances_packed(last.xyz)
+        ring = ring_vgicp_normal_equations(T, last.xyz, last.mask, scov, tm - center, tc, tmask,
+                                           mesh)
+        plain = vgicp_fused.vgicp_iteration(T, last.xyz, last.mask, scov, tm - center, tc, tmask)
+        ring_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(ring[:3], plain[:3]))
+        path = os.path.join(tmp, "state")
+        save_distributed_state(path, smap, pose, frame=F)
+        loaded, lpose, lframe = load_distributed_state(path, mesh)
+        same_ckpt = (all(torch.equal(a, b) for a, b in zip(loaded.gather().tables(),
+                                                            table.tables()))
+                     and torch.equal(lpose, pose) and lframe == F)
+        log(f"[distributed] layers against single-device: the final sharded map against "
+            f"voxel_map_insert of its {len(batches)} recorded batches, content equal "
+            f"{same_map}; forget at 40 m ({tombs} tombstones) then the distributed rehash "
+            f"against voxel_map_rehash, tables equal {same_rehash}; one ring pass (K4 with "
+            f"return_best, K5) against vgicp_iteration on the final pose's submap "
+            f"({int(cnt)} live rows): largest difference {ring_err:.3e} of the largest entry "
+            f"(H, g, cost; tolerance {DIST_RING_RTOL}), wsum {float(ring[3]):.1f} against "
+            f"{float(plain[3]):.1f}; save/load round trip equal {same_ckpt}; "
+            f"{time.perf_counter() - t_layers:.1f} s")
+        if not (same_map and same_rehash and same_ckpt and ring_err <= DIST_RING_RTOL
+                and float(ring[3]) == float(plain[3]) and tombs > 0):
+            raise RuntimeError("[distributed] a layer differs from its single-device "
+                               "counterpart")
+        t_layers = time.perf_counter() - t_layers
+        # a profiled window of the run (the warm-up frames and two blocks),
+        # the device's activity alone, read from the trace's raw events:
+        # building the profiler's per-event records for key_averages costs
+        # seconds at ~27,000 launches
+        from torch.profiler import ProfilerActivity, profile
+
+        t_prof = time.perf_counter()
+        _, wall = timed(lambda: run(DIST_PROFILE_FRAMES))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(DIST_PROFILE_FRAMES)
+        t_read = time.perf_counter()
+        kern = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                n, ns = kern.get(e.name(), (0, 0))
+                kern[e.name()] = (n + 1, ns + e.duration_ns())
+        busy = sum(ns for _, ns in kern.values()) / 1e6
+        launches = sum(n for n, _ in kern.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:4]
+        t_read = time.perf_counter() - t_read
+        t_prof = time.perf_counter() - t_prof
+        log(f"[distributed] profiled window, the first {DIST_PROFILE_FRAMES} frames: run "
+            f"{wall * 1e3:.2f} ms unprofiled, device kernel time {busy:.2f} ms in {launches} "
+            f"kernel launches ({launches / DIST_PROFILE_FRAMES:.0f} a frame), idle share "
+            f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}; top: " + "; ".join(
+                f"{ns / 1e6:.3f} ms x{n} {kernel_name(name)}" for name, (n, ns) in top)
+            + f"; {t_prof:.1f} s, {t_read:.2f} s of it reading the trace")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- the CLI: --distributed 1 --device cuda, a rank of its own ----
+    out_dir = os.path.join(tmp, "cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "icp4dradar_tpu_torch.models.run_odometry", "--mode",
+         "scan_to_map", "--synthetic", str(DIST_CLI_FRAMES), "--map-interval", str(B),
+         "--cv-rot", "--viz", "--distributed", "1", "--device", "cuda", "--out", out_dir],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"[distributed] the CLI exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    files = sorted(os.listdir(out_dir))
+    t_cli = time.perf_counter() - t0
+    log(f"[distributed] CLI --distributed 1 --device cuda, {DIST_CLI_FRAMES} frames: "
+        f"{t_cli:.2f} s with its process and rank start-up; record "
+        f"{json.dumps(rec)}; files {files}")
+    want = ["map.ply", "metrics.jsonl", "odom_tum.txt", "pcl_info.txt", "radar_odometry.txt",
+            "velocity.txt", "viewer.html"]
+    if files != want or rec["frames"] != DIST_CLI_FRAMES or rec["device"] != "cuda":
+        raise RuntimeError("[distributed] the CLI's files or record differ")
+    shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[distributed] phase seconds {secs:.1f} (budget {DIST_BUDGET_S} s): warm-up and "
+        f"turns {t_turns:.1f}, layers {t_layers:.1f}, profiled window {t_prof:.1f}, CLI "
+        f"{t_cli:.1f}")
+    if secs > DIST_BUDGET_S:
+        FAILED.append(f"[distributed] the phase took {secs:.1f} s, over its {DIST_BUDGET_S} s")
+    return {"k4": k4, "k5": k5, "launches": launches}
 
 
 def ab_child(tree):
@@ -3510,25 +3771,45 @@ def main(argv) -> int:
     log(f"[data] bench sequence {BENCH_FRAMES} x {BENCH_POINTS} in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    t_start = time.perf_counter()
+
+    def mark(name):
+        """The smoke's seconds so far, after each phase (where a trim pays)."""
+        log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
+
     icp = phase_kernel(torch, scans)
+    mark("kernel")
     icp_launches, scans_per_s, ate, s2s_out = phase_slice(torch, seq, scans)
     local_map = phase_local_map(torch, scans, s2s_out.world_T.cpu().numpy())
+    mark("slice, local map")
     vg_launches, state, out, s2m, s2m_rate = phase_s2m(torch, seq, scans)
+    mark("s2m")
     pg_k1, pg_k4 = phase_pose_graph(torch, card)     # 4c, after 5: the s2m path is warm
+    mark("pose graph")
     phase_map_api(torch, state)
     session = phase_session(torch, seq, scans, card)
+    mark("map API, session")
     batch = phase_batch(torch, seq, scans, s2m_rate)
+    mark("batch")
     vg, sweep_ops = phase_vgicp(torch, state, out, s2m)
     vg_streams = phase_vgicp_streams(torch, batch)
+    mark("vgicp")
     (nn_launches, pack_launches), state, out, track = phase_gicp(torch, seq, scans)
+    mark("gicp")
     nn, coords_launches, coords, pack, search_ops = phase_knn(torch, state, out, track)
     frozen_launches, state, out, track = phase_inner(torch, seq, scans)
     frozen, frozen_ops = phase_frozen(torch, state, out, track)
+    mark("knn, inner, frozen")
     phase_profile(torch, scans, s2m, track, batch)
     phase_syncs(torch, sweep_ops, frozen_ops, search_ops)
+    mark("profile, syncs")
     host_k4, host_k1 = phase_host(torch, scans, s2s_out)
     knn_batch, pack_batch = phase_knn_batch(torch, seq, scans)
+    mark("host, knn batch")
     phase_parallel(torch, seq, scans, batch, card)
+    mark("parallel")
+    dist16 = phase_distributed(torch, seq, scans, card)
+    mark("distributed")
     if parent is not None:
         phase_ab(parent)
     if FAILED:
@@ -3541,7 +3822,8 @@ def main(argv) -> int:
         {"name": "vgicp_sweep", "route": "cuda", "source": VGICP_SOURCE,
          "replaces": VGICP_REPLACES, "launches": vg_launches, **vg,
          "batch_launches": batch["launches"], **vg_streams,
-         "session_launches": session["session_launches"], **pg_k4, **host_k4},
+         "session_launches": session["session_launches"], **pg_k4, **host_k4,
+         "distributed_launches": dist16["k4"]},
         {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_REPLACES, "launches": nn_launches, **nn, **knn_batch},
         {"name": "nn_pack", "route": "cuda", "source": NN_SOURCE,
@@ -3549,7 +3831,8 @@ def main(argv) -> int:
         {"name": "nn_coords", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_COORDS_REPLACES, "launches": coords_launches, **coords},
         {"name": "vgicp_frozen", "route": "cuda", "source": VGICP_SOURCE,
-         "replaces": FROZEN_REPLACES, "launches": frozen_launches, **frozen},
+         "replaces": FROZEN_REPLACES, "launches": frozen_launches, **frozen,
+         "distributed_launches": dist16["k5"]},
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

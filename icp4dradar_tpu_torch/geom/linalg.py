@@ -5,15 +5,31 @@ one Gauss-Newton step (closed form for VGICP, Cholesky for kNN GICP), the
 3x3 symmetric eigenvalues behind REVE's `max_r_cond` gate
 (src/radar_odometry.cpp:598) and the extreme eigenvectors behind GICP's
 plane-regularised covariances; the float32 fused multiply-add and square
-root, each rounded once, on any device; and small products and a sum whose
+root, each rounded once, on any device; small products and a sum whose
 rounding does not depend on the batch (`small_matmul`, `small_matvec`,
-`pairwise_sum`)."""
+`pairwise_sum`); and the broadcast of shapes (`broadcast_shape`)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def broadcast_shape(*shapes) -> torch.Size:
+    """The shape that `shapes` broadcast to, by `torch.broadcast_shapes`'
+    rule. torch's own goes through `torch._refs`, whose first call in a
+    process imports sympy (hundreds of modules, seconds where no
+    bytecode is cached); this is plain Python."""
+    ndim = max((len(s) for s in shapes), default=0)
+    out = [1] * ndim
+    for s in shapes:
+        for i, d in enumerate(s, ndim - len(s)):
+            if d != 1:
+                if out[i] not in (1, d):
+                    raise RuntimeError(f"shapes {shapes} do not broadcast")
+                out[i] = d
+    return torch.Size(out)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from icp4dradar_tpu_torch.geom.linalg import small_matmul
+from icp4dradar_tpu_torch.geom.linalg import broadcast_shape, small_matmul
 from icp4dradar_tpu_torch.geom.so3 import _eye3_like, so3_exp, so3_hat, so3_log
 
 
@@ -20,7 +20,7 @@ def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
 
 def se3_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(...,3,3),(...,3) -> (...,4,4)."""
-    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    batch = broadcast_shape(R.shape[:-2], t.shape[:-1])
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)

@@ -13,6 +13,8 @@ outputs (PyTorch port of `icp4dradar_tpu/models/run_odometry.py`).
         --dataset seq --replay /tmp/radar/output_result.csv --out /tmp/replay
     python -m icp4dradar_tpu_torch.models.run_odometry --mode pose_graph \
         --front-end scan_to_map --structure-factors --synthetic 128 --out /tmp/radar
+    python -m icp4dradar_tpu_torch.models.run_odometry --mode scan_to_map \
+        --synthetic 256 --map-interval 8 --cv-rot --distributed 2 --out /tmp/radar
 
 Inputs: `--dataset DIR` reads `DIR/data/radar_pointcloud_<k>.bin` (through
 the native prefetching loader) or `DIR/pcd/%05d.pcd` (`--dataset-format`,
@@ -39,9 +41,16 @@ second time and adds steady_s, steady_scans_per_sec and compile_overhead_s
 The last stdout line is one JSON record with the mode, the device, frames,
 elapsed seconds, scans/s and, where ground truth exists, the ATE.
 
+`--distributed N` (scan_to_map only) runs the distributed pipeline
+(`parallel/distributed_pipeline.py`: the map sharded over N ranks, ring
+VGICP) on N spawned ranks, NCCL under `--device cuda` (one card a rank;
+fewer than N cards is a usage error) and gloo under `--device cpu`; it
+honours --imu-prior, --map-interval and --cv-rot, and writes
+velocity.txt, radar_odometry.txt and, with --viz, map.ply of the gathered
+map, from rank 0's results.
+
 `--device cuda` (the default) needs a CUDA device and never falls back to
 the CPU; `--device cpu` runs the plain PyTorch versions of the kernels.
-`--distributed` is not ported (ROADMAP queue 1 item 6) and is refused.
 """
 
 from __future__ import annotations
@@ -154,13 +163,14 @@ def main(argv=None) -> int:
                    help="run the pipeline a second time and report its scans/s "
                         "apart from the first run's (kernel load, CUDA warm-up)")
     p.add_argument("--distributed", type=int, default=0, metavar="N",
-                   help="not ported (ROADMAP queue 1 item 6); refused")
+                   help="scan_to_map: run the end-to-end pipeline with the map "
+                        "sharded over N ranks (parallel/distributed_pipeline.py); "
+                        "honours --imu-prior, --map-interval and --cv-rot")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
 
-    if args.distributed:
-        p.error("--distributed is not ported yet: the multi-device layer is "
-                "ROADMAP queue 1 item 6")
+    if args.distributed and args.mode != "scan_to_map":
+        p.error("--distributed requires --mode scan_to_map")
     if not args.dataset and not args.synthetic and not args.bag:
         p.error("provide --dataset, --bag, or --synthetic F")
     if args.replay and args.mode != "scan_to_scan":
@@ -171,6 +181,10 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: torch.cuda.is_available() is False "
                 "(pass --device cpu to run on the CPU)")
+    if args.distributed and args.device == "cuda" and \
+            torch.cuda.device_count() < args.distributed:
+        p.error(f"--distributed {args.distributed} --device cuda needs {args.distributed} "
+                f"CUDA devices (one a rank), this machine has {torch.cuda.device_count()}")
     device = torch.device(args.device)
 
     from icp4dradar_tpu_torch.config import PipelineConfig
@@ -190,10 +204,13 @@ def main(argv=None) -> int:
         cfg = cfg.override(**overrides)
     cfg = cfg.override(**{"max_points": args.max_points, "seed": args.seed})
 
-    scans, gt_poses, prior_deltas = build_scans(args, device)
+    # under --distributed the ranks place the scans on their own devices:
+    # this process stays off the cards (no CUDA context beside rank 0's)
+    host = torch.device("cpu") if args.distributed else device
+    scans, gt_poses, prior_deltas = build_scans(args, host)
     F = scans.xyz.shape[0]
     if prior_deltas is not None:
-        prior_deltas = torch.from_numpy(prior_deltas).to(device)
+        prior_deltas = torch.from_numpy(prior_deltas).to(host)
     replay = None
     if args.replay:
         from icp4dradar_tpu_torch.utils import read_result_csv
@@ -204,8 +221,8 @@ def main(argv=None) -> int:
         replay = (T_rec, scores)
     os.makedirs(args.out, exist_ok=True)
     with MetricsLogger(os.path.join(args.out, "metrics.jsonl")) as log:
-        poses, elapsed, state, rerun = run_mode(args, cfg, scans, log, prior_deltas,
-                                                replay)
+        poses, elapsed, state, steady_run = run_mode(args, cfg, scans, log, prior_deltas,
+                                                     replay)
         if args.local_map:
             from icp4dradar_tpu_torch.models.local_map import local_map_refinement
 
@@ -222,11 +239,7 @@ def main(argv=None) -> int:
         if args.steady_state:
             # the first run paid the kernel build/load and CUDA warm-up; a
             # second pass is the rate a long-running process sustains
-            _sync(device)
-            t1 = time.perf_counter()
-            rerun()
-            _sync(device)
-            steady = time.perf_counter() - t1
+            steady = steady_run()
             rec["steady_s"] = round(steady, 3)
             rec["steady_scans_per_sec"] = round(F / steady, 2)
             rec["compile_overhead_s"] = round(elapsed - steady, 3)
@@ -240,6 +253,73 @@ def main(argv=None) -> int:
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _timed(run, device):
+    """(run(), its seconds), the device synchronized before and after."""
+    _sync(device)
+    t0 = time.perf_counter()
+    res = run()
+    _sync(device)
+    return res, time.perf_counter() - t0
+
+
+def _distributed_rank(inp: dict) -> dict:
+    """One rank of `--distributed`: the distributed pipeline over the CLI's
+    scans (numpy in, numpy out), timed on the rank's device, `runs` times;
+    rank 0's gathered map comes back for --viz."""
+    import torch.distributed as dist
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.interop import scans_from_numpy
+    from icp4dradar_tpu_torch.parallel import make_mesh, run_scan_to_map_distributed
+    from icp4dradar_tpu_torch.parallel.mesh import mesh_device
+
+    mesh = make_mesh(device_type=inp["device"])
+    dev = mesh_device(mesh)
+    scans = scans_from_numpy(inp["scans"], device=dev)
+    cfg = PipelineConfig.from_dict(inp["cfg"])
+    priors = None if inp["priors"] is None else torch.from_numpy(inp["priors"]).to(dev)
+    secs = []
+    for _ in range(inp["runs"]):
+        (vm, outs), s = _timed(lambda: run_scan_to_map_distributed(
+            scans, mesh, cfg, block=inp["block"], use_doppler_prior=inp["doppler"],
+            use_const_velocity_rot=inp["cv_rot"], priors=priors), dev)
+        secs.append(s)
+    table = vm.gather() if inp["viz"] else None
+    if dist.get_rank() != 0:
+        return {}
+    return {"outs": {k: v.cpu().numpy() for k, v in outs.items()}, "secs": secs,
+            "map": None if table is None else {k: getattr(table, k).cpu().numpy()
+                                               for k in ("points", "intensity", "occupied")}}
+
+
+def _run_distributed(args, cfg, scans, prior_deltas):
+    """`--distributed N`: the pipeline on N spawned ranks (NCCL on the
+    cards, gloo on the CPU); rank 0's outputs are written here."""
+    from types import SimpleNamespace
+
+    from icp4dradar_tpu_torch.interop import SCAN_FIELDS
+    from icp4dradar_tpu_torch.parallel.dryrun import run_on_ranks
+    from icp4dradar_tpu_torch.utils import export_map_ply, write_rt_txt, write_velocity_txt
+
+    runs = 2 if args.steady_state else 1
+    inp = {"scans": {k: getattr(scans, k).cpu().numpy() for k in SCAN_FIELDS},
+           "cfg": cfg.to_dict(), "device": args.device, "block": args.map_interval,
+           "doppler": not args.static_only or args.doppler_prior, "cv_rot": args.cv_rot,
+           "priors": None if prior_deltas is None else prior_deltas.cpu().numpy(),
+           "runs": runs, "viz": args.viz}
+    res = run_on_ranks(_distributed_rank, args.distributed, inp,
+                       backend="nccl" if args.device == "cuda" else "gloo")[0]
+    outs = res["outs"]
+    poses = outs["world_T"]
+    write_velocity_txt(os.path.join(args.out, "velocity.txt"), outs["velocity"])
+    write_rt_txt(os.path.join(args.out, "radar_odometry.txt"), poses)
+    if args.viz:
+        m = {k: torch.from_numpy(v) for k, v in res["map"].items()}
+        n_vox = export_map_ply(os.path.join(args.out, "map.ply"), SimpleNamespace(**m))
+        print(f"map.ply: {n_vox} voxels", flush=True)
+    return poses, res["secs"][0], None, lambda: res["secs"][-1]
 
 
 def write_viz(args, poses, gt_poses, state):
@@ -263,8 +343,8 @@ def run_mode(args, cfg, scans, log, prior_deltas=None, replay=None):
     """Runs `args.mode` over the scans and writes the mode's own output
     files (and, for pose_graph, its metrics record) -> (world poses
     (F, 4, 4) numpy, seconds of the run, the scan_to_map state or None, a
-    function that runs the pipeline again). `replay`: (transforms,
-    scores) of a recorded output_result.csv."""
+    function that returns the seconds of a second run). `replay`:
+    (transforms, scores) of a recorded output_result.csv."""
     from icp4dradar_tpu_torch.models.scan_to_map import (
         run_scan_to_map, run_scan_to_map_blocked,
     )
@@ -273,6 +353,8 @@ def run_mode(args, cfg, scans, log, prior_deltas=None, replay=None):
     )
     from icp4dradar_tpu_torch.utils import write_result_csv, write_rt_txt, write_velocity_txt
 
+    if args.distributed:
+        return _run_distributed(args, cfg, scans, prior_deltas)
     if args.mode == "pose_graph":
         from icp4dradar_tpu_torch.models.pose_graph_odometry import run_pose_graph_odometry
 
@@ -301,18 +383,18 @@ def run_mode(args, cfg, scans, log, prior_deltas=None, replay=None):
                                        prior_deltas=prior_deltas,
                                        use_const_velocity_rot=args.cv_rot)
 
-    _sync(scans.device)
-    t0 = time.perf_counter()
-    res = run()
-    _sync(scans.device)
-    elapsed = time.perf_counter() - t0
+    res, elapsed = _timed(run, scans.device)
+
+    def steady_run():
+        return _timed(run, scans.device)[1]
+
     state = None
     if args.mode == "pose_graph":
         write_rt_txt(os.path.join(args.out, "radar_odometry.txt"), res.poses)
         write_rt_txt(os.path.join(args.out, "odometry_raw.txt"), res.odom_poses)
         log.log("pose_graph", loop_closures=res.num_loop_closures,
                 keyframes=int(len(res.keyframe_indices)), cost=res.cost)
-        return res.poses, elapsed, state, run
+        return res.poses, elapsed, state, steady_run
     if args.mode == "scan_to_scan":
         outs = res
         write_rt_txt(os.path.join(args.out, "icp.txt"), outs.icp_transform.cpu().numpy())
@@ -325,7 +407,7 @@ def run_mode(args, cfg, scans, log, prior_deltas=None, replay=None):
         state, outs = res
         write_rt_txt(os.path.join(args.out, "radar_odometry.txt"), outs.world_T.cpu().numpy())
     write_velocity_txt(os.path.join(args.out, "velocity.txt"), outs.velocity.cpu().numpy())
-    return outs.world_T.cpu().numpy(), elapsed, state, run
+    return outs.world_T.cpu().numpy(), elapsed, state, steady_run
 
 
 if __name__ == "__main__":

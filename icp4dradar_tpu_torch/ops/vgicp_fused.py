@@ -47,6 +47,12 @@ by the sector query's compaction); tile 0 is always swept.
   wsum, d2sum) and returns views of it, or `vgicp_iteration_frozen_plain`
   on CPU tensors, which sums in float64 and lays out the same rows.
 
+The ring VGICP (`parallel/ring_vgicp.py`) sweeps one scan slice against
+every visiting shard: `vgicp_pack_targets` packs a shard once, the sweep
+returns its payload with `return_best`, `merge_best_rows` keeps the running
+best (strictly smaller d2; JAX's rule at ties across shards), and one frozen
+step reads the merged payload in the same blocked layout.
+
 The band-gate tile skip of the Pallas kernel (`:137-144`) is not ported: a
 tile it skips holds no voxel within the correspondence gate, so it changes
 no accumulator; `gate_axis` is accepted and only checked for shape.
@@ -61,7 +67,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from icp4dradar_tpu_torch.geom.linalg import pairwise_sum
+from icp4dradar_tpu_torch.geom.linalg import broadcast_shape, pairwise_sum
 from icp4dradar_tpu_torch.ops import _build
 
 _BIG = 1e30
@@ -170,7 +176,7 @@ def _gn_accumulators(R, p, w_src, ca, best_pay, gate_d2, gate: float,
     cost = _sum3([r_[k] * Mr[k] for k in range(3)])
     vals = [H[a][c] for a in range(6) for c in range(a, 6)] + g + [cost]
     terms = [w * v for v in vals] + [w, w * gate_d2]
-    shape = torch.broadcast_shapes(*(t.shape for t in terms))
+    shape = broadcast_shape(*(t.shape for t in terms))
     return torch.stack([t.expand(shape) for t in terms], dim=-1)
 
 
@@ -384,6 +390,26 @@ def vgicp_prepare(
                    streams=S)
 
 
+def vgicp_pack_targets(
+    tgt_mean: torch.Tensor,
+    tgt_cov6: torch.Tensor,
+    tgt_mask: torch.Tensor,
+    tgt_count: Optional[torch.Tensor] = None,
+) -> dict:
+    """One target set (P,3) / (P,6) / (P,) packed as `vgicp_prepare` packs
+    it, as the target fields of `VgicpOperands`: `dataclasses.replace(ops,
+    **targets)` sweeps it from any prepared sources (the ring's sweeps of
+    one scan slice against each visiting shard pack neither side twice)."""
+    _check_devices("vgicp_pack_targets", (tgt_mean, tgt_cov6, tgt_mask) + tuple(
+        x for x in (tgt_count,) if torch.is_tensor(x)))
+    if tgt_mean.dim() != 2:
+        raise ValueError(f"vgicp_pack_targets takes one target set, got "
+                         f"{tuple(tgt_mean.shape)}")
+    tgt, cov, tile_live, count, tm, S = _pack_targets(tgt_mean, tgt_cov6, tgt_mask, tgt_count,
+                                                      tgt_mean.device)
+    return dict(tgt=tgt, tgt_cov=cov, tile_live=tile_live, count=count, tm=tm, streams=S)
+
+
 def _frames_T(T, ops, groups):
     """T (4,4) or (frames,4,4) -> (frames,4,4) float32, contiguous."""
     Tk = T[None] if T.dim() == 2 else T
@@ -551,6 +577,16 @@ def best_payload_to_rows(best: torch.Tensor, n: int) -> torch.Tensor:
     (n, 10) rows [d2, q0..2, cb0..5]; row i is source point i."""
     ns, _, ts = best.shape
     return best.transpose(1, 2).reshape(ns * ts, 10)[:n]
+
+
+def merge_best_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Running-best merge of two matched payloads by distance, the ring
+    step's combiner: (n, 10) rows, or the blocked (ns, 10, ts) `return_best`
+    layout (d2 is column 0 of the rows, row 0 of a block). b's entry
+    replaces a's only at a STRICTLY smaller d2: on equal d2 the earlier
+    shard's match stays (the JAX package's rule; K4 averages ties inside a
+    shard)."""
+    return torch.where(b[:, 0:1] < a[:, 0:1], b, a)
 
 
 def vgicp_iteration_frozen_plain(

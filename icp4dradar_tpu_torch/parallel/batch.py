@@ -14,11 +14,10 @@ number of ranks; a rank makes its draws in one call over its keys."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from icp4dradar_tpu_torch.config import PipelineConfig
@@ -28,7 +27,8 @@ from icp4dradar_tpu_torch.models.scan_to_map import (
     ScanToMapState,
     run_scan_to_map_batch,
 )
-from icp4dradar_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size, mesh_device
+from icp4dradar_tpu_torch.parallel.mesh import all_gather_rows as _all_gather_rows
+from icp4dradar_tpu_torch.parallel.mesh import axis_rank, axis_size, mesh_device
 from icp4dradar_tpu_torch.preprocess.reve import (
     EgoVelocityEstimate,
     estimate_ego_velocity,
@@ -46,27 +46,6 @@ def _share(total: int, mesh: DeviceMesh, axis: str) -> slice:
     per = total // n
     r = axis_rank(mesh, axis)
     return slice(r * per, (r + 1) * per)
-
-
-def _all_gather_rows(tensors: List[torch.Tensor], mesh: DeviceMesh,
-                     axis: str) -> List[torch.Tensor]:
-    """Every rank's rows of each tensor (same leading length L on every
-    rank), concatenated in rank order: one all-gather of the rows packed
-    as bytes."""
-    n = axis_size(mesh, axis)
-    L = tensors[0].shape[0]
-    parts = [t.contiguous().reshape(L, -1).view(torch.uint8) for t in tensors]
-    packed = torch.cat(parts, dim=1)
-    got = [torch.empty_like(packed) for _ in range(n)]
-    dist.all_gather(got, packed, group=axis_group(mesh, axis))
-    rows = torch.cat(got)
-    out, at = [], 0
-    for t, p in zip(tensors, parts):
-        w = p.shape[1]
-        out.append(rows[:, at:at + w].contiguous().view(t.dtype)
-                   .reshape((n * L,) + tuple(t.shape[1:])))
-        at += w
-    return out
 
 
 def _gather_dataclass(obj, mesh: DeviceMesh, axis: str):

@@ -22,7 +22,6 @@ import dataclasses
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from icp4dradar_tpu_torch.config import PoseGraphConfig
@@ -37,7 +36,9 @@ from icp4dradar_tpu_torch.graph.gauss_newton import (
     pose_graph_normal_equations,
     solve_pose_graph_step,
 )
-from icp4dradar_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from icp4dradar_tpu_torch.parallel.mesh import all_reduce_max as _all_reduce_max
+from icp4dradar_tpu_torch.parallel.mesh import all_reduce_sum as _all_reduce_sum
+from icp4dradar_tpu_torch.parallel.mesh import axis_rank, axis_size
 
 # factor-family slots on PoseGraph that shard row-wise, with finite filler
 # payloads for the masked pad rows (a 0/0 in a padded row would poison the
@@ -90,24 +91,6 @@ def _shard(fac, mesh: DeviceMesh, axis: str):
 def _local_graph(graph: PoseGraph, mesh: DeviceMesh, axis: str) -> PoseGraph:
     return graph.replace(**{name: _shard(getattr(graph, name), mesh, axis)
                             for name in _FACTOR_FIELDS})
-
-
-def _all_reduce_sum(tensors, mesh: DeviceMesh, axis: str):
-    """The tensors summed over the ranks: one all-reduce of their values
-    packed into one flat buffer."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=axis_group(mesh, axis))
-    out, at = [], 0
-    for t in tensors:
-        out.append(flat[at:at + t.numel()].reshape(t.shape))
-        at += t.numel()
-    return out
-
-
-def _all_reduce_max(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
-    x = x.clone()
-    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=axis_group(mesh, axis))
-    return x
 
 
 def distributed_normal_equations(

@@ -5,10 +5,13 @@ multi-device step over a real process group (`dryrun_multichip`).
 `dryrun_multichip(n)` spawns n ranks (NCCL on the card, gloo with
 `device="cpu"`), each initialised through a `FileStore` in a fresh temp
 directory (no network), and runs the JAX dry run's stages 1, 2, 4 and 4b
-on tiny shapes: dp REVE, dp pairwise ICP, the distributed dense normal
-equations with one replicated solve, and the distributed block GN. Stages
-3, 3b and 3c (the sharded map, the ring VGICP and the distributed
-pipeline) come with `ROADMAP.md` queue 1 item 6b.
+on tiny shapes, at the JAX entry's: dp REVE (1), dp pairwise ICP (2), the
+sharded map's insert and sector query at capacity 2^12 (3), the ring
+VGICP normal equations on 256 n tiled targets (3b), the 16-frame blocked
+distributed scan-to-map run with forget on, at capacity 512 n and submap
+64 n (3c, the JAX entry's "main act"), the distributed dense normal
+equations with one replicated solve (4), and the distributed block GN
+(4b).
 
 `run_on_ranks(fn, n, *args)` is the launcher: it runs fn(*args) on n
 spawned ranks and returns each rank's result. fn must be importable by
@@ -111,13 +114,19 @@ def _dryrun_rank(device: str) -> dict:
     from icp4dradar_tpu_torch.graph import PoseGraph, RelPoseFactors, solve_pose_graph_step
     from icp4dradar_tpu_torch.io import SyntheticSequence
     from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.ops.vgicp_fused import radar_point_covariances_packed
     from icp4dradar_tpu_torch.parallel import (
         batched_icp_pairs,
         batched_preprocess,
         distributed_normal_equations,
         distributed_optimize_pose_graph_block,
         make_mesh,
+        ring_vgicp_normal_equations,
+        run_scan_to_map_distributed,
         shard_scan_batch,
+        sharded_map_create,
+        sharded_map_insert,
+        sharded_sector_search_with_stats,
     )
     from icp4dradar_tpu_torch.utils import threefry
 
@@ -138,12 +147,48 @@ def _dryrun_rank(device: str) -> dict:
     src = shard_scan_batch(stack_scans(scans[1:F + 1]), mesh)
     tgt = shard_scan_batch(stack_scans(scans[:F]), mesh)
     T_rel = batched_icp_pairs(src, tgt, mesh, cfg)
+    dev = T_rel.device
+
+    # 3) the sharded voxel map: per-rank slot ranges, the verdicts of each
+    #    probe round all-reduced, the sector query compacted per shard
+    sm = sharded_map_create(mesh, capacity=1 << 12, voxel_size=0.5)
+    s0, s1 = scans[0].to(dev), scans[1].to(dev)
+    sm = sharded_map_insert(sm, mesh, s0.xyz, s0.mask)
+    _, _, sub_n, _, _ = sharded_sector_search_with_stats(
+        sm, mesh, torch.zeros(3, device=dev), 80.0, torch.tensor(0.0, device=dev), 180.0, 1024)
+    assert int(sub_n) > 0, "sharded map sector query found nothing"
+
+    # 3b) the ring VGICP: target shards rotate over the ranks, running-best
+    #     merge, one frozen-payload pass, one all-reduce
+    M = 256 * n
+    tmean = s0.xyz[:256].repeat(n, 1)
+    tcov = torch.tensor([0.05, 0.05, 0.05, 0.0, 0.0, 0.0], device=dev).expand(M, 6)
+    Hr, gr, costr, wr, d2r = ring_vgicp_normal_equations(
+        torch.eye(4, device=dev), s1.xyz, s1.mask, radar_point_covariances_packed(s1.xyz),
+        tmean, tcov, torch.ones(M, device=dev), mesh)
+    assert bool(torch.isfinite(Hr).all()) and float(wr) > 0
+
+    # 3c) the end-to-end distributed scan-to-map pipeline: sharded insert,
+    #     shard-local sector query, ring VGICP GN, the gated pose chain, a
+    #     16-frame sequence in blocked mode (const-velocity rotation prior)
+    #     with forget and the distributed rehash on
+    dcfg = cfg.override(**{
+        "voxel_map.capacity": 512 * n, "voxel_map.submap_max_points": 64 * n,
+        "voxel_map.forget_radius": 100.0, "gicp.max_iterations": 4})
+    DF = 16
+    dseq = SyntheticSequence(num_frames=DF, max_points=256, num_landmarks=1500,
+                             world_extent=60.0, max_range=50.0, seed=7)
+    vmd, douts = run_scan_to_map_distributed(stack_scans([dseq.scan(k) for k in range(DF)]),
+                                             mesh, dcfg, block=4, use_const_velocity_rot=True)
+    assert bool(torch.isfinite(douts["world_T"]).all()), \
+        "distributed pipeline produced non-finite poses"
+    n_vox = int(vmd.num_voxels)
+    assert n_vox > 0, "distributed pipeline built no map"
 
     # 4) distributed pose-graph GN: factor-sharded assembly, all-reduced
     #    normal equations, a replicated solve (T_meas maps frame k+1 points
     #    into frame k: between(i=k, j=k+1))
     K = F + 1
-    dev = T_rel.device
     rel = RelPoseFactors.build(np.arange(F), np.arange(1, F + 1), T_rel)
     graph = PoseGraph(poses=torch.eye(4, device=dev).repeat(K, 1, 1), rel=rel)
     pg_cfg = PoseGraphConfig(max_iterations=3)
@@ -162,9 +207,20 @@ def _dryrun_rank(device: str) -> dict:
               f"frames={F} keyframes={K} cost={float(cost):.4f} |dx|={float(delta):.4f}",
               flush=True)
     out = dict(velocity=est.velocity, valid=est.valid, inlier_mask=est.inlier_mask,
-               T_rel=T_rel, H=H, g=g, cost=cost, poses=poses, delta=delta,
+               T_rel=T_rel, map_tables=sm.gather().tables(), sub_n=sub_n,
+               ring=(Hr, gr, costr, wr, d2r), pipeline=douts, pipeline_voxels=n_vox,
+               H=H, g=g, cost=cost, poses=poses, delta=delta,
                block_poses=graph_b.poses, block_cost=cost_b)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    return _numpy(out)
+
+
+def _numpy(x):
+    """Tensors of a nest of dicts, tuples and lists as numpy arrays."""
+    if isinstance(x, dict):
+        return {k: _numpy(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_numpy(v) for v in x)
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:

@@ -6,12 +6,14 @@ one device, so the mesh is a `DeviceMesh` over the ranks of the default
 process group (NCCL on the card, gloo on the CPU), which the caller
 initialises. The other `parallel` modules read an axis's size, this rank's
 place on it and its process group through `axis_size`, `axis_rank` and
-`axis_group`."""
+`axis_group`, and run their collectives through `all_gather_rows`,
+`all_reduce_sum` and `all_reduce_max` (one collective a call, whatever the
+number of tensors)."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -80,3 +82,42 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+def all_gather_rows(tensors: List[torch.Tensor], mesh: DeviceMesh,
+                    axis: str) -> List[torch.Tensor]:
+    """Every rank's rows of each tensor (same leading length L on every
+    rank), concatenated in rank order: one all-gather of the rows packed
+    as bytes."""
+    n = axis_size(mesh, axis)
+    L = tensors[0].shape[0]
+    parts = [t.contiguous().reshape(L, -1).view(torch.uint8) for t in tensors]
+    packed = torch.cat(parts, dim=1)
+    got = [torch.empty_like(packed) for _ in range(n)]
+    dist.all_gather(got, packed, group=axis_group(mesh, axis))
+    rows = torch.cat(got)
+    out, at = [], 0
+    for t, p in zip(tensors, parts):
+        w = p.shape[1]
+        out.append(rows[:, at:at + w].contiguous().view(t.dtype)
+                   .reshape((n * L,) + tuple(t.shape[1:])))
+        at += w
+    return out
+
+
+def all_reduce_sum(tensors, mesh: DeviceMesh, axis: str):
+    """The tensors summed over the ranks: one all-reduce of their values
+    packed into one flat buffer."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=axis_group(mesh, axis))
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
+def all_reduce_max(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=axis_group(mesh, axis))
+    return x

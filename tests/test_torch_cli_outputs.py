@@ -259,9 +259,54 @@ def test_cli_dataset_format_sniffs_pcd(tmp_path, capsys):
                               "--out", os.fspath(tmp_path / "b")])
 
 
+DIST_ARGS = ["--mode", "scan_to_map", "--synthetic", "8", "--max-points", "256",
+             "--landmarks", "2000", "--map-interval", "4", "--cv-rot", "--viz",
+             "--set", "voxel_map.capacity=16384", "--distributed", "2"]
+
+
+def test_cli_distributed_matches_jax_cli_and_the_direct_call(tmp_path, capsys):
+    """`--distributed 2 --mode scan_to_map --map-interval 4 --cv-rot --viz`:
+    the port's CLI on two spawned gloo ranks (`--device cpu`) and the JAX
+    CLI on a 2-device mesh of its virtual CPU devices write the same files
+    with the same row counts (map.ply of the gathered map, viewer.html),
+    records of the same keys, poses within 5e-3 m; the port's poses equal,
+    bit for bit, `run_scan_to_map_distributed` called on the same scans and
+    config at world size 2."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.interop import SCAN_FIELDS
+    from icp4dradar_tpu_torch.io import SyntheticSequence
+    from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.parallel.dryrun import run_on_ranks
+    from icp4dradar_tpu_torch.utils import write_rt_txt
+    from tests._torch_dist_sharded import cli_direct
+
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    assert port_cli.main(DIST_ARGS + ["--device", "cpu", "--out", os.fspath(port_dir)]) == 0
+    port_out = capsys.readouterr().out.strip().splitlines()
+    assert jax_cli.main(DIST_ARGS + ["--cpu", "--out", os.fspath(jax_dir)]) == 0
+    jax_out = capsys.readouterr().out.strip().splitlines()
+    port_rec, jax_rec = _compare_dirs(port_dir, jax_dir, [
+        "map.ply", "metrics.jsonl", "odom_tum.txt", "pcl_info.txt", "radar_odometry.txt",
+        "velocity.txt", "viewer.html"])
+    assert port_out[0].startswith("map.ply: ") and jax_out[0].startswith("map.ply: ")
+    assert port_rec["frames"] == 8 and abs(port_rec["ate_rmse_m"] - jax_rec["ate_rmse_m"]) <= 5e-3
+    np.testing.assert_allclose(np.loadtxt(port_dir / "radar_odometry.txt"),
+                               np.loadtxt(jax_dir / "radar_odometry.txt"), atol=5e-3)
+    seq = SyntheticSequence(num_frames=8, max_points=256, num_landmarks=2000, seed=0)
+    scans = stack_scans([seq.scan(k) for k in range(8)])
+    cfg = PipelineConfig().override(**{"voxel_map.capacity": 16384, "max_points": 256,
+                                       "seed": 0})
+    direct = run_on_ranks(cli_direct, 2, {
+        "scans": {k: getattr(scans, k).numpy() for k in SCAN_FIELDS}, "cfg": cfg.to_dict(),
+        "block": 4})[0]
+    write_rt_txt(os.fspath(tmp_path / "direct.txt"), direct["world_T"])
+    assert (port_dir / "radar_odometry.txt").read_bytes() == \
+        (tmp_path / "direct.txt").read_bytes()
+
+
 @pytest.mark.parametrize("argv,msg", [
-    (["--synthetic", "4", "--mode", "scan_to_map", "--distributed", "4"],
-     "ROADMAP queue 1 item 6"),
+    (["--synthetic", "4", "--mode", "scan_to_scan", "--distributed", "4"],
+     "--distributed requires --mode scan_to_map"),
     (["--synthetic", "4", "--mode", "scan_to_map", "--replay", "x.csv"],
      "--replay runs in --mode scan_to_scan"),
     ([], "provide --dataset, --bag, or --synthetic F"),

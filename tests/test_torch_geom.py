@@ -208,3 +208,36 @@ def test_pose_graph_helpers_match_jax(name):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=ATOL)
+
+
+@pytest.mark.parametrize("shapes", [((3, 1), (4,)), ((), (2, 3)), ((0, 1), (1, 5)),
+                                    ((2, 1, 3), (4, 1)), ((5,), (5,), (1, 5)), ((1,), (0,)),
+                                    ((2,), (3,))])
+def test_broadcast_shape_follows_torch_without_importing_sympy(shapes):
+    """`broadcast_shape` gives `torch.broadcast_shapes`' shape, or raises
+    where it raises, and a fresh process that calls it (and `se3_from_rt`)
+    imports no sympy: torch's own helper does on its first call."""
+    import os
+    import subprocess
+    import sys
+
+    from icp4dradar_tpu_torch.geom.linalg import broadcast_shape
+
+    try:
+        want = torch.broadcast_shapes(*shapes)
+    except RuntimeError:
+        with pytest.raises(RuntimeError):
+            broadcast_shape(*shapes)
+    else:
+        assert broadcast_shape(*shapes) == want
+    if shapes == ((3, 1), (4,)):
+        code = ("import sys, torch\n"
+                "from icp4dradar_tpu_torch.geom.linalg import broadcast_shape\n"
+                "from icp4dradar_tpu_torch.geom.se3 import se3_from_rt\n"
+                "broadcast_shape((3, 1), (4,))\n"
+                "se3_from_rt(torch.eye(3), torch.zeros(2, 3))\n"
+                "print('sympy' in sys.modules)\n")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                             text=True, check=True)
+        assert out.stdout.strip() == "False"

@@ -939,3 +939,69 @@ def test_timer_profiler_and_float_guard_on_cuda(cuda, tmp_path):
 
     with pytest.raises(FloatingPointError, match="aten.log"):
         checked(masked)(torch.tensor([1.0, 10.0], device=cuda))
+
+
+# ---- the map-sharded layer under NCCL at world size 1: the ring's K4
+# (`return_best`) and K5 passes against the single-device sweep, the
+# sharded insert against the single-device map, and the CLI's refusal of
+# more ranks than cards.
+def test_ring_normal_equations_world_one_match_vgicp_iteration(cuda, tmp_path):
+    """At world size 1 the ring is one K4 sweep with `return_best` and one
+    K5 step on its payload (the exchange is the identity): the sums of
+    `vgicp_iteration` on the same target within 1e-4 of their largest
+    entry (the frozen step re-derives d2 from the payload), wsum equal; a
+    sharded insert holds the single-device map's voxel content."""
+    import torch.distributed as dist
+
+    from icp4dradar_tpu_torch.mapping import voxel_map_create, voxel_map_insert
+    from icp4dradar_tpu_torch.ops import vgicp_fused
+    from icp4dradar_tpu_torch.parallel import (
+        make_mesh,
+        ring_vgicp_normal_equations,
+        sharded_map_create,
+        sharded_map_insert,
+    )
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        T, src, sm, scov, tgt, tcov, tmask, cnt = _vgicp_case(
+            np.random.default_rng(11), 1, 2048, 4096, 4096, cuda)
+        k4, k5 = vgicp_fused.VGICP_SWEEP_LAUNCHES, vgicp_fused.VGICP_FROZEN_LAUNCHES
+        ring = ring_vgicp_normal_equations(T[0], src[0], sm[0], scov[0], tgt, tcov, tmask,
+                                           mesh)
+        torch.cuda.synchronize()
+        assert vgicp_fused.VGICP_SWEEP_LAUNCHES == k4 + 1
+        assert vgicp_fused.VGICP_FROZEN_LAUNCHES == k5 + 1
+        single = vgicp_iteration(T[0], src[0], sm[0], scov[0], tgt, tcov, tmask)
+        for a, b in zip(ring, single):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()) + 1e-3)
+        assert float(ring[3]) == float(single[3]) > 0
+        pts = torch.from_numpy(np.random.default_rng(3).uniform(-20, 20, (3000, 3))
+                               .astype(np.float32)).to(cuda)
+        got = sharded_map_insert(sharded_map_create(mesh, capacity=1 << 14), mesh, pts).gather()
+        ref = voxel_map_insert(voxel_map_create(1 << 14, device=cuda), pts)
+
+        def content(m):
+            occ = m.occupied.cpu().numpy() > 0.5
+            return dict(zip(map(tuple, m.keys.cpu().numpy()[occ]),
+                            zip(map(tuple, np.round(m.points.cpu().numpy()[occ], 5)),
+                                m.stat_n.cpu().numpy()[occ])))
+
+        assert content(got) == content(ref)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cli_distributed_refuses_more_ranks_than_cards(cuda, capsys):
+    """`--distributed N --device cuda` with fewer than N cards is a usage
+    error: never fewer ranks, never gloo."""
+    from icp4dradar_tpu_torch.models import run_odometry
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit) as e:
+        run_odometry.main(["--mode", "scan_to_map", "--synthetic", "8", "--distributed", str(n),
+                           "--device", "cuda", "--out", "unused"])
+    assert e.value.code == 2
+    assert f"--distributed {n} --device cuda needs {n} CUDA devices" in capsys.readouterr().err

@@ -1,12 +1,12 @@
 """The port stands alone: no source of `icp4dradar_tpu_torch` (or
 `chip_smoke.py`) imports jax, flax or the JAX package, and running its
 slices (scan-to-scan, the blocked VGICP tracker, the kNN-GICP tracker, a
-streaming session, the pose-graph pipeline, the host side: a bag through
+streaming session, the pose-graph pipeline, the distributed pipeline in a
+world of one, the host side: a bag through
 the native streamer with IMU priors, the replay, PCD and the native .bin
 loader) leaves them out of sys.modules. Its native libraries build under
 `build/`, never beside their sources, and it exports the JAX package's
-public names of `io`, `utils`, `preprocess`, `models` and `parallel` (less
-the names of items 6b and 6c)."""
+public names of `io`, `utils`, `preprocess`, `models` and `parallel`."""
 
 import pathlib
 import re
@@ -66,7 +66,11 @@ for k in range(3):
     sess.process(scans[k])
 assert sess.frame == 3 and bool(torch.isfinite(torch.as_tensor(sess.pose)).all())
 from icp4dradar_tpu_torch import graph, parallel
-from icp4dradar_tpu_torch.parallel import dryrun
+from icp4dradar_tpu_torch.parallel import (distributed_pipeline, dryrun, multihost, ring_vgicp,
+                                           sharded_map)
+# the multi-process entry point without a launcher: a world of one (gloo)
+_, dout = multihost.run_scan_to_map_multihost(scans, cfg, block=4, device='cpu')
+assert torch.isfinite(dout['world_T']).all() and dout['world_T'].shape == (8, 4, 4)
 from icp4dradar_tpu_torch.models import run_pose_graph_odometry
 res = run_pose_graph_odometry(scans, cfg, keyframe_every=2, loop_radius=0.01)
 assert res.poses.shape == (8, 4, 4) and res.num_loop_closures == 0
@@ -117,21 +121,16 @@ def test_native_libraries_build_under_build_dir():
     assert not list((REPO / "icp4dradar_tpu_torch").rglob("*.so"))
 
 
-# `parallel` names of ROADMAP.md queue 1 items 6b (the sharded map, the ring
-# VGICP, the distributed pipeline) and 6c (multi-host), not ported yet
-PARALLEL_NOT_YET = sorted([
-    "sharded_map_create", "sharded_map_insert", "sharded_map_rehash",
-    "sharded_sector_search_with_stats", "ring_vgicp_align", "ring_vgicp_normal_equations",
-    "run_scan_to_map_distributed", "save_distributed_state", "load_distributed_state",
-    "maybe_initialize_distributed", "global_mesh", "process_frame_slice",
-    "assemble_global_scans", "run_scan_to_map_multihost"])
+# `parallel` names not ported yet: none since the sharded map, the ring
+# VGICP, the distributed pipeline and the multi-process runtime (ROADMAP.md
+# queue 1 items 6b and 6c)
+PARALLEL_NOT_YET = []
 
 
 def test_port_exports_the_jax_public_names():
     """Every public name of the JAX package's `io`, `utils`, `preprocess`,
-    `models` and `parallel` is exported by the port's, less the 14 names
-    of `parallel` that wait for items 6b and 6c; the names are read from
-    the sources, so no jax is imported."""
+    `models` and `parallel` (its 25) is exported by the port's; the names
+    are read from the sources, so no jax is imported."""
     import ast
     import importlib
 
@@ -142,4 +141,5 @@ def test_port_exports_the_jax_public_names():
         port = importlib.import_module(f"icp4dradar_tpu_torch.{sub}")
         missing = sorted(n for n in names if not hasattr(port, n))
         assert missing == (PARALLEL_NOT_YET if sub == "parallel" else []), (sub, missing)
-    assert len(PARALLEL_NOT_YET) == 14
+        if sub == "parallel":
+            assert len(names) == 25

@@ -84,7 +84,10 @@ from icp4dradar_tpu_torch.graph import solve_pose_graph_step
 from icp4dradar_tpu_torch.io import SyntheticSequence
 from icp4dradar_tpu_torch.io.scan import stack_scans
 from icp4dradar_tpu_torch.models import run_pose_graph_odometry
+from icp4dradar_tpu_torch.mapping import voxel_map_create, voxel_map_insert
+from icp4dradar_tpu_torch.mapping.voxel_hash import voxel_map_sector_search_with_stats
 from icp4dradar_tpu_torch.models import scan_to_map as pm
+from icp4dradar_tpu_torch.ops import vgicp_fused as pv
 from icp4dradar_tpu_torch.parallel.dryrun import run_on_ranks
 from icp4dradar_tpu_torch.preprocess.reve import estimate_ego_velocity, reve_hypotheses
 from icp4dradar_tpu_torch.registration.icp import icp_point_to_point
@@ -187,7 +190,16 @@ def _jax_tasks(inp, js, circle, jmesh, jmesh23):
 
     dcfg, dscans = _dryrun_inputs()
     head, tail = (jax.tree.map(lambda x, s=s: x[s], dscans) for s in (slice(4), slice(1, None)))
+    def dryrun_pipeline():
+        dseq = JaxSequence(num_frames=16, max_points=256, num_landmarks=1500,
+                           world_extent=60.0, max_range=50.0, seed=7)
+        out = jpar.run_scan_to_map_distributed(
+            jax_stack([dseq.scan(k) for k in range(16)]), jmesh, _dryrun_pipeline_cfg(dcfg, 2),
+            block=4, use_const_velocity_rot=True)[1]
+        return _np_tree(out), np.asarray(dseq.poses[:16])
+
     mesh_tasks = [
+        ("dryrun_pipeline", dryrun_pipeline),
         ("padded", lambda: _np_tree(jpar.pad_factors_for_mesh(jgraph, 3))),
         ("dense_ne", lambda: _np_tree(jpar.distributed_normal_equations(jgraph, jmesh, pcfg))),
         ("block_ne", lambda: _np_tree(jpar.distributed_block_normal_equations(jgraph, jmesh,
@@ -319,6 +331,13 @@ def _jax_reve(scans, keys, cfg):
 def _jax_icp(src, tgt, cfg):
     return jax.vmap(lambda s, t: j_icp(s.xyz, t.xyz, s.mask, t.mask, cfg=cfg).transform)(
         src, tgt)
+
+
+def _dryrun_pipeline_cfg(cfg, n):
+    """The dry run's stage 3c config at mesh size n (`__graft_entry__.py`)."""
+    return cfg.override(**{
+        "voxel_map.capacity": 512 * n, "voxel_map.submap_max_points": 64 * n,
+        "voxel_map.forget_radius": 100.0, "gicp.max_iterations": 4})
 
 
 def _dryrun_inputs():
@@ -535,7 +554,9 @@ def test_dryrun_multichip_stages(case):
     within 1e-5 of its largest entry, transforms within 1e-4); stage 4's normal
     equations within 1e-5 of JAX's distributed assembly of the same factors
     on its mesh, and its solve and stage 4b's block GN within 1e-4 m of the
-    single-device solvers."""
+    single-device solvers; stage 3's sharded map the single-device map's
+    voxels and sector count, stage 3b's ring normal equations the
+    single-device sweep's, stage 3c's distributed run JAX's on its mesh."""
     got = case["w2"][0]["dryrun"]
     cfg = config_from_dict(_dryrun_inputs()[0].to_dict())
     F = 4
@@ -568,3 +589,37 @@ def test_dryrun_multichip_stages(case):
     gb, _ = pg.optimize_pose_graph_block(graph, pcfg)
     np.testing.assert_allclose(got["block_poses"], gb.poses.numpy(), atol=1e-4)
     assert np.isfinite(got["block_cost"])
+
+    # 3) the sharded map of scan 0 (capacity 2^12): the single-device map's
+    #    voxels, and its sector count
+    s0 = scans[0]
+    single = voxel_map_insert(voxel_map_create(1 << 12, device="cpu"), s0.xyz, s0.mask)
+    tables = dict(zip(("keys", "points", "intensity", "occupied", "stat_n"),
+                      got["map_tables"][:5]))
+    occ = tables["occupied"] > 0.5
+    socc = single.occupied.numpy() > 0.5
+    assert dict(zip(map(tuple, tables["keys"][occ]), tables["stat_n"][occ])) == \
+        dict(zip(map(tuple, single.keys.numpy()[socc]), single.stat_n.numpy()[socc]))
+    _, _, sub_n, _, _ = voxel_map_sector_search_with_stats(
+        single, torch.zeros(3), 80.0, torch.tensor(0.0), 180.0, 1024)
+    assert int(got["sub_n"]) == int(sub_n) > 0
+    # 3b) the ring normal equations on 256 x 2 tiled targets against the
+    #     single-device sweep of the same targets (tests/test_parallel.py's
+    #     1e-4): duplicate rows across the two shards, so the ring's tie
+    #     rule and the sweep's tie average pick the same payload
+    s1, M = scans[1], 512
+    ring = pv.vgicp_iteration(torch.eye(4), s1.xyz, s1.mask,
+                              pv.radar_point_covariances_packed(s1.xyz),
+                              s0.xyz[:256].repeat(2, 1),
+                              torch.tensor([0.05, 0.05, 0.05, 0.0, 0.0, 0.0]).expand(M, 6),
+                              torch.ones(M))
+    for a, b in zip(got["ring"], ring):
+        np.testing.assert_allclose(a, b.numpy(), rtol=1e-4, atol=1e-4)
+    # 3c) the blocked distributed run (16 frames, forget on) against JAX's
+    #     on its 2-device mesh: tests/test_torch_batch.py's `_assert_tracks`
+    jout, jgt = case["jax"]["dryrun_pipeline"]
+    gt = np.linalg.inv(jgt[0]) @ jgt
+    _assert_tracks(SimpleNamespace(**{k: torch.from_numpy(v)
+                                      for k, v in got["pipeline"].items()}),
+                   SimpleNamespace(**jout), gt)
+    assert got["pipeline_voxels"] > 0
