@@ -159,8 +159,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              pose, the sector submap of the final map) the covariances
              over the live rows that gicp_align computes must equal the
              all-rows point_covariances on every live row and be finite.
-             A profiled run (phase 11's `profile_run`) prints the device
-             time and launches of the covariances (k-NN included; a
+             A profiled run of the first 16 frames (phase 11's
+             `profile_run`) prints the device time and launches a frame
+             of the covariances (k-NN included; a
              record_function range around each call), the run's launches
              a frame and its sort kernels; it fails on a sort row (2-D, or with a
              stream axis) as
@@ -281,6 +282,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              largest entry), a save/load round trip; a profiled window (24
              frames); the CLI's --distributed 1 --device cuda on 16
              frames; at most 60 s.
+17. accumulate — the sparse-vendor tracking paths at the s2m cell's width
+             on JAX's draws: the bench sequence's first 64 frames through
+             run_scan_to_map with accumulate_scans=4 (K4 at 8,192
+             sources), 16 frames of kNN GICP with accumulate_scans=2 (K2 at
+             4,096), the s2m cell through run_scan_to_map_blocked with
+             rigid_union=True (K4 at 16,384 sources a block), and the eval
+             suite's ti_mmwave sequence (64 frames, matched covariances)
+             through the window and the union; each run's K4 / K2 launches
+             against its GN sweeps, ATE against the JAX CPU run of
+             scripts/port_accumulate_reference.py, scans/s; K4 on a
+             16,384-row union and an 8,192-row window and K2 on 4,096
+             sources against their plain versions; the roofline module's
+             hot-kernel reports with the card's launch floor; at most 60 s.
 12. ab     — only with `--parent DIR` (a `git archive` of the parent commit
              unpacked at DIR): the K2, K3, K5 and K4 calls of both trees at the
              path shapes (K3 also per call), each tree in its own process,
@@ -288,8 +302,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              call's kernels and device time (profiler); then phase 7's
              gicp-64 run end to end in the same processes (scans/s).
 
-The kernels' bounds come from the shapes and this run's data (bytes over
-3.35 TB/s, FP32 operations over 67 TFLOP/s, the H100 SXM data sheet). The
+The kernels' bounds come from the shapes and this run's data through
+`icp4dradar_tpu_torch/utils/roofline.py` (bytes over 3.35 TB/s, FP32
+operations over 67 TFLOP/s, the H100 SXM data sheet). The
 line before the last two is a JSON record of the kernels (K1's row with
 phase 4c's `pose_graph_launches` and its loop ICP's `loop_icp_launches`,
 `loop_icp_ms` and `loop_icp_pairs`, and phase 13's `replay_launches`; K4's
@@ -297,7 +312,8 @@ with phase 4c's `pose_graph_launches` and phase 13's `bag_launches`; K2's
 and the packing's with phase 14's `batch_launches`,
 `single_stream_launches`, `batch_ms`, `batch_plain_ms` and
 `batch_bound_ms`, K2's also `batch_device_ms`, `batch_separate_ms` and
-`batch_max_abs_err`; K4's and K5's with phase 16's `distributed_launches`), the
+`batch_max_abs_err`; K4's and K5's with phase 16's `distributed_launches`; K4's
+and K2's with phase 17's `accumulate_launches` and the new shapes' times), the
 next one the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -353,6 +369,10 @@ NN_REPLACES = "icp4dradar_tpu/ops/knn.py:75"
 NN_COORDS_REPLACES = "icp4dradar_tpu/ops/knn.py:180"
 FROZEN_REPLACES = "icp4dradar_tpu/ops/vgicp_fused.py:264"
 TRACK_FRAMES = 64
+# the kNN-GICP run profiled with its host ops (to find the covariances'
+# range): summing them costs ~0.1 ms an event, ~2.5 min for all 64 frames
+# on a slow host, so the profile covers the first frames only
+GICP_PROFILE_FRAMES = 16
 # the JAX package's CPU run of these 64 frames, 0.0572 m, plus 0.035 m of
 # room for the port's exact distances (see PERF.md)
 GICP_ATE_MAX = 0.09
@@ -372,16 +392,6 @@ PG_WRONG_OFFSET_M, PG_WRONG_WEIGHT, PG_WRONG_BAND = 10.0, 10.0, 0.5
 # HBM3; two runs 15 iterations in part by ~1.4e-3 m, by ~2e-4 m at 20)
 PG_CHAIN_K, PG_CHAIN_ITERS, PG_CHAIN_CPU_TOL, PG_CHAIN_GT_TOL = 512, 20, 1e-3, 0.05
 PG_DENSE_K, PG_DENSE_TOL = 32, 1e-4
-NN_FLOPS_PER_PAIR = 9         # 3 sub, 3 fma counted as 6 (the compare not counted)
-FROZEN_FLOPS_PER_SOURCE = 320  # p = R s + t, the fresh distance, the GN epilogue
-# NVIDIA's H100 SXM data sheet: HBM rate and FP32 peak (at 700 W)
-PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
-ICP_FLOPS_PER_PAIR = 9       # 3 sub, 3 mul, 3 add (the compare not counted)
-# the slot floor: FP32 ops that may not contract take a slot each;
-# 132 SMs x 128 FP32 lanes at the H100 SXM's 1.98 GHz boost clock
-SLOTS_PER_S = 132 * 128 * 1.98e9
-VGICP_FLOPS_PER_PAIR = 9
-VGICP_FLOPS_PER_SOURCE = 300  # p = R s + t and the GN epilogue, about
 
 
 # phase 13 (host): the s2m cell's frames as a ROS1 bag, IMU priors into
@@ -403,13 +413,6 @@ HOST_BUDGET_S = 90.0
 # failures found by a phase that lets the later phases run; main raises on
 # them before it prints a result
 FAILED = []
-
-
-def roofline(nbytes, flops):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    FP32 operations over the FP32 peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def log(msg):
@@ -669,11 +672,12 @@ def phase_kernel(torch, scans):
     live = int((src_live.long() * tgt_live.long()).sum().item())
     # each input read once (T, xyz and masks of both clouds), (B, 19) out;
     # the work is the live pairs, which are all the kernel sweeps
-    nbytes = 4 * (16 * B + 4 * B * N + 4 * B * M + 19 * B)
-    bound_ms, bound_by = roofline(nbytes, ICP_FLOPS_PER_PAIR * live)
-    all_ms, _ = roofline(nbytes, ICP_FLOPS_PER_PAIR * pairs)
-    slots_ms = ICP_FLOPS_PER_PAIR * live / SLOTS_PER_S * 1e3
-    slots_all_ms = ICP_FLOPS_PER_PAIR * pairs / SLOTS_PER_S * 1e3
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    live_model, all_model = (rl.icp_moments_bound(B, N, M, x) for x in (live, pairs))
+    bound_ms, bound_by = live_model.bound()
+    all_ms, _ = all_model.bound()
+    slots_ms, slots_all_ms = (rl.slot_floor_ms(m.fp32_ops) for m in (live_model, all_model))
     log(f"[kernel] time at B={B} x {N} x {M}: kernel {k1:.4f} / {k2:.4f} ms on prepared "
         f"clouds (device time of the kernel alone {fmt_ms(dev_ms)}, profiler; "
         f"{pc:.4f} ms per call with the packing), plain {p1:.3f} / {p2:.3f} ms; "
@@ -892,9 +896,11 @@ def phase_local_map(torch, scans, poses):
     dev_ms = kernel_device_ms(torch, kernel, ("icp_moments_kernel",), calls=10)
     ms = (k1 + k2) / 2
     live = int(((sm > 0).sum(dim=1) * (tm > 0.5).sum(dim=1)).sum().item())
-    nbytes = 4 * (16 * pairs + 8 * pairs * P + 19 * pairs)
-    bound_ms, bound_by = roofline(nbytes, ICP_FLOPS_PER_PAIR * live)
-    slots_ms = ICP_FLOPS_PER_PAIR * live / SLOTS_PER_S * 1e3
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    model = rl.icp_moments_bound(pairs, P, P, live)
+    bound_ms, bound_by = model.bound()
+    slots_ms = rl.slot_floor_ms(model.fp32_ops)
     log(f"[local map] K1 at {pairs} x {P} x {P}: one iteration {k1:.4f} / {k2:.4f} ms on "
         f"prepared clouds (device time of the kernel alone {fmt_ms(dev_ms)}, profiler), plain "
         f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, {live} live pairs), slot "
@@ -1828,9 +1834,9 @@ def phase_vgicp(torch, state, out, s2m):
     live_rows = min(P, count)
     # inputs read once: T, the sources (xyz, mask, cov6), the live target
     # rows (mean, cov6, mask), the count; (B, 30) sums out
-    nbytes = 4 * (16 * B + 10 * B * N + 10 * live_rows + 1 + 30 * B)
-    flops = VGICP_FLOPS_PER_PAIR * B * N * live_rows + VGICP_FLOPS_PER_SOURCE * B * N
-    bound_ms, bound_by = roofline(nbytes, flops)
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    bound_ms, bound_by = rl.vgicp_sweep_bound(B, N, [live_rows]).bound()
     log(f"[vgicp] time at B={B} x {N} x {P} rows ({count} live): the call on prepared "
         f"operands {c1:.4f} / {c2:.4f} ms, the launch alone {l1:.4f} / {l2:.4f} ms (device "
         f"time {fmt_ms(dev_ms)} a launch, profiler), the "
@@ -1972,9 +1978,9 @@ def phase_vgicp_streams(torch, batch):
     if syncs[0] or syncs[1]:
         raise RuntimeError(f"[vgicp] the batched call syncs the host: {syncs}")
     live = [min(P, c) for c in counts]
-    nbytes = 4 * (16 * S * B + 10 * S * B * N + 10 * sum(live) + S + 30 * S * B)
-    flops = VGICP_FLOPS_PER_PAIR * B * N * sum(live) + VGICP_FLOPS_PER_SOURCE * S * B * N
-    bound_ms, bound_by = roofline(nbytes, flops)
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    bound_ms, bound_by = rl.vgicp_sweep_bound(B, N, live).bound()
     log(f"[vgicp] time at S={S} streams x B={B} x {N} against {P}-row submaps ({sum(live)} live "
         f"rows): the batched call on prepared operands {b1:.4f} / {b2:.4f} ms (device time "
         f"{fmt_ms(dev_ms)} a launch, profiler), {S} single-target calls {s1:.4f} / {s2:.4f} ms, "
@@ -2108,9 +2114,16 @@ def phase_gicp(torch, seq, scans):
             return orig_cov(*a, **k)
 
     gicp_mod.live_point_covariances = traced_cov
+    PF = GICP_PROFILE_FRAMES
+
+    def run_profiled():
+        res = scan_to_map.run_scan_to_map(track[:PF], cfg, use_const_velocity_rot=True)
+        torch.cuda.synchronize()
+        return res
+
     try:
         prof, run_launches = profile_run(
-            torch, "gicp", 1, run,
+            torch, f"gicp (first {PF} frames)", 1, run_profiled,
             expect=({"nn_search_kernel", "nn_pack_kernel"}, {"nn_merge_kernel",
                                                               "nn_split_kernel"}),
             ranges=("covariance_knn",))
@@ -2120,9 +2133,10 @@ def phase_gicp(torch, seq, scans):
         cov_ms, cov_launches, widest = range_device(torch, prof, "covariance_knn")
         sorts = [e for e in prof.key_averages() if e.device_type ==
                  torch.autograd.DeviceType.CUDA and "Sort" in e.key]
-        log(f"[gicp] covariances (k-NN included) device time {cov_ms:.2f} ms a run in "
-            f"{cov_launches} launches ({cov_launches / F:.1f} a frame); the run's launches "
-            f"{run_launches / F:.1f} a frame; widest sort row in the covariances "
+        log(f"[gicp] covariances (k-NN included) device time {cov_ms:.2f} ms over the first "
+            f"{PF} frames ({cov_ms / PF:.3f} ms a frame) in {cov_launches} launches "
+            f"({cov_launches / PF:.1f} a frame); the run's launches {run_launches / PF:.1f} a "
+            f"frame; widest sort row in the covariances "
             f"{widest} columns; sort kernels of the run: " + ", ".join(
                 f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
                 for e in sorts))
@@ -2343,12 +2357,13 @@ def phase_knn(torch, state, out, track):
     # bytes: sources, every target row and mask once, (index, d2) or (d2,
     # coordinates) out; work: the live rows this submap holds (masked rows
     # cannot win)
-    nbytes = 4 * (3 * N + 4 * M + 2 * N)
-    bound_ms, bound_by = roofline(nbytes, NN_FLOPS_PER_PAIR * N * live)
-    all_rows_ms, _ = roofline(nbytes, NN_FLOPS_PER_PAIR * N * M)
-    cbound_ms, cbound_by = roofline(4 * (3 * N + 4 * M + 4 * N), NN_FLOPS_PER_PAIR * N * live)
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    bound_ms, bound_by = rl.nn_search_bound(N, M, [live]).bound()
+    all_rows_ms, _ = rl.nn_search_bound(N, M, [M]).bound()
+    cbound_ms, cbound_by = rl.nn_search_bound(N, M, [live], coords=True).bound()
     # the packing: tgt and mask read once, rows, orig and count written
-    pbound_ms, pbound_by = roofline(4 * (4 * M + 5 * M + 1), 0)
+    pbound_ms, pbound_by = rl.nn_pack_bound(M).bound()
     log(f"[knn] K2 at {N} x {M} rows ({live} live, a cluster of {ops.cluster}): the "
         f"call on prepared targets {k1:.4f} / {k2:.4f} ms, its one launch alone "
         f"{l1:.4f} / {l2:.4f} ms (device time {fmt_ms(dev_ms)} a search, profiler; "
@@ -2557,8 +2572,10 @@ def phase_frozen(torch, state, out, track):
     check_one_kernel("frozen", kernels, "vgicp_frozen_kernel")
     # inputs read once: T, the sources (xyz, mask, cov6) and the (10, N)
     # payload; 45 finished values out
-    bound_ms, bound_by = roofline(4 * (16 + 10 * N + 10 * N + vf.NUM_FROZEN_OUT),
-                                  FROZEN_FLOPS_PER_SOURCE * N)
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    assert vf.NUM_FROZEN_OUT == rl.FROZEN_OUT
+    bound_ms, bound_by = rl.vgicp_frozen_bound(N).bound()
     log(f"[frozen] time at one frame of {N} points: the call on prepared sources "
         f"{c1:.4f} / {c2:.4f} ms, the launch alone {l1:.4f} / {l2:.4f} ms (device time "
         f"{fmt_ms(dev_ms)} a launch, profiler), the per-call "
@@ -3135,9 +3152,10 @@ def phase_knn_batch(torch, seq, scans):
     t = [time_cuda(torch, many(f)) / calls for f in order + order[::-1]]
     plain_ms, k_ms, sep_ms, pk_ms, ppk_ms = [(a + c) / 2 for a, c in zip(t[:5], t[::-1][:5])]
     dev_ms = kernel_device_ms(torch, lambda: nn.nn_search(src, ops), ("nn_search_kernel",))
-    nbytes = 4 * Bs * (3 * N + 4 * M + 2 * N)
-    bound_ms, bound_by = roofline(nbytes, NN_FLOPS_PER_PAIR * N * sum(live))
-    pbound_ms, _ = roofline(4 * Bs * (4 * M + 5 * M + 1), 0)
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    bound_ms, bound_by = rl.nn_search_bound(N, M, live).bound()
+    pbound_ms, _ = rl.nn_pack_bound(M, Bs).bound()
     log(f"[knn batch] K2 call on prepared targets {k_ms:.4f} ms for {Bs} streams (one "
         f"launch; device {fmt_ms(dev_ms)}), {Bs} single-target calls {sep_ms:.4f} ms, plain "
         f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, {Bs} x {N} x live "
@@ -3572,6 +3590,254 @@ def phase_distributed(torch, seq, scans, card):
     return {"k4": k4, "k5": k5, "launches": launches}
 
 
+# phase 17 (accumulate): the sparse-vendor tracking paths at the s2m cell's
+# width, on JAX's draws; each run's ATE against the JAX package's CPU run of
+# the same path (scripts/port_accumulate_reference.py)
+ACC_BUDGET_S = 60.0
+ACC_WINDOW_FRAMES, ACC_KNN_FRAMES, ACC_TI_FRAMES = 64, 16, 64
+ACC_ATE_JAX = {"window": 1.43391, "knn": 0.10195, "union": 0.07048, "ti_window": 3.73635,
+               "ti_union": 1.79970}
+# kNN GICP with a window as the other s2m cells (0.01 m); the runs whose
+# ATE is metres (past scans rigid to the prediction pull the track, the
+# JAX package's record: 3.1-18 m) within a tenth of JAX's ATE
+ACC_ATE_BAND = {"knn": 0.01, "union": 0.01}
+ACC_REL_BAND = 0.1
+# the union over the bench scene is chaotic after its first blocks: three
+# runs of the same semantics (JAX's CPU, the port's CPU and card) part by
+# >1e-2 m from frame ~48 and end at 6.98, 43.0 and 24.5 m of ATE (PERF.md
+# section 6); its first 64 frames (8 blocks, the warm-up and 7 unions) agree
+# within 4e-3 m, so their ATE is what is held (JAX CPU 0.07048 m), the
+# whole run's printed beside JAX's 6.97589 m
+ACC_UNION_HELD_FRAMES = 64
+ACC_UNION_ATE_JAX_ALL = 6.97589
+# the eval suite's matched covariances for the ti_mmwave profile
+ACC_TI_COV = {"gicp.sigma_azimuth": 0.0175, "gicp.sigma_elevation": 0.0175,
+              "gicp.sigma_range": 0.12}
+
+
+def phase_accumulate(torch, seq, scans, card):
+    """Phase 17: scan accumulation and the rigid block union, the port's
+    last slice, at the s2m cell's full width (2048 points, capacity 2^18,
+    submap 2^14) on JAX's REVE draws. Runs, each with its kernel counts set
+    to 0 just before and read just after (K4 launches = the GN sweeps run:
+    one a GN iteration a frame, one a block for the union; K2 launches =
+    the GN iterations plus one fitness search a frame): (1) the bench
+    sequence's first 64 frames through `run_scan_to_map` with
+    `accumulate_scans=4` (K4 at 4 x 2048 = 8,192 sources), (2) 16 frames of
+    kNN GICP with `accumulate_scans=2` (K2 at 4,096 sources), (3) the s2m
+    cell's 256 frames through `run_scan_to_map_blocked(block=8,
+    use_const_velocity_rot=True, rigid_union=True)` (K4 at 16,384 sources a
+    block), (4) the eval suite's ti_mmwave sequence (64 frames, matched
+    covariances) through (1) and (3); each run's ATE against ACC_ATE_JAX
+    and its scans/s. Then K4 on a 16,384-row union and on an 8,192-row
+    window, and K2 on 4,096 sources, each against its plain version on the
+    same inputs (one call each, timed in turns), the roofline module's
+    hot-kernel reports with the card's launch floor, and the phase's
+    seconds (at most ACC_BUDGET_S). Returns the kernel-row fields."""
+    import importlib
+
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.geom import se3_apply, se3_inverse
+    from icp4dradar_tpu_torch.geom.so3 import matrix_to_rpy
+    from icp4dradar_tpu_torch.io import SyntheticSequence
+    from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.mapping import (
+        voxel_map_sector_search, voxel_map_sector_search_with_stats,
+    )
+    from icp4dradar_tpu_torch.models import scan_to_map
+    from icp4dradar_tpu_torch.ops import vgicp_fused as vf
+    from icp4dradar_tpu_torch.ops.vgicp_fused import (
+        radar_point_covariances_packed, vgicp_iteration_plain,
+    )
+    from icp4dradar_tpu_torch.preprocess.reve import reve_hypotheses
+    from icp4dradar_tpu_torch.utils import ate_rmse, reve_uniforms
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    nn = importlib.import_module("icp4dradar_tpu_torch.ops.knn")
+    t_phase = time.perf_counter()
+    base = PipelineConfig()
+    H = reve_hypotheses(base.reve)
+    ti_seq = SyntheticSequence(
+        num_frames=ACC_TI_FRAMES, max_points=BENCH_POINTS, num_landmarks=8000,
+        world_extent=150.0, max_range=80.0, seed=0, speed=1.0, turn_rate=0.03,
+        dynamic_fraction=0.1, pos_noise=0.02, vendor_profile="ti_mmwave")
+    ti_scans = stack_scans([ti_seq.scan(k) for k in range(ACC_TI_FRAMES)]).to("cuda")
+    ti_cfg = base.override(**ACC_TI_COV)
+
+    def window(sc, cfg, k=4):
+        F = sc.xyz.shape[0]
+        u = torch.from_numpy(reve_uniforms(cfg.seed, F, 0, H)).cuda()
+        return scan_to_map.run_scan_to_map(sc, cfg.override(accumulate_scans=k), uniforms=u)
+
+    def union(sc, cfg):
+        F = sc.xyz.shape[0]
+        u = torch.from_numpy(reve_uniforms(cfg.seed, F, S2M_BLOCK, H)).cuda()
+        return scan_to_map.run_scan_to_map_blocked(sc, cfg, uniforms=u, block=S2M_BLOCK,
+                                                   use_const_velocity_rot=True,
+                                                   rigid_union=True)
+
+    runs = (
+        ("window", lambda: window(scans[:ACC_WINDOW_FRAMES], base), seq),
+        ("knn", lambda: window(scans[:ACC_KNN_FRAMES],
+                               base.override(**{"gicp.use_vgicp": False}), k=2), seq),
+        ("union", lambda: union(scans[:S2M_FRAMES], base), seq),
+        ("ti_window", lambda: window(ti_scans, ti_cfg), ti_seq),
+        ("ti_union", lambda: union(ti_scans, ti_cfg), ti_seq),
+    )
+    results, k4_total, k2_total = {}, 0, 0
+    for name, run, sq in runs:
+        vf.VGICP_SWEEP_LAUNCHES = 0
+        nn.NN_SEARCH_LAUNCHES = 0
+        t0 = time.perf_counter()
+        state, out = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k4, k2 = vf.VGICP_SWEEP_LAUNCHES, nn.NN_SEARCH_LAUNCHES
+        F = out.world_T.shape[0]
+        its = out.iterations.cpu().numpy()
+        if name.endswith("union"):
+            # the warm-up frames one sweep a GN iteration, then one union a
+            # block: its sweeps are every frame's of the block
+            sweeps = int(its[:S2M_BLOCK].sum() + its[S2M_BLOCK::S2M_BLOCK].sum())
+            blocks = its[S2M_BLOCK:].reshape(-1, S2M_BLOCK)
+            if not (blocks == blocks[:, :1]).all():
+                raise RuntimeError(f"[accumulate] {name}: a block's frames report "
+                                   f"different sweeps")
+        else:
+            sweeps = int(its.sum())
+        expect_k4, expect_k2 = (0, sweeps + F) if name == "knn" else (sweeps, 0)
+        if k4 != expect_k4 or k2 != expect_k2 or (k4 + k2) <= 0:
+            raise RuntimeError(f"[accumulate] {name}: launches K4 {k4} / K2 {k2}, expected "
+                               f"{expect_k4} / {expect_k2}")
+        k4_total, k2_total = k4_total + k4, k2_total + k2
+        P = out.world_T.cpu().numpy()
+        if not np.isfinite(P).all():
+            raise RuntimeError(f"[accumulate] {name}: non-finite poses")
+        ate = ate_rmse(P[:, :3, 3], sq.poses[:F, :3, 3], align=False)
+        ref = ACC_ATE_JAX[name]
+        whole = ""
+        if name == "union":
+            whole = (f"; the whole run's ATE {ate:.5f} m (JAX CPU {ACC_UNION_ATE_JAX_ALL}, "
+                     f"chaotic: not held), the first {ACC_UNION_HELD_FRAMES} frames' held")
+            n = ACC_UNION_HELD_FRAMES
+            ate = ate_rmse(P[:n, :3, 3], sq.poses[:n, :3, 3], align=False)
+        band = ACC_ATE_BAND.get(name, ACC_REL_BAND * (ref or 0.0))
+        lost = int((out.fitness >= LOST_FITNESS).sum())
+        pts = (ti_scans if name.startswith("ti_") else scans).mask[:F].sum(dim=1).float().mean()
+        log(f"[accumulate] {name}: {F} frames ({pts:.1f} points a scan) in {dt:.3f} s = "
+            f"{F / dt:.1f} scans/s; K4 launches {k4}, K2 launches {k2} (expected "
+            f"{expect_k4} / {expect_k2}: GN sweeps {sweeps}){whole}; ATE (align=False) "
+            f"{ate:.5f} m against the JAX CPU run's {ref} (band {band:.4f}); lost frames {lost}; "
+            f"map voxels {int(state.vmap.num_voxels)}; {card}")
+        if lost or not abs(ate - ref) <= band:
+            FAILED.append(f"[accumulate] {name}: ATE {ate:.5f} m against {ref} +- {band:.4f}, "
+                          f"{lost} lost frames")
+        results[name] = (state, out)
+
+    # ---- the kernels at the new shapes against their plain versions ----
+    g = base.gicp
+    kw = dict(max_correspondence_dist=g.max_correspondence_dist, cov_eps=g.cov_epsilon)
+
+    def frozen_submap(state, pose):
+        vm = base.voxel_map
+        heading = matrix_to_rpy(pose[:3, :3])[2]
+        return voxel_map_sector_search_with_stats(
+            state.vmap, pose[:3, 3], vm.sector_radius, heading, vm.sector_half_angle_deg,
+            vm.submap_max_points, min_count=vm.stats_min_count,
+            fallback_var=vm.stats_fallback_var)
+
+    def sweep_case(tag, frames, state, out, sc):
+        """K4 on one cloud of `frames` scans (the last ones of the run, in
+        the last frame's tracked sensor frame) against the final map's
+        submap at the last pose, one transform, vs the plain version."""
+        last = out.world_T[-1]
+        rel = se3_inverse(last)[None] @ out.world_T[-frames:]
+        src = se3_apply(rel, sc.xyz[-frames:]).reshape(-1, 3).contiguous()
+        sm = out.insert_mask[-frames:].reshape(-1).contiguous()
+        scov = radar_point_covariances_packed(src, g.sigma_range, g.sigma_azimuth,
+                                              g.sigma_elevation).contiguous()
+        _, tmask, cnt, tmean, tcov = frozen_submap(state, last)
+        center = last[:3, 3]
+        T = last.clone()
+        T[:3, 3] = 0.0
+        args = (T, src, sm, scov, (tmean - center).contiguous(), tcov.contiguous(),
+                tmask.contiguous())
+        # prepared once, as a registration prepares its operands
+        ops = vf.vgicp_prepare(*args[1:], tgt_count=cnt)
+        k = vf.vgicp_sweep(T, ops, **kw)
+        p = vgicp_iteration_plain(*args, tgt_count=cnt, **kw)
+        err = 0.0
+        for n, a, b in zip(("H", "g", "cost", "wsum", "d2sum"), k, p):
+            a, b = a.double().cpu(), b.double().cpu()
+            if bool(((a - b).abs() > VG_ATOL + VG_RTOL * b.abs()).any()) or \
+                    not bool(torch.isfinite(a).all()):
+                raise RuntimeError(f"[accumulate] {tag}: K4 {n} beyond rtol {VG_RTOL} / "
+                                   f"atol {VG_ATOL} of the plain version")
+            err = max(err, (a - b).abs().max().item())
+        p1, k1, k2_, p2 = (time_cuda(torch, f, reps=5, warmup=1) for f in (
+            lambda: vgicp_iteration_plain(*args, tgt_count=cnt, **kw),
+            lambda: vf.vgicp_sweep(T, ops, **kw), lambda: vf.vgicp_sweep(T, ops, **kw),
+            lambda: vgicp_iteration_plain(*args, tgt_count=cnt, **kw)))
+        live = int(cnt.item())
+        b_ms, b_by = rl.vgicp_sweep_bound(1, src.shape[0], [live]).bound()
+        log(f"[accumulate] K4 on the {tag}: {src.shape[0]} sources x {tmean.shape[0]} rows "
+            f"({live} live), one transform: max abs err {err:.3e} against the plain version; "
+            f"the call on prepared operands {k1:.4f} / {k2_:.4f} ms, plain {p1:.4f} / "
+            f"{p2:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+        return dict(ms=(k1 + k2_) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms, max_abs_err=err)
+
+    # both on the window run's final map (the union's walks off the bench
+    # scene, its last submap holds ~190 live rows)
+    w_state, w_out = results["window"][:2]
+    union_row = sweep_case(f"union of {S2M_BLOCK} scans", S2M_BLOCK, w_state, w_out,
+                           scans[:ACC_WINDOW_FRAMES])
+    window_row = sweep_case("window of 4 scans", 4, w_state, w_out, scans[:ACC_WINDOW_FRAMES])
+
+    # K2 on the kNN run's sources: the last frame and its one window scan in
+    # the world frame at their tracked poses, against the final map's
+    # sector submap at the last pose
+    k_state, k_out = results["knn"][:2]
+    sc = scans[:ACC_KNN_FRAMES]
+    last = k_out.world_T[-1]
+    src = se3_apply(k_out.world_T[-2:], sc.xyz[-2:]).reshape(-1, 3).contiguous()
+    vm = base.voxel_map
+    submap, submask, _ = voxel_map_sector_search(
+        k_state.vmap, last[:3, 3], vm.sector_radius, matrix_to_rpy(last[:3, :3])[2],
+        vm.sector_half_angle_deg, vm.submap_max_points)
+    ops = nn.nn_prepare(submap.contiguous(), submask.contiguous())
+    ki, kd = nn.nn_search(src, ops)
+    pi, pd = nn.nn_search_plain(src, ops)
+    same = bool(torch.equal(ki, pi)) and bool(torch.equal(kd, pd))
+    nerr = (kd - pd).abs().max().item()
+    p1, c1, c2, p2 = (time_cuda(torch, f, reps=5, warmup=1) for f in (
+        lambda: nn.nn_search_plain(src, ops), lambda: nn.nn_search(src, ops),
+        lambda: nn.nn_search(src, ops), lambda: nn.nn_search_plain(src, ops)))
+    live = int((submask > 0.5).sum().item())
+    nb_ms, nb_by = rl.nn_search_bound(src.shape[0], submap.shape[0], [live]).bound()
+    log(f"[accumulate] K2 on {src.shape[0]} sources x {submap.shape[0]} rows ({live} live): "
+        f"indices and d2 equal to the plain version: {same} (max abs err {nerr:.3e}); the "
+        f"call on prepared targets {c1:.4f} / {c2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+        f"bound {nb_ms:.6f} ms ({nb_by})")
+    if not same:
+        raise RuntimeError("[accumulate] K2 at 4,096 sources differs from its plain version")
+
+    # ---- the roofline module's hot-kernel reports on the card ----
+    for rep in rl.measure_hot_kernels("cuda", reps=32):
+        log(f"[accumulate] roofline {rl.format_report(rep)} (launch floor "
+            f"{rep['launch_floor_ms']} ms)")
+    secs = time.perf_counter() - t_phase
+    log(f"[accumulate] phase seconds {secs:.1f} (budget {ACC_BUDGET_S} s)")
+    if secs > ACC_BUDGET_S:
+        FAILED.append(f"[accumulate] the phase took {secs:.1f} s, over its {ACC_BUDGET_S} s")
+    return (dict(accumulate_launches=k4_total,
+                 **{f"union_{k}": v for k, v in union_row.items()},
+                 **{f"window_{k}": v for k, v in window_row.items()}),
+            dict(accumulate_launches=k2_total, accumulate_ms=(c1 + c2) / 2,
+                 accumulate_plain_ms=(p1 + p2) / 2, accumulate_bound_ms=nb_ms,
+                 accumulate_max_abs_err=nerr))
+
+
 def ab_child(tree):
     """Times the K2, K3, K5 and K4 calls of the package in `tree` (this tree
     or the parent commit's) at the path shapes, on inputs made from a seed,
@@ -3810,6 +4076,8 @@ def main(argv) -> int:
     mark("parallel")
     dist16 = phase_distributed(torch, seq, scans, card)
     mark("distributed")
+    acc_k4, acc_k2 = phase_accumulate(torch, seq, scans, card)
+    mark("accumulate")
     if parent is not None:
         phase_ab(parent)
     if FAILED:
@@ -3823,9 +4091,9 @@ def main(argv) -> int:
          "replaces": VGICP_REPLACES, "launches": vg_launches, **vg,
          "batch_launches": batch["launches"], **vg_streams,
          "session_launches": session["session_launches"], **pg_k4, **host_k4,
-         "distributed_launches": dist16["k4"]},
+         "distributed_launches": dist16["k4"], **acc_k4},
         {"name": "nn_search", "route": "cuda", "source": NN_SOURCE,
-         "replaces": NN_REPLACES, "launches": nn_launches, **nn, **knn_batch},
+         "replaces": NN_REPLACES, "launches": nn_launches, **nn, **knn_batch, **acc_k2},
         {"name": "nn_pack", "route": "cuda", "source": NN_SOURCE,
          "replaces": NN_REPLACES, "launches": pack_launches, **pack, **pack_batch},
         {"name": "nn_coords", "route": "cuda", "source": NN_SOURCE,

@@ -44,9 +44,20 @@ correction; `insert_before_registration` inserts the scan at the predicted
 per-frame runner and the per-frame batch take `gt_poses`; the blocked
 runner has no such argument, as in the JAX package.
 
-Left out for good, raising NotImplementedError that names its place in
-`ROADMAP.md` ("Not ported"): `rigid_union`, `accumulate_scans > 1` and its
-`aux_world_xyz` / `insert_override`.
+Sparse-vendor tracking, as in the JAX package. With `accumulate_scans` =
+k > 1 the per-frame tracker keeps a ring of the last k - 1 refined, gated
+scans that are not in the map yet: they join each frame's registration as
+extra sources (`aux_world_xyz`, re-expressed in the predicted sensor frame
+for VGICP, kept in the world frame for kNN GICP), and the oldest of them is
+what the frame inserts (`insert_override`; frame 0 still seeds the empty
+map). Only the per-frame tracker reads `accumulate_scans`: the blocked
+runner's warm-up frames accumulate, its blocks do not, and a step, a
+session or the distributed pipeline runs as with k = 1. The override is
+ignored under `insert_before_registration`, as in the JAX package. The
+blocked runner's `rigid_union` registers each block's scans as one rigid
+cloud in the block-end predicted sensor frame: one GN correction for the
+whole block, applied to every prediction of the block, with no sequential
+re-track.
 """
 
 from __future__ import annotations
@@ -95,16 +106,6 @@ SEQUENTIAL_FALLBACK_BLOCKS = 0
 # Frames per REVE chunk in the blocked runner's precompute: the (frames, N,
 # H) residual tile is 310 MB for 248 frames at N = 2048, H = 152.
 REVE_FRAME_CHUNK = 64
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to icp4dradar_tpu_torch "
-                               f"(ROADMAP.md {where})")
-
-
-def _check_cfg(cfg: PipelineConfig) -> None:
-    if int(cfg.accumulate_scans) > 1:
-        raise _not_ported("accumulate_scans > 1", "'Not ported'")
 
 
 def _tracking_gate_enabled(cfg: PipelineConfig) -> bool:
@@ -265,23 +266,33 @@ def scan_to_map_step(
     skipped). `insert_before_registration`: insert the scan at the
     predicted pose before registering it, and not after.
 
+    Scan accumulation (`run_scan_to_map` with `accumulate_scans` > 1):
+    `aux_world_xyz` (A,3) and `aux_mask` (A,) are world-frame points that
+    join the registration only, re-expressed in the predicted sensor frame
+    (VGICP: N + A sources) or as they are (kNN GICP); they must not be in
+    the map. `insert_override` (xyz_world (N,3), mask (N,), intensity (N,))
+    is inserted in place of the corrected scan, which still seeds an empty
+    map; it is ignored under `insert_before_registration`, as in the JAX
+    package.
+
     On a batched state (B poses, a map of B tables) the frame is one scan
     per stream, (B, N) fields, uniforms (B, 3H), prior_delta and gt_pose
-    (B,4,4): one REVE pass, one sector query, one `vgicp_align_streams` (or
-    `gicp_align_streams`) and one insert for all streams. A single-stream
-    state steps as a batch of one, so that a stream tracks alike, bit for
-    bit, alone and in a batch."""
-    _check_cfg(cfg)
-    if aux_world_xyz is not None or aux_mask is not None or insert_override is not None:
-        raise _not_ported("aux_world_xyz / insert_override (scan accumulation)",
-                          "'Not ported'")
+    (B,4,4), aux points (B, A, 3) / (B, A) and the override's fields (B,
+    N, ...): one REVE pass, one sector query, one `vgicp_align_streams` (or
+    `gicp_align_streams`) and one insert (two with an override) for all
+    streams. A single-stream state steps as a batch of one, so that a
+    stream tracks alike, bit for bit, alone and in a batch."""
     if state.vmap.streams is None:
+        def lift(x):
+            return None if x is None else x[None]
+
         new_state, out = scan_to_map_step(
-            _lift_state(state), scan[None], uniforms[None], cfg,
-            gt_pose=None if gt_pose is None else gt_pose[None],
+            _lift_state(state), scan[None], uniforms[None], cfg, gt_pose=lift(gt_pose),
             insert_before_registration=insert_before_registration,
-            use_doppler_prior=use_doppler_prior,
-            prior_delta=None if prior_delta is None else prior_delta[None],
+            use_doppler_prior=use_doppler_prior, prior_delta=lift(prior_delta),
+            aux_world_xyz=lift(aux_world_xyz), aux_mask=lift(aux_mask),
+            insert_override=None if insert_override is None else tuple(
+                x[None] for x in insert_override),
             phase_times=phase_times)
         return _stream_state(new_state, 0), _stream_outputs(out, 0)
     vmcfg = cfg.voxel_map
@@ -304,6 +315,11 @@ def scan_to_map_step(
             vmap = voxel_map_insert(vmap, se3_apply(pose, scan.xyz), inlier_mask,
                                     scan.intensity)
     heading = matrix_to_rpy(pose[..., :3, :3])[..., 2]
+    reg_mask = inlier_mask
+    if aux_world_xyz is not None:
+        am = (torch.ones(aux_world_xyz.shape[:-1], dtype=inlier_mask.dtype, device=dev)
+              if aux_mask is None else aux_mask.to(inlier_mask.dtype))
+        reg_mask = torch.cat([inlier_mask, am], dim=-1)
     if cfg.gicp.use_vgicp:
         with _phase(phase_times, "sector_query", dev):
             _, submask, sub_n, sub_mean, sub_cov = voxel_map_sector_search_with_stats(
@@ -311,10 +327,16 @@ def scan_to_map_step(
                 vmcfg.sector_half_angle_deg, vmcfg.submap_max_points,
                 min_count=vmcfg.stats_min_count, fallback_var=vmcfg.stats_fallback_var)
         with _phase(phase_times, "gn", dev):
+            reg_xyz = scan.xyz
+            if aux_world_xyz is not None:
+                # past scans in the current predicted sensor frame: exact at
+                # the prediction, moved by the residual correction only
+                reg_xyz = torch.cat([scan.xyz, se3_apply(se3_inverse(pose), aux_world_xyz)],
+                                    dim=-2)
             src_cov6 = radar_point_covariances_packed(
-                scan.xyz, cfg.gicp.sigma_range, cfg.gicp.sigma_azimuth,
+                reg_xyz, cfg.gicp.sigma_range, cfg.gicp.sigma_azimuth,
                 cfg.gicp.sigma_elevation)
-            g = vgicp_align_streams(scan.xyz, sub_mean, sub_cov, inlier_mask, submask,
+            g = vgicp_align_streams(reg_xyz, sub_mean, sub_cov, reg_mask, submask,
                                     src_cov6, pose, cfg.gicp, tgt_count=sub_n)
         reg_T, fitness, iterations = g.transform, g.fitness, g.iterations
     else:
@@ -334,15 +356,23 @@ def scan_to_map_step(
                 tgt_cov = covariances_from_neighbors(submap, pn, torch.isfinite(d2n),
                                                      cfg.gicp.cov_epsilon)
         with _phase(phase_times, "gn", dev):
-            g = gicp_align_streams(se3_apply(pose, scan.xyz), submap, inlier_mask, submask,
-                                   cfg=cfg.gicp, tgt_cov=tgt_cov)
+            reg_world = se3_apply(pose, scan.xyz)
+            if aux_world_xyz is not None:
+                reg_world = torch.cat([reg_world, aux_world_xyz], dim=-2)
+            g = gicp_align_streams(reg_world, submap, reg_mask, submask, cfg=cfg.gicp,
+                                   tgt_cov=tgt_cov)
         reg_T = mm(g.transform, pose)                     # left-compose (ref :412)
         fitness, iterations = g.fitness, g.iterations
     new_T, insert_mask, _ = _apply_tracking_gate(cfg, pose, reg_T, fitness, inlier_mask)
     if not insert_before_registration:
         with _phase(phase_times, "insert", dev):
-            vmap = voxel_map_insert(vmap, se3_apply(new_T, scan.xyz), insert_mask,
-                                    scan.intensity)
+            mask = insert_mask
+            if insert_override is not None:
+                # the window's oldest scan enters the map; the current scan
+                # seeds it only while it is empty
+                vmap = voxel_map_insert(vmap, *insert_override)
+                mask = insert_mask * (~has_map)[..., None].to(insert_mask.dtype)
+            vmap = voxel_map_insert(vmap, se3_apply(new_T, scan.xyz), mask, scan.intensity)
     vmap = _forget(vmap, new_T, cfg, phase_times, dev)
     out = ScanToMapOutput(
         world_T=new_T, correction=mm(new_T, se3_inverse(pose)), velocity=est.velocity,
@@ -374,22 +404,43 @@ def _track_frames(scans, cfg, uniforms, use_doppler_prior, prior_deltas,
                   use_const_velocity_rot, init_state, phase_times, gt_poses=None,
                   insert_before_registration=False):
     """The per-frame tracker over (B, F, ...) scans: every frame of every
-    stream in one batched step. gt_poses: (B, F, 4, 4) or None."""
-    B, F = scans.xyz.shape[:2]
+    stream in one batched step. gt_poses: (B, F, 4, 4) or None. With
+    `accumulate_scans` = k > 1 each stream carries a ring (B, k - 1, N,
+    ...) of its last k - 1 refined, gated scans, not yet inserted: they
+    register with the frame, and the oldest is what the frame inserts."""
+    B, F, N = scans.xyz.shape[:3]
     dt, dev = scans.xyz.dtype, scans.device
     state = init_state if init_state is not None else scan_to_map_init(cfg, dt, dev, streams=B)
     prev_rot = torch.eye(4, dtype=dt, device=dev).expand(state.world_T.shape)
+    k = max(int(cfg.accumulate_scans), 1)
+    ring = None
+    if k > 1:
+        ring = (torch.zeros((B, k - 1, N, 3), dtype=dt, device=dev),
+                torch.zeros((B, k - 1, N), dtype=scans.mask.dtype, device=dev),
+                torch.zeros((B, k - 1, N), dtype=dt, device=dev))
     outs = []
     for f in range(F):
         pd = prior_deltas[:, f] if prior_deltas is not None else (
             prev_rot if use_const_velocity_rot else None)
+        aux = {}
+        if ring is not None:
+            aux = dict(aux_world_xyz=ring[0].flatten(1, 2), aux_mask=ring[1].flatten(1, 2),
+                       insert_override=tuple(x[:, 0] for x in ring))
+        scan = scans[:, f]
         new_state, out = scan_to_map_step(
-            state, scans[:, f], uniforms[:, f], cfg,
+            state, scan, uniforms[:, f], cfg,
             gt_pose=None if gt_poses is None else gt_poses[:, f],
             insert_before_registration=insert_before_registration,
-            use_doppler_prior=use_doppler_prior, prior_delta=pd, phase_times=phase_times)
+            use_doppler_prior=use_doppler_prior, prior_delta=pd, phase_times=phase_times,
+            **aux)
         delta = mm(se3_inverse(state.world_T), new_state.world_T)
         prev_rot = _with_rotation(delta[..., :3, :3])
+        if ring is not None:
+            # push this frame at its refined pose with its GATED inlier mask
+            # (the raw mask would readmit what REVE filtered); the inserted
+            # oldest shifts out
+            push = (se3_apply(new_state.world_T, scan.xyz), out.insert_mask, scan.intensity)
+            ring = tuple(torch.cat([r[:, 1:], x[:, None]], dim=1) for r, x in zip(ring, push))
         state = new_state
         outs.append(out)
     return state, _stack_outputs(outs, dim=1)
@@ -426,8 +477,10 @@ def run_scan_to_map(
     ignores it). `gt_poses` (F,4,4): map on ground truth, each frame
     predicted at its pose. `insert_before_registration`: insert each scan
     at its predicted pose before registering it. `init_state`: continue
-    from an existing {pose, map}."""
-    _check_cfg(cfg)
+    from an existing {pose, map}. With `cfg.accumulate_scans` = k > 1 the
+    last k - 1 refined scans register with each frame and enter the map k
+    - 1 frames late (`scan_to_map_step`'s `aux_world_xyz` and
+    `insert_override`)."""
     gt = None if gt_poses is None else gt_poses[None]
     return _alone(lambda sc, u, pd, st: _track_frames(
         sc, cfg, u, use_doppler_prior, pd, use_const_velocity_rot, st, phase_times,
@@ -528,24 +581,30 @@ def run_scan_to_map_blocked(
     when a dict, host-clock seconds per phase (reve, sort, sector_query,
     map_knn, gn, insert, forget) are added to it, with a device synchronize
     around each phase. Requires (F - block) % block == 0 (F % block == 0
-    with `init_state`)."""
-    _check_cfg(cfg)
-    if rigid_union:
-        raise _not_ported("rigid_union", "'Not ported'")
+    with `init_state`).
+
+    `rigid_union` (sparse vendors; with `parallel_frames`): each block's
+    scans go into the block-end predicted sensor frame through the chained
+    priors and register as ONE rigid cloud of block x N points, and that
+    one correction moves every prediction of the block; fitness,
+    convergence and iterations are the union's, for every frame. No block
+    re-tracks sequentially then."""
     return _alone(lambda sc, u, pd, st: _run_blocked(
         sc, cfg, u, block, use_doppler_prior, pd, use_const_velocity_rot, use_band_gating,
-        parallel_frames, st, sequential_fallback, phase_times),
+        parallel_frames, st, sequential_fallback, phase_times, rigid_union),
         scans, _uniforms_for(scans, cfg, uniforms, generator), prior_deltas, init_state)
 
 
 def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                  use_const_velocity_rot, use_band_gating, parallel_frames, init_state,
-                 sequential_fallback, phase_times):
+                 sequential_fallback, phase_times, rigid_union=False):
     """The blocked tracker over (B, F, ...) scans (uniforms (B, F, 3H),
     prior_deltas (B, F, 4, 4), a batched init_state), every stage running
     all streams in its launches. The sequential re-track of an unhealthy
     block steps frame by frame over the unhealthy streams alone;
-    `parallel_frames=False` steps frame by frame, all streams together."""
+    `parallel_frames=False` steps frame by frame, all streams together.
+    `rigid_union`: one `vgicp_align_streams` a block for all streams, each
+    stream's union of block x N sources against its own submap."""
     global SEQUENTIAL_FALLBACK_BLOCKS
     F = scans.xyz.shape[1]
     dt, dev = scans.xyz.dtype, scans.device
@@ -670,23 +729,40 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                     preds.append(pose)
                 preds = torch.stack(preds, dim=-3)                  # ([B,] block, 4, 4)
                 inl = frames(est_all.inlier_mask, kb)
-                g, wsum = vgicp_align_block(
-                    frames(rest.xyz, kb), sub_mean, sub_cov, inl, submask,
-                    frames(cov_all, kb), preds, cfg=cfg.gicp, tgt_count=sub_n,
-                    gate_axis=axis2)
-                # a frame that matches nothing reports fitness 0: fold the
-                # matched fraction into an EFFECTIVE fitness so both the
-                # fallback test and the tracking gate see the failure
-                nval = torch.clamp(torch.sum(inl, dim=-1), min=1.0)
-                fitness = torch.where(wsum / nval < 0.25, 1e6, g.fitness)
-                new_T, masks, _ = _apply_tracking_gate(cfg, preds, g.transform, fitness, inl)
+                if rigid_union:
+                    # one rigid cloud in the block-END predicted sensor
+                    # frame: scan i rides at inv(pred_last) pred_i, so the
+                    # one correction found applies to every prediction
+                    inv_last = se3_inverse(frames(preds, -1))
+                    union = se3_apply(mm(inv_last[:, None], preds), frames(rest.xyz, kb))
+                    gu = vgicp_align_streams(
+                        union.flatten(1, 2), sub_mean, sub_cov, inl.flatten(1, 2), submask,
+                        frames(cov_all, kb).flatten(1, 2), frames(preds, -1), cfg.gicp,
+                        tgt_count=sub_n, gate_axis=axis2)
+                    corr = mm(gu.transform, inv_last)
+                    transform = mm(corr[:, None], preds)
+                    fitness = gu.fitness[:, None].expand(inl.shape[:2])
+                    iterations = gu.iterations[:, None].expand(inl.shape[:2])
+                else:
+                    g, wsum = vgicp_align_block(
+                        frames(rest.xyz, kb), sub_mean, sub_cov, inl, submask,
+                        frames(cov_all, kb), preds, cfg=cfg.gicp, tgt_count=sub_n,
+                        gate_axis=axis2)
+                    # a frame that matches nothing reports fitness 0: fold
+                    # the matched fraction into an EFFECTIVE fitness so both
+                    # the fallback test and the tracking gate see the
+                    # failure
+                    nval = torch.clamp(torch.sum(inl, dim=-1), min=1.0)
+                    fitness = torch.where(wsum / nval < 0.25, 1e6, g.fitness)
+                    transform, iterations = g.transform, g.iterations
+                new_T, masks, _ = _apply_tracking_gate(cfg, preds, transform, fitness, inl)
                 outs = ScanToMapOutput(
                     world_T=new_T, correction=mm(new_T, se3_inverse(preds)),
                     velocity=frames(held_vel, kb), velocity_sigma=frames(est_all.sigma, kb),
                     velocity_valid=frames(held_valid, kb), fitness=fitness,
                     num_inliers=torch.sum(inl, dim=-1),
                     submap_points=sub_n[..., None].expand(fitness.shape),
-                    iterations=g.iterations, insert_mask=masks)
+                    iterations=iterations, insert_mask=masks)
                 pose = frames(new_T, -1)
                 # cv-rot seed for the next block from the last two
                 # CORRECTED poses
@@ -694,7 +770,7 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                     mm(se3_inverse(frames(new_T, -2)), frames(new_T, -1))[..., :3, :3])
                 healthy = torch.all((fitness < cfg.tracking.max_fitness)
                                     & torch.isfinite(fitness), dim=-1)
-                if sequential_fallback:
+                if sequential_fallback and not rigid_union:
                     # only the streams whose block looks lost re-track, all
                     # of them together (one host read a block)
                     lost = torch.nonzero(~healthy)[:, 0]
@@ -764,7 +840,6 @@ def run_scan_to_map_batch(
 def _batch_frames(scans, cfg, uniforms, gt_poses=None, insert_before_registration=False,
                   use_doppler_prior=True, prior_deltas=None, use_const_velocity_rot=False,
                   init_state=None, phase_times=None):
-    _check_cfg(cfg)
     if gt_poses is not None and gt_poses.dim() == 3:
         # one (F, 4, 4) track for every stream: the JAX batch closes over
         # its keyword arguments instead of mapping them over the streams
@@ -778,9 +853,6 @@ def _batch_blocked(scans, cfg, uniforms, block, use_doppler_prior=True, prior_de
                    use_const_velocity_rot=False, use_band_gating=True, parallel_frames=True,
                    init_state=None, rigid_union=False, sequential_fallback=False,
                    phase_times=None):
-    _check_cfg(cfg)
-    if rigid_union:
-        raise _not_ported("rigid_union", "'Not ported'")
     return _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                         use_const_velocity_rot, use_band_gating, parallel_frames,
-                        init_state, sequential_fallback, phase_times)
+                        init_state, sequential_fallback, phase_times, rigid_union)

@@ -82,6 +82,7 @@ VGICP_SWEEP_LAUNCHES = 0
 VGICP_FROZEN_LAUNCHES = 0
 
 _GRID_Y_MAX = 65535  # CUDA grid.y limit: frames per launch
+_INT_MAX = 2**31 - 1
 
 
 def radar_point_covariances_packed(
@@ -679,6 +680,10 @@ def _launch_sweep(Tk, ops, gate, eps, out, best=None):
     global VGICP_SWEEP_LAUNCHES
     lib = _lib()
     Nf, P = ops.per_frame, ops.rows
+    if ops.frames * Nf > _INT_MAX:
+        # the kernel takes each chunk's first source row as an int
+        raise ValueError(f"vgicp_sweep: {ops.frames} frames x {Nf} sources exceed the "
+                         f"kernel's int row offsets")
     with torch.cuda.device(ops.src.device):
         stream = torch.cuda.current_stream().cuda_stream
         for b0 in range(0, ops.frames, _GRID_Y_MAX):

@@ -4,7 +4,7 @@ tracker (block 8, 24 frames of 512 points, constant-velocity rotation
 prior) and the per-frame one (6 frames); each stream against the batch
 that orders the streams otherwise and against the port's single-stream
 runners; the per-stream sequential re-track of a stream whose block looks
-lost; the arguments a batch refuses.
+lost (accumulation and the rigid union in a batch: tests/test_torch_accumulate.py).
 
 Two scenes. "windows": the streams are windows of one sequence, frames
 [24 b, 24 b + 24), as the bench's batch cell cuts its streams. "sequences":
@@ -19,10 +19,11 @@ theirs).
 Tolerances. Against JAX, each stream as tests/test_torch_scan_to_map.py
 holds a single stream (`_assert_tracks`: positions 1e-2 m, rotation entries
 1e-3, ATE 1e-3 m, equal inlier counts, submap sizes within 1% plus two
-voxels, sweeps within two): against JAX's batch on the "windows" scene, and
-on the "sequences" scene against JAX's batch or JAX's single-stream runner
-of the same stream, two runs of the same semantics that lie farther apart
-there than the tolerance. A stream of the batch equals, bit for bit, the
+voxels, sweeps within two): against JAX's batch or JAX's batch on the scans
+moved by one ulp (a frame's sweeps differ by up to 2 between those two), and
+on the "sequences" scene also against JAX's single-stream runner of the same
+stream, runs of the same semantics that lie farther apart there than the
+tolerance. A stream of the batch equals, bit for bit, the
 same stream in a batch that orders the streams otherwise and the port's
 single-stream runner on it (a single stream runs as a batch of one):
 every output, the final pose and every table."""
@@ -157,8 +158,12 @@ def test_batch_matches_jax(block, frames, scene):
     assert pm.SEQUENTIAL_FALLBACK_BLOCKS == before
     assert po.world_T.shape == (B, frames, 4, 4) and po.insert_mask.shape == (B, frames, N)
     assert pst.world_T.shape == (B, 4, 4) and pst.vmap.streams == B
+    # JAX's own spread: its batch again on the scans moved by one ulp
+    nudged = js.replace(xyz=jnp.asarray(np.nextafter(np.asarray(js.xyz), np.float32(np.inf))))
+    _, jn = j_batch(jax.tree.map(lambda x: x[:, :frames], nudged), cfg, block=block,
+                    use_const_velocity_rot=True)
     for b in range(B):
-        refs = [jax.tree.map(lambda x, b=b: x[b], jo)]
+        refs = [jax.tree.map(lambda x, b=b: x[b], jo), jax.tree.map(lambda x, b=b: x[b], jn)]
         if scene == "sequences":
             refs.append(_jax_single(js, cfg, b, frames, block))
         ate = _assert_tracks_one_of(_stream(po, b), refs, gt[b])
@@ -241,11 +246,10 @@ def test_batch_sequential_fallback_retracks_only_the_lost_stream():
 
 
 def test_knn_gicp_batch_matches_jax():
-    """kNN GICP inside the per-frame batch (`gicp.use_vgicp=False`; the
-    refusal case of `test_batch_refuses_what_is_not_ported` until the
-    stream axis of the 1-NN search): each stream against JAX's vmapped
-    `run_scan_to_map_batch` on JAX's draws, with the tolerances of the
-    single-stream kNN parity test (tests/test_torch_scan_to_map.py:
+    """kNN GICP inside the per-frame batch (`gicp.use_vgicp=False`): each
+    stream against JAX's vmapped `run_scan_to_map_batch` on JAX's draws,
+    with the tolerances of the single-stream kNN parity test
+    (tests/test_torch_scan_to_map.py:
     `_assert_tracks`, fitness within 2e-3 relative), and stream 0 against
     the port's single-stream runner on the same draws, bit for bit."""
     frames = 6
@@ -267,16 +271,3 @@ def test_knn_gicp_batch_matches_jax():
         assert torch.equal(a, c), name
     for a, c in zip(pst.vmap.stream(0).tables(), sst.vmap.tables()):
         assert torch.equal(a, c)
-
-
-@pytest.mark.parametrize("override,kw", [
-    ({}, {"rigid_union": True, "block": 8}),
-    ({"accumulate_scans": 2}, {}),
-])
-def test_batch_refuses_what_is_not_ported(override, kw):
-    cfg = config_from_dict(_cfg().override(**override).to_dict())
-    _, ps, _ = _streams()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.run_scan_to_map_batch(ps[:, :4], cfg, **kw)
-    with pytest.raises(ValueError):
-        pm.run_scan_to_map_batch(ps[0], cfg)                  # no stream axis

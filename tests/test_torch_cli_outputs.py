@@ -201,6 +201,28 @@ def test_cli_bag_imu_prior_matches_jax_cli(tmp_path, capsys):
     assert "const gt=[[" in (port_dir / "viewer.html").read_text()
 
 
+def test_cli_accumulate_scans_matches_jax_cli(tmp_path, capsys):
+    """`--mode scan_to_map --set accumulate_scans=2` (the per-frame tracker
+    with a window of one refined scan that registers with each frame and
+    enters the map a frame late) in both CLIs: the same files, the JAX
+    CLI's record keys, and poses within the bag case's tolerance; the
+    window changes the port's track."""
+    port_dir, jax_dir, one_dir = tmp_path / "port", tmp_path / "jax", tmp_path / "one"
+    args = ["--mode", "scan_to_map", "--synthetic", "8", "--max-points", "256",
+            "--landmarks", "2000", "--cv-rot", "--set", "voxel_map.capacity=16384"]
+    acc = ["--set", "accumulate_scans=2"]
+    assert port_cli.main(args + acc + ["--device", "cpu", "--out", os.fspath(port_dir)]) == 0
+    assert jax_cli.main(args + acc + ["--cpu", "--out", os.fspath(jax_dir)]) == 0
+    assert port_cli.main(args + ["--device", "cpu", "--out", os.fspath(one_dir)]) == 0
+    capsys.readouterr()
+    port_rec, jax_rec = _compare_dirs(port_dir, jax_dir, [
+        "metrics.jsonl", "odom_tum.txt", "pcl_info.txt", "radar_odometry.txt", "velocity.txt"])
+    assert port_rec["frames"] == 8 and abs(port_rec["ate_rmse_m"] - jax_rec["ate_rmse_m"]) <= 5e-3
+    pose = np.loadtxt(port_dir / "radar_odometry.txt")
+    np.testing.assert_allclose(pose, np.loadtxt(jax_dir / "radar_odometry.txt"), atol=5e-3)
+    assert not np.array_equal(pose, np.loadtxt(one_dir / "radar_odometry.txt"))
+
+
 def test_cli_replay_with_steady_state_matches_jax_cli(tmp_path, capsys):
     """`--replay` of the port's own scan_to_scan run, with `--steady-state`,
     in both CLIs: the same files, the run's poses back within the CSV's six

@@ -119,11 +119,69 @@ def test_solve_spd6_eigvals_and_condition():
     np.testing.assert_allclose(np.einsum("nij,nj->ni", H, x.numpy()), b, atol=1e-3)
     A = (J[:, :3, :3].transpose(0, 2, 1) @ J[:, :3, :3]).astype(np.float32)
     A[0] = np.diag([2.0, 2.0, 2.0])               # the near-diagonal branch
-    _close(pg.sym3x3_eigvals(torch.tensor(A)), jl.sym3x3_eigvals(jnp.asarray(A)), 1e-4)
-    np.testing.assert_allclose(pg.condition_number(torch.tensor(A)).numpy(),
-                               np.asarray(jl.condition_number(jnp.asarray(A))), rtol=1e-3)
+    ev_p = pg.sym3x3_eigvals(torch.tensor(A)).numpy()
+    ev_j = np.asarray(jl.sym3x3_eigvals(jnp.asarray(A)))
+    _close(torch.tensor(ev_p), ev_j, 1e-4)
+    ev64 = np.linalg.eigvalsh(A.astype(np.float64))
+    _assert_eigvals_within(ev_p, ev64)
+    _assert_eigvals_within(ev_j, ev64)
+    _assert_eigvals_within(ev_p, ev_j, 2)
+    # matrix 6 has a condition number of ~1.9e5: each package's is held to
+    # the interval its eigenvalue bounds allow around float64's
+    _assert_condition_within(pg.condition_number(torch.tensor(A)).numpy(), ev64)
+    _assert_condition_within(np.asarray(jl.condition_number(jnp.asarray(A))), ev64)
     np.testing.assert_allclose(pg.condition_number(torch.tensor(H)).numpy(),
                                np.asarray(jl.condition_number(jnp.asarray(H))), rtol=1e-3)
+
+
+# The closed-form 3x3 eigenvalues e = q + 2p cos(phi + 2k pi/3) of a PSD
+# matrix add two terms of at most lam_max (q <= lam_max, 2p <= 2 lam_max / 3),
+# each carrying a few float32 roundings (the trace and its third; the 9-term
+# sum, the division and the square root of p; the determinant ratio, arccos
+# and cos), so an eigenvalue lies within a few eps * lam_max of the exact one
+# whatever order a host's reductions and libm take: 4 eps * lam_max is held
+# (measured at most 2.15 eps * lam_max, for both packages on two hosts). At a
+# condition number of 1.9e5 that is ~10% of lam_min, which no relative
+# tolerance on the condition number can state.
+EIG_BOUND = 4.0
+
+
+def _assert_eigvals_within(ev, ref, bounds=1):
+    """ev within `bounds` x EIG_BOUND eps lam_max of ref, per matrix."""
+    lam_max = np.abs(ref).max(axis=-1, keepdims=True)
+    tol = bounds * EIG_BOUND * np.finfo(np.float32).eps * lam_max
+    err = np.abs(ev.astype(np.float64) - ref)
+    assert (err <= tol).all(), (err / tol).max()
+
+
+def _assert_condition_within(kappa, ev64):
+    """kappa inside [(lam_max - b) / (lam_min + b), (lam_max + b) /
+    (lam_min - b)] around float64's eigenvalues, b the eigenvalue bound
+    (matrices with lam_min > b)."""
+    b = EIG_BOUND * np.finfo(np.float32).eps * np.abs(ev64).max(axis=-1)
+    lo, hi = np.abs(ev64[:, 0]), np.abs(ev64[:, -1])
+    ok = lo > b
+    assert ok.sum() > 20
+    kmin, kmax = (hi - b) / (lo + b), (hi + b) / (lo - b)
+    k = kappa.astype(np.float64)[ok]
+    assert ((k >= kmin[ok] * (1 - 1e-6)) & (k <= kmax[ok] * (1 + 1e-6))).all()
+
+
+def test_eigenvalue_bound_catches_a_fault():
+    """The bound of `test_solve_spd6_eigvals_and_condition` fails an
+    eigenvalue off by 10 eps lam_max, and a condition number computed from
+    it, on the same matrices."""
+    rng = np.random.default_rng(6)
+    J = rng.normal(size=(32, 12, 6)).astype(np.float32)
+    A = (J[:, :3, :3].transpose(0, 2, 1) @ J[:, :3, :3]).astype(np.float64)
+    ev64 = np.linalg.eigvalsh(A)
+    _assert_eigvals_within(ev64.astype(np.float32), ev64)
+    bad = ev64.copy()
+    bad[6, 0] += 10 * np.finfo(np.float32).eps * np.abs(ev64[6]).max()
+    with pytest.raises(AssertionError):
+        _assert_eigvals_within(bad, ev64)
+    with pytest.raises(AssertionError):
+        _assert_condition_within(bad[:, -1] / bad[:, 0], ev64)
 
 
 def _dominant_branch_rotations():

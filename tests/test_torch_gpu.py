@@ -381,6 +381,34 @@ def test_vgicp_kernel_stream_axis(cuda, S, F, N, P, counts):
         _assert_vgicp_close(k, p)
 
 
+@pytest.mark.parametrize("S,N,counts", [
+    (1, 16384, (2932,)),                          # the rigid union: 8 x 2048 sources
+    (4, 16384, (801, 189, 2932, 16384)),          # a union a stream (the blocked batch)
+    (1, 8192, (2932,))])                          # a window of 4 scans (accumulate_scans=4)
+def test_vgicp_kernel_at_the_union_and_window_shapes(cuda, S, N, counts):
+    """K4 at the sparse-vendor paths' shapes, packed as the trackers pack
+    them (ts 2048, one transform a stream against its own 16,384-row
+    submap): one launch, no host sync, equal to the plain version within
+    the single-target tests' tolerance."""
+    from icp4dradar_tpu_torch.ops.vgicp_fused import vgicp_prepare, vgicp_sweep
+
+    T, src, sm, scov, tgt, tcov, tmask, cnt = _streams_case(
+        np.random.default_rng(S + N), S, 1, N, 16384, counts, cuda)
+    ops = vgicp_prepare(src, sm, scov, tgt, tcov, tmask, tgt_count=cnt)
+    assert ops.ts == 2048 and ops.frames == S
+    before = vgicp_fused.VGICP_SWEEP_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k = vgicp_sweep(T, ops, _acc_groups=S)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert vgicp_fused.VGICP_SWEEP_LAUNCHES == before + 1
+    p = vgicp_iteration_plain(T, src.reshape(-1, 3), sm.reshape(-1), scov.reshape(-1, 6), tgt,
+                              tcov, tmask, tgt_count=cnt, _acc_groups=S)
+    _assert_vgicp_close(k, p)
+
+
 def test_batched_map_cuda_matches_cpu(cuda):
     """A batched map's insert (with and without the leader budget), forget
     and rehash on the card give the CPU's tables, bit for bit."""
@@ -588,6 +616,7 @@ def _assert_nn_equal(src, tgt, mask):
 
 
 @pytest.mark.parametrize("n,m,live", [(1, 1, 1.0), (2048, 16384, 0.05), (2048, 16384, 1.0),
+                                      (4096, 16384, 0.15),   # kNN GICP with a window scan
                                       (1000, 5001, 0.7), (130, 300, 0.5)])
 def test_nn_kernels_match_plain(cuda, n, m, live):
     src, tgt, mask = _nn_case(np.random.default_rng(n + m), n, m, live, cuda)

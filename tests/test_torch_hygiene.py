@@ -1,17 +1,22 @@
 """The port stands alone: no source of `icp4dradar_tpu_torch` (or
 `chip_smoke.py`) imports jax, flax or the JAX package, and running its
-slices (scan-to-scan, the blocked VGICP tracker, the kNN-GICP tracker, a
+slices (scan-to-scan, the blocked VGICP tracker, the kNN-GICP tracker,
+scan accumulation and the rigid block union, the roofline module, a
 streaming session, the pose-graph pipeline, the distributed pipeline in a
 world of one, the host side: a bag through
 the native streamer with IMU priors, the replay, PCD and the native .bin
 loader) leaves them out of sys.modules. Its native libraries build under
 `build/`, never beside their sources, and it exports the JAX package's
-public names of `io`, `utils`, `preprocess`, `models` and `parallel`."""
+public names of `io`, `utils`, `preprocess`, `models`, `parallel`, `ops`
+(three oracles under the port's names), `geom`, `graph`, `mapping` and
+`registration`."""
 
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
@@ -59,6 +64,14 @@ _, out = run_scan_to_map_blocked(scans, cfg, block=4, use_const_velocity_rot=Tru
 assert torch.isfinite(out.world_T).all() and out.world_T.shape == (8, 4, 4)
 _, out = run_scan_to_map(scans[:4], cfg.override(**{"gicp.use_vgicp": False}))
 assert torch.isfinite(out.world_T).all() and out.world_T.shape == (4, 4, 4)
+_, out = run_scan_to_map(scans[:4], cfg.override(accumulate_scans=2))
+assert torch.isfinite(out.world_T).all()
+_, out = run_scan_to_map_blocked(scans, cfg, block=4, use_const_velocity_rot=True,
+                                 rigid_union=True)
+assert torch.isfinite(out.world_T).all() and out.world_T.shape == (8, 4, 4)
+from icp4dradar_tpu_torch.utils import cache, roofline
+assert roofline.vgicp_sweep_bound(8, 2048, [801]).bound()[1] == 'operations'
+assert cache.setup_compilation_cache() == ''
 from icp4dradar_tpu_torch.models import local_map, streaming, submap
 from icp4dradar_tpu_torch.utils import checkpoint
 sess = streaming.OdometrySession(cfg, device="cpu")
@@ -143,3 +156,30 @@ def test_port_exports_the_jax_public_names():
         assert missing == (PARALLEL_NOT_YET if sub == "parallel" else []), (sub, missing)
         if sub == "parallel":
             assert len(names) == 25
+
+
+# The JAX package's `ops` oracles the port names otherwise: the Pallas
+# kernels' wrappers are the port's CUDA wrappers (on targets packed once,
+# `nn_prepare`), the XLA oracle its plain version
+OPS_RENAMED = {"nearest_neighbor_pallas": "nn_search",
+               "nearest_neighbor_coords_pallas": "nn_search_coords",
+               "nearest_neighbor_xla": "nearest_neighbor_plain"}
+
+
+@pytest.mark.parametrize("sub", ["ops", "geom", "graph", "mapping", "registration"])
+def test_port_exports_the_jax_public_names_of(sub):
+    """Every public name of the JAX package's `sub` is exported by the
+    port's `sub`, under its own name or, for `ops`, under the name
+    `OPS_RENAMED` gives it; any other missing name fails."""
+    import ast
+    import importlib
+
+    tree = ast.parse((REPO / "icp4dradar_tpu" / sub / "__init__.py").read_text())
+    names = {a.asname or a.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert names
+    port = importlib.import_module(f"icp4dradar_tpu_torch.{sub}")
+    renamed = OPS_RENAMED if sub == "ops" else {}
+    missing = sorted(n for n in names if not hasattr(port, renamed.get(n, n)))
+    assert missing == [], (sub, missing)
+    assert set(renamed) <= names
