@@ -16,6 +16,7 @@ import torch
 
 from icp4dradar_tpu_torch.geom.se3 import se3_from_rt
 from icp4dradar_tpu_torch.geom.so3 import quat_to_matrix
+from icp4dradar_tpu_torch.utils.profiling import count
 
 
 def kabsch_umeyama(
@@ -57,7 +58,9 @@ def _rotation_from_cross_covariance(H: torch.Tensor, iters: int = 50) -> torch.T
     # shift so the max eigenvalue of N dominates in magnitude
     shift = torch.sqrt(torch.sum(N * N, dim=(-1, -2), keepdim=True)) + 1e-12
     M = N + shift * torch.eye(4, dtype=H.dtype, device=H.device)
-    # fixed non-axis-aligned start vector avoids orthogonal-start stalls
+    # fixed non-axis-aligned start vector avoids orthogonal-start stalls (a
+    # copy from the host: on a card, it waits for the stream)
+    count("host_syncs")
     v = torch.tensor([0.577, 0.211, 0.317, 0.722], dtype=H.dtype,
                      device=H.device).expand(H.shape[:-2] + (4,))
     for k in range(iters):

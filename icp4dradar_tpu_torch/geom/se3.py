@@ -12,6 +12,7 @@ import torch
 
 from icp4dradar_tpu_torch.geom.linalg import broadcast_shape, small_matmul
 from icp4dradar_tpu_torch.geom.so3 import _eye3_like, so3_exp, so3_hat, so3_log
+from icp4dradar_tpu_torch.utils.profiling import count
 
 
 def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
@@ -24,6 +25,7 @@ def se3_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
+    count("host_syncs")            # a copy from the host: on a card, it waits for the stream
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
                           device=R.device).expand(batch + (4,))[..., None, :]
     return torch.cat([top, bottom], dim=-2)

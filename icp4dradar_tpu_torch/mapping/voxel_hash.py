@@ -62,6 +62,7 @@ import torch
 
 from icp4dradar_tpu_torch.ops.compaction import mask_compact
 from icp4dradar_tpu_torch.ops.knn import k_smallest
+from icp4dradar_tpu_torch.utils import profiling
 
 _P1, _P2, _P3 = 73856093, 19349669, 83492791  # classic spatial-hash primes
 _EMPTY = 0x7FFFFFFF
@@ -327,7 +328,10 @@ def voxel_map_insert(
         alive = alive & ~resolved & (offset < mp)
         rnd += 1
         # backstop only: claim losers progress every round
-        if rnd >= 2 * mp or not bool(alive.any()):
+        if rnd >= 2 * mp:
+            break
+        profiling.count("host_syncs")
+        if not bool(alive.any()):
             break
 
     # ---- phase 3: payload writes and moment deposits, once.
@@ -419,6 +423,7 @@ def voxel_map_sector_search_with_stats(
         ex2[..., 4] - mu[..., 0] * mu[..., 2],
         ex2[..., 5] - mu[..., 1] * mu[..., 2],
     ], dim=-1)
+    profiling.count("host_syncs")      # a copy from the host: on a card, it waits for the stream
     iso = torch.tensor([fallback_var, fallback_var, fallback_var, 0.0, 0.0, 0.0],
                        dtype=cov.dtype, device=cov.device)
     cov = torch.where(out[..., 3:4] < min_count, iso, cov)
@@ -572,7 +577,10 @@ def voxel_map_rehash(vmap: VoxelHashMap) -> VoxelHashMap:
     slot_res = torch.full((SC,), SC, dtype=torch.int32, device=dev)
     offset = torch.zeros(SC, dtype=torch.int32, device=dev)
     rnd = 0
-    while rnd < vmap.max_probes and bool(alive.any()):
+    while rnd < vmap.max_probes:
+        profiling.count("host_syncs")
+        if not bool(alive.any()):
+            break
         slot = ((h0 + offset) & (C - 1)) + base_s
         empty = (keys_new[torch.where(alive, slot, SC).long()][:, 0] == _EMPTY) & alive
         claim_idx = torch.where(empty, slot, SC).long()
@@ -605,6 +613,7 @@ def voxel_map_maybe_rehash(vmap: VoxelHashMap,
     over it. One host read of the trigger."""
     tombs = torch.sum((vmap.keys[..., 0] != _EMPTY) & (vmap.occupied <= 0.5), dim=-1)
     need = tombs > tombstone_fraction * vmap.capacity
+    profiling.count("host_syncs")
     if vmap.streams is None:
         return voxel_map_rehash(vmap) if bool(need) else vmap
     idx = torch.nonzero(need)[:, 0]
@@ -760,7 +769,10 @@ def voxel_map_knn_exact(
     best_pts = torch.zeros(lead + (k, 3), dtype=dt, device=dev)
     md2 = float(np.float32(max_dist * max_dist))
     c = 0
-    while c < n_chunks and bool(torch.any(best_d2[..., k - 1] > float(lb2[c]))):
+    while c < n_chunks:
+        profiling.count("host_syncs")
+        if not bool(torch.any(best_d2[..., k - 1] > float(lb2[c]))):
+            break
         pts, found = _lookup_voxels(vmap, base[..., None, :] + chunk_off[c])
         d2 = _sq_dist(pts, queries)
         d2 = torch.where(found & chunk_valid[c] & (d2 < md2), d2, math.inf)

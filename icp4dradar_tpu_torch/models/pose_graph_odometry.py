@@ -197,7 +197,7 @@ def run_pose_graph_odometry(
                         "DeviceMesh (parallel.make_mesh)")
     dev = scans.xyz.device
     F = scans.xyz.shape[0]
-    with _phase(phase_times, "front_end", dev):
+    with _phase(phase_times, "front_end", dev, "pg."):
         odom = _front_end(scans, cfg, front_end, uniforms)
 
     kf = np.arange(0, F, keyframe_every)
@@ -233,7 +233,7 @@ def run_pose_graph_odometry(
             cfg.icp, max_iterations=max(cfg.icp.max_iterations, 30),
             max_correspondence_dist=min(cfg.icp.max_correspondence_dist, 2.0),
             transformation_epsilon=1e-5)
-        with _phase(phase_times, "loop_icp", dev):
+        with _phase(phase_times, "loop_icp", dev, "pg."):
             init_T = torch.from_numpy(_relative_between(odom, tgt_idx, src_idx)).to(dev)
             src = scans[torch.from_numpy(src_idx).to(dev)]
             tgt = scans[torch.from_numpy(tgt_idx).to(dev)]
@@ -304,9 +304,9 @@ def run_pose_graph_odometry(
         for _ in range(cfg.structure.rounds if structure_factors else 1):
             struct = {}
             if structure_factors:
-                with _phase(phase_times, "structure", dev):
+                with _phase(phase_times, "structure", dev, "pg."):
                     struct = _mine_structure_factors(scans, cfg, kf, frames_cur, kf_cur)
-            with _phase(phase_times, "optimize", dev):
+            with _phase(phase_times, "optimize", dev, "pg."):
                 graph, cost = solve(PoseGraph(poses=torch.from_numpy(kf_cur).to(dev),
                                               rel=rel, **struct))
                 kf_cur = graph.poses.cpu().numpy()
@@ -322,7 +322,7 @@ def run_pose_graph_odometry(
             # the gating pass: every loop factor's weight capped uniformly
             # LOW (the chain keeps its weight), so no single closure can
             # dominate and a bogus one shows its full residual
-            with _phase(phase_times, "gate", dev):
+            with _phase(phase_times, "gate", dev, "pg."):
                 w_gate = np.asarray(f_w, np.float32).copy()
                 w_gate[n_chain:] = np.minimum(w_gate[n_chain:], odom_weight * 0.01)
                 graph_g, _ = solve(PoseGraph(poses=torch.from_numpy(kf_odom).to(dev),

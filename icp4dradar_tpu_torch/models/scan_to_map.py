@@ -25,6 +25,11 @@ beyond it and, once tombstones pile up, a rehash.
   single-stream runners run their stream as a batch of one, so that a
   stream tracks alike, bit for bit, alone and in a batch.
 
+A runner's call is the span `s2m.replay` (`utils/profiling.py`); each
+phase (reve, sort, sector_query, map_knn, gn, insert, forget) is a span
+`s2m.<phase>`, the blocked runner's warm-up frames `s2m.warmup` and its
+sequential re-track `s2m.fallback`.
+
 RANSAC draws for REVE are an input, (F, 3H) (`preprocess/reve.py`); when
 absent they come from a `torch.Generator` seeded with `cfg.seed`.
 
@@ -97,6 +102,7 @@ from icp4dradar_tpu_torch.registration.gicp import (
     gicp_align_streams,
 )
 from icp4dradar_tpu_torch.registration.vgicp import vgicp_align_block, vgicp_align_streams
+from icp4dradar_tpu_torch.utils.profiling import count, span
 
 # Blocks of `run_scan_to_map_blocked` in this process that fell back to the
 # sequential re-track (a lost or unhealthy joint registration); a batch
@@ -187,20 +193,25 @@ def _cat_outputs(parts, dim=0) -> ScanToMapOutput:
     return _map_outputs(lambda xs: torch.cat(xs, dim), *parts)
 
 
-@contextlib.contextmanager
-def _phase(times: Optional[Dict[str, float]], name: str, device):
-    """Host-clock time of a phase, added to times[name]; synchronizes the
-    device before and after, and does nothing when `times` is None."""
+def _phase(times: Optional[Dict[str, float]], name: str, device, prefix: str = "s2m."):
+    """The phase `name` as the span `<prefix><name>`, which never
+    synchronizes; when `times` is a dict, also the phase's host-clock time,
+    added to times[name], with the device synchronized before and after."""
     if times is None:
+        return span(prefix + name)
+    return _timed_phase(times, name, device, prefix)
+
+
+@contextlib.contextmanager
+def _timed_phase(times: Dict[str, float], name: str, device, prefix: str):
+    with span(prefix + name):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
         yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
 
 
 def scan_to_map_init(cfg: PipelineConfig = PipelineConfig(), dtype=torch.float32,
@@ -482,10 +493,11 @@ def run_scan_to_map(
     - 1 frames late (`scan_to_map_step`'s `aux_world_xyz` and
     `insert_override`)."""
     gt = None if gt_poses is None else gt_poses[None]
-    return _alone(lambda sc, u, pd, st: _track_frames(
-        sc, cfg, u, use_doppler_prior, pd, use_const_velocity_rot, st, phase_times,
-        gt_poses=gt, insert_before_registration=insert_before_registration),
-        scans, _uniforms_for(scans, cfg, uniforms, generator), prior_deltas, init_state)
+    with span("s2m.replay", anchor=True):
+        return _alone(lambda sc, u, pd, st: _track_frames(
+            sc, cfg, u, use_doppler_prior, pd, use_const_velocity_rot, st, phase_times,
+            gt_poses=gt, insert_before_registration=insert_before_registration),
+            scans, _uniforms_for(scans, cfg, uniforms, generator), prior_deltas, init_state)
 
 
 def _sort_scans_by_sensor_x(scans: RadarScan) -> RadarScan:
@@ -589,10 +601,11 @@ def run_scan_to_map_blocked(
     one correction moves every prediction of the block; fitness,
     convergence and iterations are the union's, for every frame. No block
     re-tracks sequentially then."""
-    return _alone(lambda sc, u, pd, st: _run_blocked(
-        sc, cfg, u, block, use_doppler_prior, pd, use_const_velocity_rot, use_band_gating,
-        parallel_frames, st, sequential_fallback, phase_times, rigid_union),
-        scans, _uniforms_for(scans, cfg, uniforms, generator), prior_deltas, init_state)
+    with span("s2m.replay", anchor=True):
+        return _alone(lambda sc, u, pd, st: _run_blocked(
+            sc, cfg, u, block, use_doppler_prior, pd, use_const_velocity_rot, use_band_gating,
+            parallel_frames, st, sequential_fallback, phase_times, rigid_union),
+            scans, _uniforms_for(scans, cfg, uniforms, generator), prior_deltas, init_state)
 
 
 def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
@@ -634,12 +647,14 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
 
     if F0 > 0:
         warm = slice(0, F0)
-        state, warm_outs = _track_frames(
-            frames(scans, warm), cfg, frames(uniforms, warm), use_doppler_prior,
-            None if prior_deltas is None else frames(prior_deltas, warm),
-            use_const_velocity_rot, None, phase_times)
-        warm_delta = mm(se3_inverse(frames(warm_outs.world_T, -2)), frames(warm_outs.world_T, -1))
-        prev_rot = _with_rotation(warm_delta[..., :3, :3])
+        with span("s2m.warmup"):
+            state, warm_outs = _track_frames(
+                frames(scans, warm), cfg, frames(uniforms, warm), use_doppler_prior,
+                None if prior_deltas is None else frames(prior_deltas, warm),
+                use_const_velocity_rot, None, phase_times)
+            warm_delta = mm(se3_inverse(frames(warm_outs.world_T, -2)),
+                            frames(warm_outs.world_T, -1))
+            prev_rot = _with_rotation(warm_delta[..., :3, :3])
     else:
         state, warm_outs = init_state, None
         prev_rot = torch.eye(4, dtype=dt, device=dev).expand(state.world_T.shape)
@@ -773,16 +788,18 @@ def _run_blocked(scans, cfg, uniforms, block, use_doppler_prior, prior_deltas,
                 if sequential_fallback and not rigid_union:
                     # only the streams whose block looks lost re-track, all
                     # of them together (one host read a block)
+                    count("host_syncs")
                     lost = torch.nonzero(~healthy)[:, 0]
                     if lost.numel():
                         SEQUENTIAL_FALLBACK_BLOCKS += lost.numel()
-                        p_l, r_l, o_l = sequential(
-                            pose0[lost], prev_rot[lost],
-                            tuple(None if x is None else x[lost] for x in frozen), ks, lost)
-                        pose, next_rot = pose.index_copy(0, lost, p_l), \
-                            next_rot.index_copy(0, lost, r_l)
-                        outs = _map_outputs(lambda xs: xs[0].index_copy(0, lost, xs[1]),
-                                            outs, o_l)
+                        with span("s2m.fallback"):
+                            p_l, r_l, o_l = sequential(
+                                pose0[lost], prev_rot[lost],
+                                tuple(None if x is None else x[lost] for x in frozen), ks, lost)
+                            pose, next_rot = pose.index_copy(0, lost, p_l), \
+                                next_rot.index_copy(0, lost, r_l)
+                            outs = _map_outputs(lambda xs: xs[0].index_copy(0, lost, xs[1]),
+                                                outs, o_l)
                 prev_rot = next_rot
             else:
                 pose, prev_rot, outs = sequential(pose0, prev_rot, frozen, ks, slice(None))
@@ -830,11 +847,12 @@ def run_scan_to_map_batch(
     if scans.xyz.dim() != 4:
         raise ValueError(f"run_scan_to_map_batch takes (B, F, N, 3) scans, got "
                          f"{tuple(scans.xyz.shape)}")
-    uniforms = _uniforms_for(scans, cfg, uniforms, generator)
-    if block > 1:
-        kwargs.setdefault("sequential_fallback", False)
-        return _batch_blocked(scans, cfg, uniforms, block, **kwargs)
-    return _batch_frames(scans, cfg, uniforms, **kwargs)
+    with span("s2m.replay", anchor=True):
+        uniforms = _uniforms_for(scans, cfg, uniforms, generator)
+        if block > 1:
+            kwargs.setdefault("sequential_fallback", False)
+            return _batch_blocked(scans, cfg, uniforms, block, **kwargs)
+        return _batch_frames(scans, cfg, uniforms, **kwargs)
 
 
 def _batch_frames(scans, cfg, uniforms, gt_poses=None, insert_before_registration=False,

@@ -9,7 +9,9 @@ point-to-point ICP current -> last, right-composed pose
 `run_scan_to_scan` runs a stacked sequence in three frame-parallel phases:
 preprocessing in frame chunks, ONE batched ICP over every frame pair (one
 kernel launch per iteration for all pairs), then the tracking gate, the
-suspect-pair motion hold and the pose chain as log-depth scans.
+suspect-pair motion hold and the pose chain as log-depth scans. A call
+is the span `s2s.replay`, its phases `s2s.preprocess`, `s2s.icp`,
+`s2s.gate` and `s2s.chain` (`utils/profiling.py`).
 
 Extensions beyond parity (config-gated, as in the JAX package):
 `use_doppler_prior` seeds ICP with the Doppler ego-velocity translation;
@@ -38,6 +40,7 @@ from icp4dradar_tpu_torch.preprocess.doppler import (
     static_dynamic_split,
 )
 from icp4dradar_tpu_torch.registration.icp import icp_point_to_point
+from icp4dradar_tpu_torch.utils.profiling import count, span
 
 
 @dataclass(frozen=True)
@@ -198,40 +201,52 @@ def run_scan_to_scan(
     uniforms: (F, 2, H) RANSAC draws; when None they are drawn from
     `generator`, or from a generator on the scans' device seeded with
     `cfg.seed`."""
+    with span("s2s.replay", anchor=True):
+        return _run_scan_to_scan(scans, cfg, uniforms, use_doppler_prior,
+                                 use_static_points_only, generator)
+
+
+def _run_scan_to_scan(scans, cfg, uniforms, use_doppler_prior, use_static_points_only,
+                      generator):
     dev = scans.device
 
     # Phase 1: per-frame preprocessing, in frame chunks.
-    fits, statics, velocities = preprocess_frames(
-        scans, _uniforms_for(scans, cfg, uniforms, generator), cfg.doppler)
+    with span("s2s.preprocess"):
+        fits, statics, velocities = preprocess_frames(
+            scans, _uniforms_for(scans, cfg, uniforms, generator), cfg.doppler)
 
     # Phase 2: every frame pair (k, k-1) in one batched ICP.
     def prev(x):
         return torch.cat([x[:1], x[:-1]])
 
-    src_mask = statics if use_static_points_only else scans.mask
-    tgt_mask = prev(statics) if use_static_points_only else prev(scans.mask)
-    init_T = _init_transform(velocities, use_doppler_prior)
-    res = icp_point_to_point(scans.xyz, prev(scans.xyz), src_mask, tgt_mask,
-                             init_transform=init_T, cfg=cfg.icp)
-    T_rel, accepted = _gate_relative(cfg, res.transform, init_T, res.fitness)
-    # frame 0 pairs with itself: exactly identity, so a prior-seeded ICP
-    # residual cannot shift the trajectory's anchor
-    T_rel = T_rel.clone()
-    T_rel[0] = torch.eye(4, dtype=T_rel.dtype, device=dev)
+    with span("s2s.icp"):
+        src_mask = statics if use_static_points_only else scans.mask
+        tgt_mask = prev(statics) if use_static_points_only else prev(scans.mask)
+        init_T = _init_transform(velocities, use_doppler_prior)
+        res = icp_point_to_point(scans.xyz, prev(scans.xyz), src_mask, tgt_mask,
+                                 init_transform=init_T, cfg=cfg.icp)
+    with span("s2s.gate"):
+        T_rel, accepted = _gate_relative(cfg, res.transform, init_T, res.fitness)
+        # frame 0 pairs with itself: exactly identity, so a prior-seeded ICP
+        # residual cannot shift the trajectory's anchor
+        T_rel = T_rel.clone()
+        T_rel[0] = torch.eye(4, dtype=T_rel.dtype, device=dev)
 
-    # Suspect-pair containment (TrackingConfig.s2s_suspect_fitness): a
-    # corrupt pair takes the last healthy ACCEPTED delta (motion hold).
-    suspect_gate = float(cfg.tracking.s2s_suspect_fitness)
-    if math.isfinite(suspect_gate):
-        suspect = res.fitness > suspect_gate
-        ok = accepted & ~suspect
-        ok[0] = True                                   # identity seed
-        T_rel = torch.where(suspect[:, None, None], _hold_last_ok(T_rel, ok),
-                            T_rel)
-        accepted = accepted & ~suspect
+        # Suspect-pair containment (TrackingConfig.s2s_suspect_fitness): a
+        # corrupt pair takes the last healthy ACCEPTED delta (motion hold).
+        suspect_gate = float(cfg.tracking.s2s_suspect_fitness)
+        if math.isfinite(suspect_gate):
+            suspect = res.fitness > suspect_gate
+            ok = accepted & ~suspect
+            count("host_syncs")             # the scalar is copied from the host
+            ok[0] = True                                   # identity seed
+            T_rel = torch.where(suspect[:, None, None], _hold_last_ok(T_rel, ok),
+                                T_rel)
+            accepted = accepted & ~suspect
 
     # Phase 3: pose accumulation T_k = T_0 ... T_k as a prefix product.
-    world_T = _prefix_products(T_rel)
+    with span("s2s.chain"):
+        world_T = _prefix_products(T_rel)
 
     return ScanToScanOutput(
         icp_transform=T_rel, world_T=world_T, velocity=velocities,

@@ -69,6 +69,7 @@ import torch
 
 from icp4dradar_tpu_torch.geom.linalg import broadcast_shape, pairwise_sum
 from icp4dradar_tpu_torch.ops import _build
+from icp4dradar_tpu_torch.utils import profiling
 
 _BIG = 1e30
 NUM_ACC = 30
@@ -750,6 +751,7 @@ def vgicp_iteration_plain(
 def _sweep_plain(Tk, ops, gate, eps, return_best, groups, max_tile_elems=1 << 24):
     S, P, tm = ops.streams, ops.rows, ops.tm
     # live tiles per stream: tile 0 always, then every tile below the count
+    profiling.count("host_syncs")
     counts = ops.count.cpu().tolist()
     live_tiles = torch.tensor([max(1, min(-(-P // tm), -(-c // tm))) for c in counts])
     tgt = ops.tgt.reshape(S, P, 4)

@@ -25,6 +25,7 @@ import torch
 from icp4dradar_tpu_torch.config import DopplerRansacConfig
 from icp4dradar_tpu_torch.geom.linalg import solve3x3
 from icp4dradar_tpu_torch.io.scan import RadarScan
+from icp4dradar_tpu_torch.utils.profiling import span
 
 # Frames preprocessed together by `preprocess_frames`. The hypothesis
 # scoring tile is (frames, H, N) f32 and several such temporaries coexist in
@@ -208,11 +209,12 @@ def preprocess_frames(
 ):
     """`preprocess_scan` over a stacked (F, N) sequence, `chunk` frames at a
     time. uniforms: (F, 2, H). Returns (fit, static_mask, velocity) stacked
-    over F."""
+    over F. Each chunk is a span `doppler.chunk`."""
     parts = []
     for s in range(0, scans.xyz.shape[0], chunk):
-        fit, static, _, velocity = preprocess_scan(
-            scans[s:s + chunk], cfg, uniforms[s:s + chunk])
+        with span("doppler.chunk"):
+            fit, static, _, velocity = preprocess_scan(
+                scans[s:s + chunk], cfg, uniforms[s:s + chunk])
         parts.append((fit, static, velocity))
     fits = SineFit(*(torch.cat([getattr(p[0], f) for p in parts])
                      for f in ("A", "b", "inliers", "valid")))

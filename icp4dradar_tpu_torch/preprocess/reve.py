@@ -30,6 +30,7 @@ from icp4dradar_tpu_torch.geom.linalg import (
     small_matmul,
 )
 from icp4dradar_tpu_torch.io.scan import RadarScan
+from icp4dradar_tpu_torch.utils.profiling import count
 
 
 @dataclass(frozen=True)
@@ -154,6 +155,8 @@ def estimate_ego_velocity(
     # ---- acceptance gates (ref max_sigma_*, max_r_cond, outlier pct) ----
     n_gated = torch.clamp(torch.sum(gated_f, dim=-1), min=1.0)
     outlier_pct = 1.0 - n_in / n_gated
+    # two copies from the host below: on a card, each waits for the stream
+    count("host_syncs", 2)
     max_sigma = torch.tensor([cfg.max_sigma_x, cfg.max_sigma_y, cfg.max_sigma_z],
                              dtype=sigma.dtype, device=sigma.device)
     ok = (torch.all(sigma < max_sigma, dim=-1)

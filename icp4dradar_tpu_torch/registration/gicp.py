@@ -49,6 +49,7 @@ from icp4dradar_tpu_torch.geom.linalg import (
 from icp4dradar_tpu_torch.geom.se3 import se3_apply, se3_exp
 from icp4dradar_tpu_torch.geom.so3 import so3_hat
 from icp4dradar_tpu_torch.ops.knn import knn, nn_prepare, nn_search
+from icp4dradar_tpu_torch.utils.profiling import count
 
 
 @dataclass(frozen=True)
@@ -133,6 +134,9 @@ def live_point_covariances(
     dt, dev = xyz.dtype, xyz.device
     live = mask > 0.5
     counts = live.sum(dim=-1)
+    # a copy from the host, then a read of the largest count: on a card,
+    # each waits for the stream
+    count("host_syncs", 2)
     diag = torch.diag(torch.tensor([1.0, 1.0, cov_epsilon], dtype=dt, device=dev))
     L = int(counts.max())
     if L == 0:
@@ -260,6 +264,7 @@ def gicp_align_streams(
     iters = torch.zeros(S, dtype=torch.int32, device=dev)
     while it < cfg.max_iterations:
         active = delta > eps
+        count("host_syncs")
         if not bool(active.any()):                           # the iteration's host sync
             break
         T_new, dlt = gn_step(T)

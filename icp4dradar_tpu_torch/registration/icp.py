@@ -15,7 +15,11 @@ finished lanes: each pair keeps its own transform, step and iteration
 count, so a pair's result equals the unbatched call. A frozen pair is not
 swept again (the pass takes the active mask, on the device); the final
 fitness pass sweeps every pair. The loop ends when no pair is active,
-which costs one host sync per iteration.
+which costs one host sync per iteration. Its spans: `icp.prepare` (the
+clouds packed, and the first read of the active mask), `icp.iteration`
+per pass (one moments launch and the Horn step) with `icp.sync`, the read
+that decides the next pass (none after the cap's last), and
+`icp.fitness`.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from icp4dradar_tpu_torch.ops.icp_fused import (
     icp_prepare,
     moments_to_transform,
 )
+from icp4dradar_tpu_torch.utils.profiling import count, drained, span
 
 
 @dataclass(frozen=True)
@@ -67,33 +72,50 @@ def icp_point_to_point(
         tgt_mask = torch.ones(tgt_xyz.shape[:2], dtype=dt, device=dev)
     if init_transform is None:
         init_transform = torch.eye(4, dtype=dt, device=dev).expand(B, 4, 4)
-    ops = icp_prepare(src_xyz.contiguous(), src_mask.contiguous(), tgt_xyz.contiguous(),
-                      tgt_mask.contiguous())
+
+    def next_pass(passes, active) -> bool:
+        """Below the cap, whether any pair is active: the loop's one host
+        read a pass."""
+        if passes >= cfg.max_iterations:
+            return False
+        with span("icp.sync"):
+            count("host_syncs")
+            go = bool(active.any())
+            drained(active.device)
+            return go
+
+    with span("icp.prepare"):
+        ops = icp_prepare(src_xyz.contiguous(), src_mask.contiguous(), tgt_xyz.contiguous(),
+                          tgt_mask.contiguous())
+        T = init_transform.to(dt).contiguous()
+        iters = torch.zeros(B, dtype=torch.int32, device=dev)
+        delta = torch.full((B,), float("inf"), dtype=dt, device=dev)
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+        go = next_pass(0, active)
 
     def moments(T, active=None):
         return icp_moments(T, ops, cfg.max_correspondence_dist, active)
 
-    T = init_transform.to(dt).contiguous()
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    delta = torch.full((B,), float("inf"), dtype=dt, device=dev)
-    active = torch.ones(B, dtype=torch.bool, device=dev)
-    for _ in range(cfg.max_iterations):
-        if not bool(active.any()):
-            break
-        # frozen pairs get zero moments (an identity step) and keep T anyway
-        dT, _ = moments_to_transform(moments(T, active))
-        T = torch.where(active[:, None, None], dT @ T, T).contiguous()
-        delta = torch.where(active, torch.sum(torch.abs(se3_log(dT)), dim=-1),
-                            delta)
-        iters = iters + active.to(torch.int32)
-        active = (iters < cfg.max_iterations) & (delta > cfg.transformation_epsilon)
+    passes = 0
+    while go:
+        with span("icp.iteration"):
+            # frozen pairs get zero moments (an identity step) and keep T anyway
+            dT, _ = moments_to_transform(moments(T, active))
+            T = torch.where(active[:, None, None], dT @ T, T).contiguous()
+            delta = torch.where(active, torch.sum(torch.abs(se3_log(dT)), dim=-1),
+                                delta)
+            iters = iters + active.to(torch.int32)
+            active = (iters < cfg.max_iterations) & (delta > cfg.transformation_epsilon)
+            passes += 1
+            go = next_pass(passes, active)
 
-    # ONE post-convergence pass yields both fitness flavors: the pass emits
-    # gated moments plus the ungated [s(mask*d2), s(mask)] sums.
-    gm = moments(T)
-    fitness = gm[:, 17] / torch.clamp(gm[:, 18], min=1e-9)
-    _, gated_fitness = moments_to_transform(gm)
-    inlier_fraction = gm[:, 0] / torch.clamp(torch.sum(src_mask, dim=-1), min=1.0)
+    with span("icp.fitness"):
+        # ONE post-convergence pass yields both fitness flavors: the pass
+        # emits gated moments plus the ungated [s(mask*d2), s(mask)] sums.
+        gm = moments(T)
+        fitness = gm[:, 17] / torch.clamp(gm[:, 18], min=1e-9)
+        _, gated_fitness = moments_to_transform(gm)
+        inlier_fraction = gm[:, 0] / torch.clamp(torch.sum(src_mask, dim=-1), min=1.0)
     converged = delta <= max(cfg.transformation_epsilon, 1e-12)
     # PCL reports converged=true when it ran to completion
     converged = converged | (iters >= cfg.max_iterations)

@@ -16,7 +16,11 @@ iteration over every stream's frames, each against its own submap.
 
 The JAX package's `lax.while_loop` over GN iterations is a Python loop here:
 its condition costs one host sync per iteration, the only one (the sweep
-and frozen calls copy nothing from the host). With `gicp.inner_gn_steps
+and frozen calls copy nothing from the host). The loop's spans:
+`gn.prepare` (the operands packed, and the first read of the active
+mask), then per iteration `gn.iteration` with `gn.sweep` (K4 and its
+finish, and each K5 step), `gn.solve` (`_gn_update`) and `gn.sync` (the
+read that decides the next iteration, none after the cap's last). With `gicp.inner_gn_steps
 > 0` each GN body is one sweep followed by that many sweep-free steps on
 the payload the sweep matched (`vgicp_frozen`, the CUDA kernel
 `vgicp_frozen_launch` on the card), as the JAX package runs on the TPU; its
@@ -39,6 +43,21 @@ from icp4dradar_tpu_torch.ops.vgicp_fused import (
     vgicp_sweep,
 )
 from icp4dradar_tpu_torch.registration.gicp import GicpResult
+from icp4dradar_tpu_torch.utils.profiling import count, drained, span
+
+
+def _next_iteration(it: int, cfg: GicpConfig, delta) -> Optional[torch.Tensor]:
+    """The loop's condition: below the iteration cap, the active mask
+    `delta > eps` when any entry of it is set (the one host read of an
+    iteration, the span `gn.sync`), else None."""
+    if it >= cfg.max_iterations:
+        return None
+    active = delta > cfg.vgicp_transformation_epsilon
+    with span("gn.sync"):
+        count("host_syncs")
+        go = bool(active.any())
+        drained(active.device)
+        return active if go else None
 
 
 def _gn_update(T, H, g, cfg: GicpConfig, active=None):
@@ -114,41 +133,47 @@ def vgicp_align_streams(
     (S,P,6) / (S,P), tgt_count (S,), gate_axis (S,2), init_transforms
     (S,4,4) -> GicpResult with a leading (S,) axis."""
     S, dt, dev = src_xyz.shape[0], src_xyz.dtype, src_xyz.device
-    T = init_transforms.clone()
-    center = T[:, :3, 3].clone()
-    T[:, :3, 3] = 0.0
-    ops = vgicp_prepare(src_xyz, src_mask, src_cov6, tgt_mean - center[:, None, :], tgt_cov6,
-                        tgt_mask, tgt_count=tgt_count, gate_axis=gate_axis)
-    kw = dict(max_correspondence_dist=cfg.max_correspondence_dist, cov_eps=cfg.cov_epsilon,
-              _acc_groups=S)
-
-    it = 0
-    delta = torch.full((S,), float("inf"), dtype=dt, device=dev)
-    iters = torch.zeros(S, dtype=torch.int32, device=dev)
-    wsum = d2sum = torch.zeros(S, dtype=dt, device=dev)
     eps = cfg.vgicp_transformation_epsilon
     inner = cfg.inner_gn_steps
+    with span("gn.prepare"):
+        T = init_transforms.clone()
+        center = T[:, :3, 3].clone()
+        T[:, :3, 3] = 0.0
+        ops = vgicp_prepare(src_xyz, src_mask, src_cov6, tgt_mean - center[:, None, :],
+                            tgt_cov6, tgt_mask, tgt_count=tgt_count, gate_axis=gate_axis)
+        kw = dict(max_correspondence_dist=cfg.max_correspondence_dist, cov_eps=cfg.cov_epsilon,
+                  _acc_groups=S)
+        it = 0
+        delta = torch.full((S,), float("inf"), dtype=dt, device=dev)
+        iters = torch.zeros(S, dtype=torch.int32, device=dev)
+        wsum = d2sum = torch.zeros(S, dtype=dt, device=dev)
+        go = _next_iteration(it, cfg, delta)
+
     def per_stream(H, g, cost, ws, ds):
         # one stream's sums come back without the (S,) axis: restore it, so
         # that every S runs the same batched products
         return H.reshape(S, 6, 6), g.reshape(S, 6), ws.reshape(S), ds.reshape(S)
 
-    while it < cfg.max_iterations:
-        active = delta > eps
-        if not bool(active.any()):
-            break
-        H, g, cost, ws, ds, *best = vgicp_sweep(T, ops, return_best=inner > 0, **kw)
-        H, g, ws, ds = per_stream(H, g, cost, ws, ds)
-        T, dlt = _gn_update(T, H, g, cfg, active)
-        for _ in range(inner):
-            H, g, ws, ds = per_stream(*vgicp_frozen(T, ops, best[0], **kw))
-            T, d = _gn_update(T, H, g, cfg, active)
-            dlt = dlt + d
-        # a held stream keeps the fitness of its last evaluation
-        wsum, d2sum = torch.where(active, ws, wsum), torch.where(active, ds, d2sum)
-        delta = torch.where(active, dlt, delta)
-        iters = iters + active.to(torch.int32) * (1 + inner)
-        it += 1 + inner
+    while go is not None:
+        active = go
+        with span("gn.iteration"):
+            with span("gn.sweep"):
+                H, g, cost, ws, ds, *best = vgicp_sweep(T, ops, return_best=inner > 0, **kw)
+                H, g, ws, ds = per_stream(H, g, cost, ws, ds)
+            with span("gn.solve"):
+                T, dlt = _gn_update(T, H, g, cfg, active)
+            for _ in range(inner):
+                with span("gn.sweep"):
+                    H, g, ws, ds = per_stream(*vgicp_frozen(T, ops, best[0], **kw))
+                with span("gn.solve"):
+                    T, d = _gn_update(T, H, g, cfg, active)
+                    dlt = dlt + d
+            # a held stream keeps the fitness of its last evaluation
+            wsum, d2sum = torch.where(active, ws, wsum), torch.where(active, ds, d2sum)
+            delta = torch.where(active, dlt, delta)
+            iters = iters + active.to(torch.int32) * (1 + inner)
+            it += 1 + inner
+            go = _next_iteration(it, cfg, delta)
     fitness = d2sum / torch.clamp(wsum, min=1.0)
     converged = (delta <= eps) | (iters >= cfg.max_iterations)
     T = T.clone()
@@ -198,29 +223,32 @@ def vgicp_align_block(
     center = init_transforms.reshape(S, B, 4, 4)[:, 0, :3, 3].clone()     # (S, 3)
     T[:, :3, 3] -= center.repeat_interleave(B, dim=0)
     N = src_xyz.shape[-2]
-    tgt_c = tgt_mean - (center[:, None, :] if streamed else center)
-    ops = vgicp_prepare(src_xyz.reshape(S * B, N, 3), src_mask.reshape(S * B, N),
-                        src_cov6.reshape(S * B, N, 6), tgt_c, tgt_cov6, tgt_mask,
-                        tgt_count=tgt_count, gate_axis=gate_axis)
-
     eps = cfg.vgicp_transformation_epsilon
-    it = 0
-    delta = torch.full((S * B,), float("inf"), dtype=dt, device=dev)
-    iters = torch.zeros(S * B, dtype=torch.int32, device=dev)
-    wsum = d2sum = torch.zeros(S * B, dtype=dt, device=dev)
-    while it < cfg.max_iterations:
-        active = delta > eps
-        if not bool(active.any()):
-            break
-        H, g, _, ws, ds = vgicp_sweep(
-            T, ops, cfg.max_correspondence_dist, cfg.cov_epsilon, _acc_groups=S * B)
-        T, dlt = _gn_update(T, H, g, cfg, active)
-        # a stream with no active frame holds its last evaluation
-        live = active.reshape(S, B).any(dim=1).repeat_interleave(B)
-        wsum, d2sum = torch.where(live, ws, wsum), torch.where(live, ds, d2sum)
-        delta = torch.where(active, dlt, torch.zeros_like(dlt))
-        iters = iters + active.to(torch.int32)
-        it += 1
+    with span("gn.prepare"):
+        tgt_c = tgt_mean - (center[:, None, :] if streamed else center)
+        ops = vgicp_prepare(src_xyz.reshape(S * B, N, 3), src_mask.reshape(S * B, N),
+                            src_cov6.reshape(S * B, N, 6), tgt_c, tgt_cov6, tgt_mask,
+                            tgt_count=tgt_count, gate_axis=gate_axis)
+        it = 0
+        delta = torch.full((S * B,), float("inf"), dtype=dt, device=dev)
+        iters = torch.zeros(S * B, dtype=torch.int32, device=dev)
+        wsum = d2sum = torch.zeros(S * B, dtype=dt, device=dev)
+        go = _next_iteration(it, cfg, delta)
+    while go is not None:
+        active = go
+        with span("gn.iteration"):
+            with span("gn.sweep"):
+                H, g, _, ws, ds = vgicp_sweep(
+                    T, ops, cfg.max_correspondence_dist, cfg.cov_epsilon, _acc_groups=S * B)
+            with span("gn.solve"):
+                T, dlt = _gn_update(T, H, g, cfg, active)
+            # a stream with no active frame holds its last evaluation
+            live = active.reshape(S, B).any(dim=1).repeat_interleave(B)
+            wsum, d2sum = torch.where(live, ws, wsum), torch.where(live, ds, d2sum)
+            delta = torch.where(active, dlt, torch.zeros_like(dlt))
+            iters = iters + active.to(torch.int32)
+            it += 1
+            go = _next_iteration(it, cfg, delta)
     fitness = d2sum / torch.clamp(wsum, min=1.0)
     converged = (delta <= eps) | (it >= cfg.max_iterations)
     T = T.clone()

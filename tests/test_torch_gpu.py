@@ -970,6 +970,109 @@ def test_timer_profiler_and_float_guard_on_cuda(cuda, tmp_path):
         checked(masked)(torch.tensor([1.0, 10.0], device=cuda))
 
 
+# ---- the trackers' spans and `host_syncs` counter on the card
+def _synchronizing_calls(fn):
+    """(result, synchronizing CUDA calls that sync debug mode reports,
+    what the program recorded) of fn() under `recording()`."""
+    import warnings
+
+    from icp4dradar_tpu_torch.utils import profiling
+
+    profiling.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with profiling.recording():
+                out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rec = profiling.recorded()
+    profiling.reset()
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    return out, syncs, rec
+
+
+@pytest.mark.parametrize("tracker", ["fleet", "s2s"])
+def test_host_syncs_count_every_synchronizing_call(cuda, tracker):
+    """Over one small fleet replay (the blocked batch) and one scan-to-scan
+    replay, `host_syncs` equals the synchronizing calls sync debug mode
+    reports, each counted at its call site."""
+    from icp4dradar_tpu_torch.config import PipelineConfig
+    from icp4dradar_tpu_torch.io import SyntheticSequence
+    from icp4dradar_tpu_torch.io.scan import stack_scans
+    from icp4dradar_tpu_torch.models.scan_to_map import run_scan_to_map_batch
+    from icp4dradar_tpu_torch.models.scan_to_scan import run_scan_to_scan
+
+    def frames(n, seed):
+        seq = SyntheticSequence(num_frames=n, max_points=2048, num_landmarks=8000, seed=seed,
+                                speed=1.0)
+        return stack_scans([seq.scan(k, device=cuda) for k in range(n)])
+
+    if tracker == "fleet":
+        scans = stack_scans([frames(24, s) for s in (1, 2)])
+        cfg = PipelineConfig().override(**{"voxel_map.capacity": 1 << 16,
+                                           "voxel_map.submap_max_points": 1 << 13})
+
+        def run():
+            return run_scan_to_map_batch(scans, cfg, block=8, use_const_velocity_rot=True)[1]
+    else:
+        scans = frames(64, 3)
+
+        def run():
+            return run_scan_to_scan(scans, PipelineConfig(), use_doppler_prior=True)
+
+    run()                        # first calls build their constants
+    out, syncs, rec = _synchronizing_calls(run)
+    assert int(out.iterations.max()) > 0
+    where = sorted({f"{w.filename}:{w.lineno}" for w in syncs})
+    assert rec.counters.get("host_syncs", 0) == len(syncs), where
+
+
+def test_spans_hold_their_kernels_on_the_trace_clock(cuda, tmp_path):
+    """Under a CUDA-only profile, as the benchmark's traced section runs it,
+    each `torch.cuda._sleep` kernel launched inside a span starts at or
+    after the span's start on the trace's clock (ts + baseTimeNanoseconds,
+    moved by the clock anchors of the anchored span around them) to within
+    50 us, and, launched on an idle stream, soon after it."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from icp4dradar_tpu_torch.utils import profiling
+    from radarbench import spans as bench
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.span("replay", anchor=True):
+            for i in range(32):
+                if i % 2:
+                    torch.cuda.synchronize()        # every other kernel on an idle stream
+                with profiling.span("sleep"):
+                    torch.cuda._sleep(20000)
+    rec = profiling.recorded()
+    profiling.reset()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    base = doc["baseTimeNanoseconds"]
+    ops = [(e["name"], float(e["ts"]) * 1e-6, (float(e["ts"]) + float(e.get("dur", 0))) * 1e-6)
+           for e in doc["traceEvents"] if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    corr = bench.anchor_corrections(rec.anchors, base, ops)
+    # the replay's start and end; a profile can lose its first records
+    assert len(rec.anchors) == 2 and len(corr) >= 1
+    spans = [s for s in bench.on_trace_clock(rec.spans, base, corr) if s.name == "sleep"]
+    starts = sorted(float(e["ts"]) * 1e-6 for e in doc["traceEvents"] if e.get("cat") == "kernel")
+    assert len(starts) == len(spans) == 32
+    for i, (k, s) in enumerate(zip(starts, spans)):
+        assert k >= s.start - 50e-6, (i, (k - s.start) * 1e6)
+        if i % 2:
+            assert k <= s.end + 2e-3, (i, (k - s.end) * 1e6)
+
+
 # ---- the map-sharded layer under NCCL at world size 1: the ring's K4
 # (`return_best`) and K5 passes against the single-device sweep, the
 # sharded insert against the single-device map, and the CLI's refusal of
