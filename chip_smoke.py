@@ -82,7 +82,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              plus, per block, the largest sweep count of its 8 frames (no
              block may fall back to the sequential re-track). Fails on
              non-finite outputs, on a lost frame (fitness 1e6) or on an ATE
-             (align=False) outside 0.034 +- 0.01 m. A third run prints the
+             (align=False) outside 0.034 +- 0.01 m. The GN step's launches
+             (`gn_step`), counted over the same run, must equal its K4
+             sweeps (plus any K5 steps). A third run prints the
              host-clock phase split (REVE, sorts, sector query, GN loop,
              insert). Also checks CUDA against CPU on a 24 x 256 input, and
              runs the map API (radius and box searches, box delete and its
@@ -115,7 +117,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              timed run with the sweep launch count reset just before and
              read just after. It must equal, summed over the warm-up frames,
              the largest sweep count across streams, plus per block the
-             largest count of its 4 x 8 frames. Fails on a lost frame, on
+             largest count of its 4 x 8 frames; the GN step's launches,
+             counted with it, must equal the K4 sweeps. Fails on a lost frame, on
              non-finite outputs, or on a stream whose ATE (align=False,
              against its ground truth re-anchored at its first frame) lies
              outside the JAX CPU run's for that stream
@@ -295,6 +298,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              16,384-row union and an 8,192-row window and K2 on 4,096
              sources against their plain versions; the roofline module's
              hot-kernel reports with the card's launch floor; at most 60 s.
+18. gn step — the GN step kernel (`csrc/gn_step.cu`) against `gn_step_plain`
+             on the card at the main path's frame counts (1 and 8, the s2m
+             cell's warm-up and blocks; 32, the batch's blocks; 16 and 128,
+             the fleet's warm-up and blocks of 16 x 8; 1000), every fifth
+             frame inactive, non-finite, inside the Taylor window or 1 rad,
+             with and without the mask: T and dlt equal bit for bit, held
+             frames unchanged, one launch a call and no host sync; the call
+             and its plain version timed at 16 and 128 frames, with the
+             kernel's device time, its bound and phases 5 and 5b's launches.
 12. ab     — only with `--parent DIR` (a `git archive` of the parent commit
              unpacked at DIR): the K2, K3, K5 and K4 calls of both trees at the
              path shapes (K3 also per call), each tree in its own process,
@@ -313,13 +325,15 @@ and the packing's with phase 14's `batch_launches`,
 `single_stream_launches`, `batch_ms`, `batch_plain_ms` and
 `batch_bound_ms`, K2's also `batch_device_ms`, `batch_separate_ms` and
 `batch_max_abs_err`; K4's and K5's with phase 16's `distributed_launches`; K4's
-and K2's with phase 17's `accumulate_launches` and the new shapes' times), the
+and K2's with phase 17's `accumulate_launches` and the new shapes' times;
+`gn_step`'s row phase 18's, with `batch_launches` from phase 5b), the
 next one the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -368,6 +382,14 @@ NN_SOURCE = "icp4dradar_tpu_torch/csrc/nn_search.cu"
 NN_REPLACES = "icp4dradar_tpu/ops/knn.py:75"
 NN_COORDS_REPLACES = "icp4dradar_tpu/ops/knn.py:180"
 FROZEN_REPLACES = "icp4dradar_tpu/ops/vgicp_fused.py:264"
+GN_STEP_SOURCE = "icp4dradar_tpu_torch/csrc/gn_step.cu"
+# no Pallas kernel: the JAX package's step is plain jnp (its `gn_update`
+# closures)
+GN_STEP_REPLACES = "none: icp4dradar_tpu/registration/vgicp.py:98-102, 201-205 (plain jnp)"
+# phase 18: the frame counts the GN step is checked at, and those it is
+# timed at (the fleet's warm-up frames and its blocks of 16 streams x 8)
+GN_STEP_FRAMES, GN_STEP_TIMED = (1, 8, 16, 32, 128, 1000), (16, 128)
+GN_KINDS = ("active", "inactive", "nonfinite", "taylor", "one_rad")
 TRACK_FRAMES = 64
 # the kNN-GICP run profiled with its host ops (to find the covariances'
 # range): summing them costs ~0.1 ms an event, ~2.5 min for all 64 frames
@@ -1215,6 +1237,7 @@ def phase_s2m(torch, seq, scans):
     from icp4dradar_tpu_torch.preprocess import draw_reve_uniforms
     from icp4dradar_tpu_torch.utils import ate_rmse
 
+    gs = importlib.import_module("icp4dradar_tpu_torch.ops.gn_step")
     cfg = PipelineConfig()
     F, B = S2M_FRAMES, S2M_BLOCK
     s2m = scans[:F]
@@ -1231,10 +1254,13 @@ def phase_s2m(torch, seq, scans):
     torch.cuda.reset_peak_memory_stats()
     scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS = 0
     vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+    gs.GN_STEP_LAUNCHES = 0
+    k5 = vgicp_fused.VGICP_FROZEN_LAUNCHES
     t0 = time.perf_counter()
     state, out = run()
     dt = time.perf_counter() - t0
     launches = vgicp_fused.VGICP_SWEEP_LAUNCHES
+    gn_launches, k5 = gs.GN_STEP_LAUNCHES, vgicp_fused.VGICP_FROZEN_LAUNCHES - k5
     fallbacks = scan_to_map.SEQUENTIAL_FALLBACK_BLOCKS
     peak = torch.cuda.max_memory_allocated() / 2**30
     repeats = []
@@ -1253,6 +1279,10 @@ def phase_s2m(torch, seq, scans):
     if launches <= 0 or launches != expected or fallbacks != 0:
         raise RuntimeError(f"[s2m] launch count {launches} != {expected} or "
                            f"{fallbacks} blocks fell back")
+    log(f"[s2m] gn_step launches {gn_launches}, expected {launches + k5} (the K4 sweeps "
+        f"{launches} + K5 steps {k5})")
+    if gn_launches != launches + k5:
+        FAILED.append(f"[s2m] gn_step launches {gn_launches} != {launches + k5}")
     for f in ("world_T", "correction", "velocity", "velocity_sigma", "fitness"):
         x = getattr(out, f)
         if x.shape[0] != F or not bool(torch.isfinite(x).all()):
@@ -1298,7 +1328,7 @@ def phase_s2m(torch, seq, scans):
         f"{same_its}, fallback blocks {fb_gpu} / {fb_cpu}")
     if d > 1e-3 or fb_gpu != 0 or fb_cpu != 0:
         raise RuntimeError("[s2m] CUDA and CPU paths disagree on 24x256")
-    return launches, state, out, s2m, F / dt
+    return launches, state, out, s2m, F / dt, gn_launches
 
 
 def batch_launches_expected(its, block):
@@ -1320,6 +1350,7 @@ def phase_batch(torch, seq, scans, s2m_rate):
     from icp4dradar_tpu_torch.preprocess import reve_hypotheses
     from icp4dradar_tpu_torch.utils import ate_rmse, reve_batch_uniforms
 
+    gs = importlib.import_module("icp4dradar_tpu_torch.ops.gn_step")
     cfg = PipelineConfig()
     Bs, F, blk = BATCH_STREAMS, S2M_FRAMES, S2M_BLOCK
     batch = scans[:Bs * F]
@@ -1343,10 +1374,11 @@ def phase_batch(torch, seq, scans, s2m_rate):
     log(f"[batch] warm-up run {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     vgicp_fused.VGICP_SWEEP_LAUNCHES = 0
+    gs.GN_STEP_LAUNCHES = 0
     t0 = time.perf_counter()
     state, out = run()
     dt = time.perf_counter() - t0
-    launches = vgicp_fused.VGICP_SWEEP_LAUNCHES
+    launches, gn_launches = vgicp_fused.VGICP_SWEEP_LAUNCHES, gs.GN_STEP_LAUNCHES
     peak = torch.cuda.max_memory_allocated() / 2**30
     repeats = []
     for _ in range(3):
@@ -1365,6 +1397,9 @@ def phase_batch(torch, seq, scans, s2m_rate):
         f"{its.sum(axis=1).tolist()}, per frame mean {its.mean():.2f}")
     if launches <= 0 or launches != expected:
         raise RuntimeError(f"[batch] launch count {launches} != {expected}")
+    log(f"[batch] gn_step launches {gn_launches}, expected {launches} (one a K4 sweep)")
+    if gn_launches != launches:
+        FAILED.append(f"[batch] gn_step launches {gn_launches} != {launches}")
     for f in ("world_T", "correction", "velocity", "velocity_sigma", "fitness"):
         x = getattr(out, f)
         if tuple(x.shape[:2]) != (Bs, F) or not bool(torch.isfinite(x).all()):
@@ -1420,7 +1455,8 @@ def phase_batch(torch, seq, scans, s2m_rate):
                            f"sweeps equal on {same_its} of {F} frames, tables "
                            f"{'equal' if tables else 'differ'}")
     phase_map_cuda_cpu(torch, state, cfg)
-    return dict(launches=launches, rate=rate, state=state, out=out, batch=batch, uniforms=U)
+    return dict(launches=launches, gn_launches=gn_launches, rate=rate, state=state, out=out,
+                batch=batch, uniforms=U)
 
 
 def phase_session(torch, seq, scans, card):
@@ -3838,6 +3874,103 @@ def phase_accumulate(torch, seq, scans, card):
                  accumulate_max_abs_err=nerr))
 
 
+def gn_frames(torch, n, lm, seed):
+    """n GN steps at a sweep's scale, frame f of kind GN_KINDS[f % 5]: T,
+    H (SPD), g = -(H + lm I) xi for a chosen xi (theta^2 = 2.9e-9 for
+    'taylor', theta = 1 rad for 'one_rad'), NaN H for 'nonfinite', inactive
+    for 'inactive' -> (T, H, g, active, kind) on the card."""
+    from icp4dradar_tpu_torch.geom import se3_exp
+
+    rng = np.random.default_rng(seed)
+    T = se3_exp(torch.from_numpy(rng.normal(0, [2.0, 2.0, 0.2, 0.1, 0.1, 1.0], (n, 6))
+                                 .astype(np.float32)))
+    J = rng.normal(0, 1, (n, 64, 6)) * [1, 1, 1, 8, 8, 8]
+    H = np.einsum("nki,nkj->nij", J, J) * 20.0
+    xi = rng.normal(0, [0.05, 0.05, 0.02, 0.01, 0.01, 0.02], (n, 6))
+    kind = np.arange(n) % len(GN_KINDS)
+    xi[kind == 3, 3:] = [3e-5, -2e-5, 4e-5]
+    xi[kind == 4, 3:] = np.array([1.0, -2.0, 2.0]) / 3.0
+    g = -np.einsum("nij,nj->ni", H + lm * np.eye(6), xi)
+    H = torch.from_numpy(H.astype(np.float32))
+    H[torch.from_numpy(kind == 2)] = float("nan")
+    out = (T, H, torch.from_numpy(g.astype(np.float32)), torch.from_numpy(kind != 1),
+           torch.from_numpy(kind))
+    return tuple(x.to("cuda") for x in out)
+
+
+def phase_gn_step(torch, s2m_launches, batch_launches):
+    """The GN step kernel against `gn_step_plain` on the card: equal bits,
+    held frames unchanged, one launch and no host sync a call; the call and
+    the plain version timed (CUDA events, plain / kernel / kernel / plain)
+    with the kernel's device time and its bound."""
+    from icp4dradar_tpu_torch.config import GicpConfig
+    from icp4dradar_tpu_torch.utils import roofline as rl
+
+    gs = importlib.import_module("icp4dradar_tpu_torch.ops.gn_step")
+    lm = GicpConfig().lm_lambda
+    gs.GN_STEP_LAUNCHES = 0
+    calls, differ, max_err = 0, [], 0.0
+    for n in GN_STEP_FRAMES:
+        T, H, g, active, kind = gn_frames(torch, n, lm, seed=n)
+        for mask in (active, None):
+            Tk, dk = gs.gn_step(T, H, g, lm, mask)
+            calls += 1
+            Tp, dp = gs.gn_step_plain(T, H, g, lm, mask)
+            held = (kind == 2) | ((kind == 1) & (mask is not None))
+            bad_T, bad_d = int((Tk != Tp).sum()), int((dk != dp).sum())
+            max_err = max(max_err, (Tk - Tp).abs().max().item(), (dk - dp).abs().max().item())
+            held_ok = bool(torch.equal(Tk[held], T[held])) and not bool(dk[held].any())
+            if bad_T or bad_d or not held_ok:
+                differ.append(f"n={n} mask={mask is not None}: T entries {bad_T} of "
+                              f"{Tk.numel()} (max {(Tk - Tp).abs().max().item():.3e}), dlt "
+                              f"{bad_d} of {n} (max {(dk - dp).abs().max().item():.3e}), held "
+                              f"frames {'unchanged' if held_ok else 'moved'}")
+    log(f"[gn step] kernel against gn_step_plain at n = {list(GN_STEP_FRAMES)}, with and "
+        f"without the mask: " + ("T and dlt equal bit for bit, held frames unchanged"
+                                 if not differ else "; ".join(differ)))
+    if differ:
+        FAILED.append("[gn step] the kernel differs from gn_step_plain")
+    if gs.GN_STEP_LAUNCHES != calls:
+        raise RuntimeError(f"[gn step] {gs.GN_STEP_LAUNCHES} launches for {calls} calls")
+
+    row = dict(launches=s2m_launches, batch_launches=batch_launches, library_ms=None,
+               max_abs_err=max_err)
+    reps = 20
+    for n in GN_STEP_TIMED:
+        T, H, g, active, _ = gn_frames(torch, n, lm, seed=7 * n)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gs.gn_step(T, H, g, lm, active)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+        def kernel():
+            for _ in range(reps):
+                gs.gn_step(T, H, g, lm, active)
+
+        def plain():
+            for _ in range(reps):
+                gs.gn_step_plain(T, H, g, lm, active)
+
+        p1, k1, k2, p2 = (time_cuda(torch, f) / reps for f in (plain, kernel, kernel, plain))
+        dev_ms = kernel_device_ms(torch, kernel, ("gn_step_kernel",))
+        kernels = call_kernels(torch, lambda: gs.gn_step(T, H, g, lm, active))
+        check_one_kernel("gn step", kernels, "gn_step_kernel")
+        plain_kernels = call_kernels(torch, lambda: gs.gn_step_plain(T, H, g, lm, active))
+        plain_launches = (None if plain_kernels is None
+                          else sum(max(1, round(c)) for c, _ in plain_kernels.values()))
+        bound_ms, bound_by = rl.gn_step_bound(n).bound()
+        log(f"[gn step] {n} frames: the call {k1:.4f} / {k2:.4f} ms (device time a launch "
+            f"{fmt_ms(dev_ms)}, profiler; no host sync), plain {p1:.4f} / {p2:.4f} ms "
+            f"({plain_launches} launches a call); bound {bound_ms:.3e} ms ({bound_by})")
+        key = "" if n == 128 else f"n{n}_"
+        row.update({f"{key}frames": n, f"{key}ms": (k1 + k2) / 2, f"{key}plain_ms": (p1 + p2) / 2,
+                    f"{key}device_ms": dev_ms, f"{key}plain_launches": plain_launches,
+                    f"{key}bound_ms": bound_ms, f"{key}bound_by": bound_by})
+    return row
+
+
 def ab_child(tree):
     """Times the K2, K3, K5 and K4 calls of the package in `tree` (this tree
     or the parent commit's) at the path shapes, on inputs made from a seed,
@@ -4048,7 +4181,7 @@ def main(argv) -> int:
     icp_launches, scans_per_s, ate, s2s_out = phase_slice(torch, seq, scans)
     local_map = phase_local_map(torch, scans, s2s_out.world_T.cpu().numpy())
     mark("slice, local map")
-    vg_launches, state, out, s2m, s2m_rate = phase_s2m(torch, seq, scans)
+    vg_launches, state, out, s2m, s2m_rate, s2m_gn = phase_s2m(torch, seq, scans)
     mark("s2m")
     pg_k1, pg_k4 = phase_pose_graph(torch, card)     # 4c, after 5: the s2m path is warm
     mark("pose graph")
@@ -4078,6 +4211,8 @@ def main(argv) -> int:
     mark("distributed")
     acc_k4, acc_k2 = phase_accumulate(torch, seq, scans, card)
     mark("accumulate")
+    gn_step = phase_gn_step(torch, s2m_gn, batch["gn_launches"])
+    mark("gn step")
     if parent is not None:
         phase_ab(parent)
     if FAILED:
@@ -4101,6 +4236,8 @@ def main(argv) -> int:
         {"name": "vgicp_frozen", "route": "cuda", "source": VGICP_SOURCE,
          "replaces": FROZEN_REPLACES, "launches": frozen_launches, **frozen,
          "distributed_launches": dist16["k5"]},
+        {"name": "gn_step", "route": "cuda", "source": GN_STEP_SOURCE,
+         "replaces": GN_STEP_REPLACES, **gn_step},
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

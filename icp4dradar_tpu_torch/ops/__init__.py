@@ -1,7 +1,7 @@
 """Compute kernels: the fused ICP-moments pass, the fused VGICP sweep and
-its frozen-payload GN pass, the masked 1-NN search (CUDA kernels + plain
-versions), the chunked k-NN, masked compaction. The library is built from
-`csrc/` at the first CUDA launch."""
+its frozen-payload GN pass, the damped GN step, the masked 1-NN search
+(CUDA kernels + plain versions), the chunked k-NN, masked compaction. The
+library is built from `csrc/` at the first CUDA launch."""
 
 from icp4dradar_tpu_torch.ops.icp_fused import (  # noqa: F401
     IcpOperands,
@@ -12,6 +12,7 @@ from icp4dradar_tpu_torch.ops.icp_fused import (  # noqa: F401
     moments_to_transform,
 )
 from icp4dradar_tpu_torch.ops.compaction import mask_compact  # noqa: F401
+from icp4dradar_tpu_torch.ops.gn_step import gn_step, gn_step_plain  # noqa: F401
 from icp4dradar_tpu_torch.ops.knn import (  # noqa: F401
     NnOperands,
     knn,

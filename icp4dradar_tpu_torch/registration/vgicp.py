@@ -15,12 +15,14 @@ iteration over every stream's frames, each against its own submap.
 `vgicp_align` is its one-stream case.
 
 The JAX package's `lax.while_loop` over GN iterations is a Python loop here:
-its condition costs one host sync per iteration, the only one (the sweep
-and frozen calls copy nothing from the host). The loop's spans:
+its condition costs one host sync per iteration, the only one (the sweep,
+frozen and step calls copy nothing from the host). The loop's spans:
 `gn.prepare` (the operands packed, and the first read of the active
 mask), then per iteration `gn.iteration` with `gn.sweep` (K4 and its
-finish, and each K5 step), `gn.solve` (`_gn_update`) and `gn.sync` (the
-read that decides the next iteration, none after the cap's last). With `gicp.inner_gn_steps
+finish, and each K5 step), `gn.solve` (`gn_step`: the damped step
+T <- exp(xi) T of every frame, one kernel launch on the card) and
+`gn.sync` (the read that decides the next iteration, none after the cap's
+last). With `gicp.inner_gn_steps
 > 0` each GN body is one sweep followed by that many sweep-free steps on
 the payload the sweep matched (`vgicp_frozen`, the CUDA kernel
 `vgicp_frozen_launch` on the card), as the JAX package runs on the TPU; its
@@ -34,8 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from icp4dradar_tpu_torch.config import GicpConfig
-from icp4dradar_tpu_torch.geom.linalg import small_matmul, solve_spd6
-from icp4dradar_tpu_torch.geom.se3 import se3_exp
+from icp4dradar_tpu_torch.ops.gn_step import gn_step
 from icp4dradar_tpu_torch.ops.vgicp_fused import (
     radar_point_covariances_packed,
     vgicp_frozen,
@@ -58,18 +59,6 @@ def _next_iteration(it: int, cfg: GicpConfig, delta) -> Optional[torch.Tensor]:
         go = bool(active.any())
         drained(active.device)
         return active if go else None
-
-
-def _gn_update(T, H, g, cfg: GicpConfig, active=None):
-    """One damped GN step T <- exp(xi) T with xi = -H^-1 g; non-finite
-    steps (no correspondences) and inactive frames hold. Returns (T,
-    sum |xi|)."""
-    eye = torch.eye(6, dtype=T.dtype, device=T.device)
-    xi = solve_spd6(H + cfg.lm_lambda * eye, -g)
-    xi = torch.where(torch.isfinite(xi), xi, 0.0)
-    if active is not None:
-        xi = torch.where(active[..., None], xi, 0.0)   # converged frames hold
-    return small_matmul(se3_exp(xi), T), torch.sum(torch.abs(xi), dim=-1)
 
 
 def vgicp_align(
@@ -161,12 +150,12 @@ def vgicp_align_streams(
                 H, g, cost, ws, ds, *best = vgicp_sweep(T, ops, return_best=inner > 0, **kw)
                 H, g, ws, ds = per_stream(H, g, cost, ws, ds)
             with span("gn.solve"):
-                T, dlt = _gn_update(T, H, g, cfg, active)
+                T, dlt = gn_step(T, H, g, cfg.lm_lambda, active)
             for _ in range(inner):
                 with span("gn.sweep"):
                     H, g, ws, ds = per_stream(*vgicp_frozen(T, ops, best[0], **kw))
                 with span("gn.solve"):
-                    T, d = _gn_update(T, H, g, cfg, active)
+                    T, d = gn_step(T, H, g, cfg.lm_lambda, active)
                     dlt = dlt + d
             # a held stream keeps the fitness of its last evaluation
             wsum, d2sum = torch.where(active, ws, wsum), torch.where(active, ds, d2sum)
@@ -241,7 +230,7 @@ def vgicp_align_block(
                 H, g, _, ws, ds = vgicp_sweep(
                     T, ops, cfg.max_correspondence_dist, cfg.cov_epsilon, _acc_groups=S * B)
             with span("gn.solve"):
-                T, dlt = _gn_update(T, H, g, cfg, active)
+                T, dlt = gn_step(T, H, g, cfg.lm_lambda, active)
             # a stream with no active frame holds its last evaluation
             live = active.reshape(S, B).any(dim=1).repeat_interleave(B)
             wsum, d2sum = torch.where(live, ws, wsum), torch.where(live, ds, d2sum)

@@ -24,7 +24,8 @@ Two kinds of model live here.
   least time for the work a call's data needs (the live pairs, not the
   padded grid), each input read once and each output written once:
   `icp_moments_bound` (K1), `vgicp_sweep_bound` (K4), `nn_search_bound`
-  (K2, K3), `nn_pack_bound` (K2's packing) and `vgicp_frozen_bound` (K5).
+  (K2, K3), `nn_pack_bound` (K2's packing), `vgicp_frozen_bound` (K5)
+  and `gn_step_bound` (the GN step).
   Compares are not counted: a pair's squared distance is 3 subtractions
   and 3 multiply-adds, 9 operations.
 """
@@ -50,6 +51,10 @@ FROZEN_OPS_PER_SOURCE = 320   # p = R s + t, the fresh distance, the GN epilogue
 ICP_MOMENTS_OUT = 19          # K1's moment sums a pair
 VGICP_ACC_OUT = 30            # K4's H (21), g (6), cost, sum w, sum w d2
 FROZEN_OUT = 45               # K5's finished values a group
+# the damped GN step a frame (`csrc/gn_step.cu`): H + lm I 72, -g 6, the
+# Schur solve 287, |xi| 6, se3_exp 165 (sin, cos, sqrt one each), exp(xi) T
+# 128, sum |xi| 9
+GN_STEP_OPS_PER_FRAME = 673
 
 
 @dataclass(frozen=True)
@@ -197,6 +202,14 @@ def vgicp_frozen_bound(n: int, groups: int = 1) -> KernelRoofline:
     return KernelRoofline(
         "vgicp_frozen", fp32_ops=FROZEN_OPS_PER_SOURCE * float(n),
         hbm_bytes=4.0 * (16 * groups + 10 * n + 10 * n + FROZEN_OUT * groups), launches=1)
+
+
+def gn_step_bound(n: int) -> KernelRoofline:
+    """The GN step (`csrc/gn_step.cu` `gn_step_launch`) for n frames: T
+    (16 floats), H (36), g (6) and the active byte read once, T (16) and
+    dlt (1) written: 301 bytes and 673 operations a frame."""
+    return KernelRoofline("gn_step", fp32_ops=GN_STEP_OPS_PER_FRAME * float(n),
+                          hbm_bytes=n * (4.0 * (16 + 36 + 6 + 16 + 1) + 1), launches=1)
 
 
 # ---- measurement on the card ----

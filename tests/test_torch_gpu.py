@@ -1137,3 +1137,106 @@ def test_cli_distributed_refuses_more_ranks_than_cards(cuda, capsys):
                            "--device", "cuda", "--out", "unused"])
     assert e.value.code == 2
     assert f"--distributed {n} --device cuda needs {n} CUDA devices" in capsys.readouterr().err
+
+
+# ---- the damped GN step (csrc/gn_step.cu) against its plain version: the
+# same float32 operations in the same order, each small product's sum in the
+# order torch.sum takes it, so T and dlt are equal bit for bit, and a held
+# frame keeps its T.
+gn_step_mod = importlib.import_module("icp4dradar_tpu_torch.ops.gn_step")
+GN_LM = 1e-6
+GN_KINDS = ("active", "inactive", "nonfinite", "taylor", "one_rad")
+
+
+def _gn_frames(n, device, seed=0):
+    """n frames, frame f of kind GN_KINDS[f % 5]: T, H (SPD, a sweep's
+    scale), g = -(H + lm I) xi for a chosen xi (theta^2 = 2.9e-9 for
+    'taylor', theta = 1 rad for 'one_rad'), non-finite H for 'nonfinite',
+    inactive for 'inactive' -> ((T, H, g, active), kinds)."""
+    rng = np.random.default_rng(seed)
+    T = se3_exp(torch.from_numpy(rng.normal(0, [2.0, 2.0, 0.2, 0.1, 0.1, 1.0], (n, 6))
+                                 .astype(np.float32)))
+    J = rng.normal(0, 1, (n, 64, 6)) * [1, 1, 1, 8, 8, 8]
+    H = np.einsum("nki,nkj->nij", J, J) * 20.0
+    xi = rng.normal(0, [0.05, 0.05, 0.02, 0.01, 0.01, 0.02], (n, 6))
+    kind = np.arange(n) % len(GN_KINDS)
+    xi[kind == 3, 3:] = [3e-5, -2e-5, 4e-5]
+    xi[kind == 4, 3:] = np.array([1.0, -2.0, 2.0]) / 3.0
+    g = -np.einsum("nij,nj->ni", H + GN_LM * np.eye(6), xi)
+    H = torch.from_numpy(H.astype(np.float32))
+    H[torch.from_numpy(kind == 2)] = float("nan")
+    args = (T, H, torch.from_numpy(g.astype(np.float32)), torch.from_numpy(kind != 1))
+    return tuple(x.to(device) for x in args), torch.from_numpy(kind).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 16, 128, 1000])
+def test_gn_step_kernel_matches_plain(cuda, n):
+    (T, H, g, active), kind = _gn_frames(n, cuda, seed=n)
+    for mask in (active, None):
+        before = gn_step_mod.GN_STEP_LAUNCHES
+        Tk, dk = gn_step_mod.gn_step(T, H, g, GN_LM, mask)
+        torch.cuda.synchronize()
+        assert gn_step_mod.GN_STEP_LAUNCHES == before + 1
+        Tp, dp = gn_step_mod.gn_step_plain(T, H, g, GN_LM, mask)
+        assert torch.equal(Tk, Tp) and torch.equal(dk, dp)
+        held = (kind == 2) | ((kind == 1) & (mask is not None))
+        assert torch.equal(Tk[held], T[held]) and not dk[held].any()
+        assert bool(dk[~held].gt(0).all())
+
+
+def test_gn_step_kernel_rows_keep_their_bits_and_nothing_syncs(cuda):
+    """Row 0 has the same bits at every batch size; two launches on the
+    same inputs give the same bits; a call neither waits for the device
+    nor copies from the host, and launches once."""
+    (T, H, g, active), _ = _gn_frames(1000, cuda, seed=7)
+    one = gn_step_mod.gn_step(T[:1], H[:1], g[:1], GN_LM, active[:1])
+    for n in (16, 128, 1000):
+        got = gn_step_mod.gn_step(T[:n], H[:n], g[:n], GN_LM, active[:n])
+        assert all(torch.equal(a[:1], b) for a, b in zip(got, one))
+    before = gn_step_mod.GN_STEP_LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = gn_step_mod.gn_step(T, H, g, GN_LM, active)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert gn_step_mod.GN_STEP_LAUNCHES == before + 1
+    b = gn_step_mod.gn_step(T, H, g, GN_LM, active)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # strided views (the frozen step's rows of 45) launch as they are
+    rows = torch.cat([H.reshape(-1, 36), g, torch.zeros(1000, 3, device=cuda)], dim=-1)
+    c = gn_step_mod.gn_step(T, rows[:, :36].unflatten(-1, (6, 6)), rows[:, 36:42], GN_LM, active)
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
+
+
+def test_gn_step_launches_equal_the_gn_sweeps(cuda):
+    """In one `vgicp_align_block` run the GN steps launch once a K4 sweep;
+    with inner steps `vgicp_align_streams` once a sweep or K5 step."""
+    from icp4dradar_tpu_torch.config import GicpConfig
+    from icp4dradar_tpu_torch.registration import vgicp as reg
+
+    S, B, N, P = 2, 4, 512, 3000
+    rng = np.random.default_rng(11)
+    world = rng.uniform(-20, 20, (S, P, 3)).astype(np.float32)
+    world[..., 2] *= 0.1
+    tcov = np.zeros((S, P, 6), np.float32)
+    tcov[..., :3] = np.abs(rng.normal(0.02, 0.005, (S, P, 3)))
+    pick = rng.integers(0, P, (S, B, N))
+    src = np.take_along_axis(world[:, None], pick[..., None], axis=2) \
+        + rng.normal(0, 0.02, (S, B, N, 3))
+    src, world, tcov = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (src, world, tcov))
+    init = se3_exp(torch.tensor([[0.2, -0.1, 0.0, 0.0, 0.0, 0.01]] * (S * B))).to(cuda)
+    sm, tm = torch.ones(S, B, N, device=cuda), torch.ones(S, P, device=cuda)
+    scov = radar_point_covariances_packed(src)
+    k4, k5, gn = (vgicp_fused.VGICP_SWEEP_LAUNCHES, vgicp_fused.VGICP_FROZEN_LAUNCHES,
+                  gn_step_mod.GN_STEP_LAUNCHES)
+    r, _ = reg.vgicp_align_block(src, world, tcov, sm, tm, scov, init.reshape(S, B, 4, 4),
+                                 GicpConfig(max_iterations=8))
+    sweeps = vgicp_fused.VGICP_SWEEP_LAUNCHES - k4
+    assert sweeps > 1 and gn_step_mod.GN_STEP_LAUNCHES - gn == sweeps
+    assert int(r.iterations.max()) == sweeps
+    k4, gn = vgicp_fused.VGICP_SWEEP_LAUNCHES, gn_step_mod.GN_STEP_LAUNCHES
+    reg.vgicp_align_streams(src[:, 0], world, tcov, sm[:, 0], tm, scov[:, 0], init[::B],
+                            GicpConfig(max_iterations=8, inner_gn_steps=1))
+    steps = vgicp_fused.VGICP_SWEEP_LAUNCHES - k4 + vgicp_fused.VGICP_FROZEN_LAUNCHES - k5
+    assert steps > 2 and gn_step_mod.GN_STEP_LAUNCHES - gn == steps

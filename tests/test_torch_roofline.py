@@ -61,6 +61,8 @@ def test_walls_and_the_binding_one():
     assert k1.hbm_bytes == 4 * (16 * 1024 + 4 * 1024 * 2048 * 2 + 19 * 1024)
     assert pr.slot_floor_ms(pr.H100_FP32_SLOTS_PER_S) == 1e3
     assert pr.vgicp_frozen_bound(2048).bound()[1] == "bytes"        # PERF.md: 0.000049 ms
+    gn = pr.gn_step_bound(128)                     # 301 bytes a frame, bound by them
+    assert gn.hbm_bytes == 128 * 301 and gn.bound()[1] == "bytes"
 
 
 def test_measure_hot_kernels_needs_the_card():
